@@ -1,0 +1,38 @@
+"""The port imports neither JAX nor the JAX package.
+
+Every module of ``odwscl_tpu_torch`` and ``chip_smoke.py`` is imported in a
+subprocess where ``jax`` and ``odwscl_tpu`` are blocked
+(``sys.modules[name] = None`` makes their import fail); afterwards no
+``jax*`` or ``odwscl_tpu.*`` module may be loaded. No tolerance applies.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "odwscl_tpu"):
+    sys.modules[name] = None
+import odwscl_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(odwscl_tpu_torch.__path__,
+                                               "odwscl_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "flax", "odwscl_tpu")))
+print(len(names), "modules", bad)
+assert not bad, bad
+assert len(names) >= 30, names
+"""
+
+
+def test_port_imports_without_jax():
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("[]"), proc.stdout
