@@ -1,13 +1,17 @@
-"""Write a synthetic VOC-layout test split and its proposal pickle.
+"""Write synthetic VOC-layout test and trainval splits and their proposal
+pickles.
 
 The same layout and generator as ``tools/make_synthetic_voc.py``:
-``<out>/voc/VOC2007/{JPEGImages,Annotations,ImageSets/Main}`` plus a
-Selective-Search-style proposal pickle (jittered GT boxes, then random
-boxes), all from one seeded ``numpy.random.RandomState``. Image size,
+``<out>/voc/VOC2007/{JPEGImages,Annotations,ImageSets/Main}`` plus
+Selective-Search-style proposal pickles (jittered GT boxes, then random
+boxes), all from one seeded ``numpy.random.RandomState``: the test split
+first (ids 1..n_test, one or two objects each), then the trainval split
+(the next n_trainval ids, one to three labelled objects each). Image size,
 proposal count and box sizes are arguments, so the same writer serves
-small test sets and VOC-sized eval runs.
+small test sets and VOC-sized runs.
 
-    python -m odwscl_tpu_torch.data.synthetic --out DIR [--n-test N ...]
+    python -m odwscl_tpu_torch.data.synthetic --out DIR [--n-test N]
+        [--n-trainval N ...]
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ def make_split(root: str, split: str, ids: Sequence[str],
                rng: np.random.RandomState, n_props: int = 64,
                img_hw: Tuple[int, int] = (120, 144),
                prop_size: Tuple[int, int] = (22, 70),
-               obj_size: Tuple[int, int] = (30, 60)):
-    """Images, annotations and the split list; returns (boxes, ids)."""
+               obj_size: Tuple[int, int] = (30, 60),
+               n_obj: Tuple[int, int] = (1, 3)):
+    """Images, annotations and the split list; returns (boxes, ids). Each
+    image gets ``randint(*n_obj)`` objects."""
     from PIL import Image
 
     for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
@@ -51,7 +57,7 @@ def make_split(root: str, split: str, ids: Sequence[str],
     for img_id in ids:
         img = rng.uniform(0, 80, (h, w, 3)).astype(np.uint8)
         objects, gt = [], []
-        for _ in range(rng.randint(1, 3)):
+        for _ in range(rng.randint(*n_obj)):
             ow, oh = rng.randint(*obj_size), rng.randint(*obj_size)
             x1 = rng.randint(0, w - ow)
             y1 = rng.randint(0, h - oh)
@@ -92,18 +98,26 @@ def write_synthetic_voc(out: str, n_test: int = 4, seed: int = 0,
                         n_props: int = 64,
                         prop_size: Tuple[int, int] = (22, 70),
                         obj_size: Tuple[int, int] = (30, 60),
-                        test_proposal_file: str = "proposal/SS-voc07_test.pkl"
-                        ) -> str:
-    """The VOC2007 ``test`` split under ``out``; the proposal file is a path
-    relative to ``out``."""
+                        test_proposal_file: str = "proposal/SS-voc07_test.pkl",
+                        n_trainval: int = 0,
+                        train_proposal_file: str =
+                        "proposal/SS-voc07_trainval.pkl") -> str:
+    """The VOC2007 ``test`` split (and a ``trainval`` split when
+    ``n_trainval`` > 0) under ``out``; proposal files are paths relative to
+    ``out``."""
     rng = np.random.RandomState(seed)
     root = os.path.join(out, "voc", "VOC2007")
-    ids = [f"{i:06d}" for i in range(1, n_test + 1)]
-    boxes, img_ids = make_split(root, "test", ids, rng, n_props, img_hw,
-                                prop_size, obj_size)
-    path = os.path.join(out, test_proposal_file)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    write_proposal_pickle(path, boxes, img_ids)
+    splits = [("test", range(1, n_test + 1), test_proposal_file, (1, 3))]
+    if n_trainval:
+        splits.append(("trainval", range(n_test + 1, n_test + n_trainval + 1),
+                       train_proposal_file, (1, 4)))
+    for split, id_range, pfile, n_obj in splits:
+        ids = [f"{i:06d}" for i in id_range]
+        boxes, img_ids = make_split(root, split, ids, rng, n_props, img_hw,
+                                    prop_size, obj_size, n_obj)
+        path = os.path.join(out, pfile)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_proposal_pickle(path, boxes, img_ids)
     return out
 
 
@@ -117,11 +131,16 @@ def main(argv=None):
     ap.add_argument("--n-props", type=int, default=64)
     ap.add_argument("--test-proposal-file",
                     default="proposal/SS-voc07_test.pkl")
+    ap.add_argument("--n-trainval", type=int, default=0)
+    ap.add_argument("--train-proposal-file",
+                    default="proposal/SS-voc07_trainval.pkl")
     a = ap.parse_args(argv)
     write_synthetic_voc(a.out, a.n_test, a.seed, (a.img_h, a.img_w),
-                        a.n_props, test_proposal_file=a.test_proposal_file)
-    print(f"synthetic VOC test split at {a.out}: {a.n_test} images "
-          f"({a.img_h}x{a.img_w}, {a.n_props} proposals)")
+                        a.n_props, test_proposal_file=a.test_proposal_file,
+                        n_trainval=a.n_trainval,
+                        train_proposal_file=a.train_proposal_file)
+    print(f"synthetic VOC at {a.out}: {a.n_test} test and {a.n_trainval} "
+          f"trainval images ({a.img_h}x{a.img_w}, {a.n_props} proposals)")
 
 
 if __name__ == "__main__":

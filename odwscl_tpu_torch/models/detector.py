@@ -1,8 +1,10 @@
-"""The WSOD detector, eval path: backbone -> RoI pool -> neck -> heads.
+"""The WSOD detector: backbone -> RoI pool -> neck -> heads (+ the loss).
 
 Counterpart of ``odwscl_tpu/models/detector.py`` (``Batch``,
-``WSODDetector.pool`` / ``eval_forward``, ``detector_from_cfg``). The
-training forward comes with the training slice.
+``WSODDetector.pool`` / ``eval_forward`` / ``train_forward``,
+``detector_from_cfg``). ``train_forward`` covers the main configuration:
+MIST heads, DropBlock view, contrastive mining (``SOLVER.CONTRA``) with
+SupCon and ``od_layer`` pseudo-labels.
 
 Static padded layout as in the JAX package: images [B, H, W, 3] NHWC,
 proposals [B, P, 4] with a [B, P] mask.
@@ -11,23 +13,28 @@ proposals [B, P, 4] with a [B, P] mask.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.roi_pool import roi_pool
+from ..losses import (assemble_bank, avg_image_accuracy, mil_loss, od_layer,
+                      refinement_cls_loss, refinement_reg_loss, stage_a,
+                      stage_b, supcon_loss, supcon_v2_loss,
+                      wsddn_final_score)
+from ..ops.dropblock import dropblock_2d, noise_augment
+from ..ops.roi_pool import RoIPoolFunction
 from ..structures.boxes import clip_to_image, decode_boxes
 from .predictors import MISTPredictor
 from .sim_net import SimNet
-from .vgg16 import VGGBackbone, VGGRoINeck
+from .vgg16 import FREEZE_CONV_COUNTS, VGGBackbone, VGGRoINeck
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclasses.dataclass
 class Batch:
-    """One padded eval batch (image-level fields)."""
+    """One padded batch (image-level fields)."""
 
     images: torch.Tensor       # [B, H, W, 3] normalized (BGR*255 - mean)
     image_sizes: torch.Tensor  # [B, 2] (h, w) before padding, f32
@@ -56,7 +63,16 @@ class WSODDetector(nn.Module):
                  regress_heur: str = "AVG",
                  reg_weights: Tuple[float, float, float, float] = (10.0, 10.0,
                                                                   5.0, 5.0),
-                 compute_dtype: str = "bfloat16"):
+                 compute_dtype: str = "bfloat16",
+                 db_method: str = "dropblock", db_size: int = 3,
+                 db_prob: float = 0.3, contra: bool = True,
+                 partial_labels: str = "none",
+                 faster_rcnn: bool = False, p_thres: float = 0.5,
+                 mining_nms: float = 0.1, lmda: float = 0.1,
+                 temperature: float = 0.2, loss_type: str = "supconv2",
+                 fg_iou: float = 0.5, cap_a: int = 768, cap_b: int = 256,
+                 gt_cap: int = 128, neck_dropout: float = 0.5,
+                 freeze_convs: int = 4):
         super().__init__()
         if not backbone_arch.startswith("VGG16"):
             raise NotImplementedError(f"backbone {backbone_arch!r} is not "
@@ -74,10 +90,19 @@ class WSODDetector(nn.Module):
         self.regress_on = regress_on
         self.regress_heur = regress_heur
         self.reg_weights = tuple(reg_weights)
+        self.num_refs = num_refs
+        self.db_method, self.db_size, self.db_prob = db_method, db_size, db_prob
+        self.contra = contra
+        self.partial_labels, self.faster_rcnn = partial_labels, faster_rcnn
+        self.p_thres, self.mining_nms = p_thres, mining_nms
+        self.lmda, self.temperature = lmda, temperature
+        self.loss_type, self.fg_iou = loss_type, fg_iou
+        self.cap_a, self.cap_b, self.gt_cap = cap_a, cap_b, gt_cap
         dtype = _DTYPES[compute_dtype]
         self.compute_dtype = dtype
-        self.backbone = VGGBackbone(backbone_arch, dtype)
-        self.neck = VGGRoINeck(512 * pooler_resolution ** 2, mlp_dim, dtype)
+        self.backbone = VGGBackbone(backbone_arch, dtype, freeze_convs)
+        self.neck = VGGRoINeck(512 * pooler_resolution ** 2, mlp_dim, dtype,
+                               neck_dropout)
         self.sim_net = SimNet(mlp_dim, compute_dtype=dtype)
         self.pred = MISTPredictor(mlp_dim, num_classes, num_refs,
                                   cls_agnostic_bbox_reg, dtype)
@@ -90,9 +115,10 @@ class WSODDetector(nn.Module):
 
     def pool(self, feats: torch.Tensor, boxes: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
-        """7x7 ROIPool: the CUDA kernel for CUDA tensors, the plain version
-        for CPU tensors (ops/roi_pool.py). Every map size is accepted."""
-        return roi_pool(feats, boxes, mask, self.pooler_scale)
+        """Differentiable 7x7 ROIPool: the CUDA kernels for CUDA tensors,
+        the plain versions for CPU tensors (ops/roi_pool.py). Every map
+        size is accepted."""
+        return RoIPoolFunction.apply(feats, boxes, mask, self.pooler_scale)
 
     @torch.no_grad()
     def eval_forward(self, batch: Batch):
@@ -129,8 +155,144 @@ class WSODDetector(nn.Module):
         return scores, dec.reshape(b, rp, -1)
 
 
+    def train_forward(self, batch: Batch,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Dict[str, torch.Tensor]] = None,
+                      trace: Optional[Callable[[str], None]] = None
+                      ) -> Tuple[Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+        """(losses, metrics) of one training batch, as scalar tensors.
+
+        ``generator`` (on the batch's device) draws the dropout masks, the
+        DropBlock centers and the noise. ``draws`` may hand in the
+        DropBlock uniforms ``dropblock`` [B*P, 7, 7] and ``sim_drop``
+        [capA, 7, 7] and the ``noise`` normals [capA, 7, 7, C] instead.
+        ``trace(stage)`` is called as each stage has been enqueued.
+
+        The all-RoI clean pass is the mining view only and runs without
+        gradient; the loss reaches the clean neck through the mined bank
+        rows alone, recomputed with gradient and with the same rows'
+        dropout masks.
+        """
+        if self.db_method not in ("none", "dropblock"):
+            raise NotImplementedError(f"DB.METHOD={self.db_method!r} is not "
+                                      "ported yet (none, dropblock)")
+        if not self.contra:
+            raise NotImplementedError("training without SOLVER.CONTRA (the "
+                                      "oicr/mist pseudo-label layers) is not "
+                                      "ported yet")
+        if self.partial_labels != "none" or self.faster_rcnn:
+            raise NotImplementedError("partial labels and CAM proposals are "
+                                      "not ported yet")
+        draws = draws or {}
+        trace = trace or (lambda stage: None)
+        boxes, mask, labels = batch.boxes, batch.box_mask, batch.labels
+        dev = boxes.device
+        feats = self.backbone(batch.images)
+        trace("backbone")
+        pooled = self.pool(feats, boxes, mask)                    # [B,P,7,7,C]
+        trace("roi_pool")
+        b, p = pooled.shape[:2]
+        flat_pooled = pooled.reshape(b * p, *pooled.shape[2:])
+
+        clean_keep = self.neck.draw_keep(b * p, generator, dev)
+        with torch.no_grad():
+            z_clean = self.sim_net(self.neck(flat_pooled, clean_keep)
+                                   ).reshape(b, p, -1)
+        trace("clean_pass")
+
+        if self.db_method == "dropblock":
+            aug_pooled = dropblock_2d(flat_pooled, self.db_prob, self.db_size,
+                                      valid=mask.reshape(-1),
+                                      generator=generator,
+                                      uniform=draws.get("dropblock"))
+        else:
+            aug_pooled = flat_pooled
+        aug = self.neck(aug_pooled, self.neck.draw_keep(b * p, generator, dev))
+        cls, det, refs, bbox = self.pred(aug.reshape(b, p, -1), mask,
+                                         train=True)
+        final = wsddn_final_score(cls, det, mask)                 # [B,P,C] f32
+        losses: Dict[str, torch.Tensor] = {"loss_img": mil_loss(final, labels)}
+        metrics: Dict[str, torch.Tensor] = {"acc_img": avg_image_accuracy(
+            labels.clamp(0, 1), final.sum(dim=1).clamp(1e-8, 1 - 1e-8))}
+        ref_softmax = torch.stack([torch.softmax(r.to(torch.float32), dim=-1)
+                                   for r in refs])
+        labels_fg = labels[:, 1:] > 0
+        final_ng, ref_ng = final.detach(), ref_softmax.detach()
+        trace("aug_pass_heads")
+
+        a = stage_a(boxes, mask, labels_fg, final_ng, ref_ng, self.p_thres,
+                    self.cap_a)
+        slot_pooled = pooled[a.slot_b.clamp(min=0), a.slot_p]    # [capA,...]
+        dropped = dropblock_2d(slot_pooled, 0.3, 1, valid=a.slot_valid,
+                               generator=generator,
+                               uniform=draws.get("sim_drop"))
+        z_drop = self.sim_net(self.neck(dropped, self.neck.draw_keep(
+            self.cap_a, generator, dev)))
+        noised = noise_augment(slot_pooled, generator, draws.get("noise"))
+        z_noise = self.sim_net(self.neck(noised, self.neck.draw_keep(
+            self.cap_a, generator, dev)))
+        trace("stage_a_views")
+
+        sb = stage_b(boxes, mask, labels_fg, final_ng, ref_ng, z_clean,
+                     z_drop.detach(), z_noise.detach(), a, self.mining_nms,
+                     self.cap_b)
+        trace("stage_b")
+        rows = torch.cat([a.slot_b.clamp(min=0) * p + a.slot_p,
+                          sb.slot_b.clamp(min=0) * p + sb.slot_p])
+        bank_keep = (None if clean_keep is None
+                     else tuple(k[rows] for k in clean_keep))
+        z_bank = self.sim_net(self.neck(flat_pooled[rows], bank_keep))
+        feats_e, labels_e, hard_e, valid_e = assemble_bank(
+            a, sb, z_clean, z_drop, z_noise, z_a_clean=z_bank[:self.cap_a],
+            z_b_clean=z_bank[self.cap_a:])
+        if self.loss_type == "supconv2":
+            sim = supcon_v2_loss(feats_e, labels_e, hard_e, valid_e,
+                                 self.temperature)
+        else:
+            sim = supcon_loss(feats_e, labels_e, valid_e, self.temperature)
+        losses["loss_sim"] = self.lmda * sim
+        metrics["bank_overflow"] = (a.overflow + sb.overflow).float()
+        metrics["n_bank"] = valid_e.sum().float()
+        metrics["n_mined"] = sb.pgt_instance.sum().float()
+        trace("bank_supcon")
+
+        for i in range(self.num_refs):
+            src = final_ng if i == 0 else ref_ng[i - 1]
+            pl = od_layer(boxes, mask, src[..., 1:], labels_fg,
+                          sb.pgt_instance[i], self.fg_iou, self.gt_cap,
+                          self.reg_weights)
+            lam = 3.0 if i == 0 else 1.0
+            losses[f"loss_ref_cls{i}"] = lam * refinement_cls_loss(
+                refs[i], pl.labels, pl.weights, mask)
+            if self.regress_on:
+                losses[f"loss_ref_reg{i}"] = lam * refinement_reg_loss(
+                    bbox[i], pl.labels, pl.weights, pl.reg_targets, mask,
+                    self.cls_agnostic_bbox_reg)
+            metrics[f"pgt_overflow{i}"] = pl.overflow.float()
+            metrics[f"n_pos{i}"] = ((pl.labels > 0) & mask).sum().float()
+        for i in range(self.num_refs):
+            ref_sum = torch.where(mask[..., None], refs[i].to(torch.float32),
+                                  0.0).sum(dim=1)
+            metrics[f"acc_ref{i}"] = avg_image_accuracy(
+                labels[:, 1:].clamp(0, 1), ref_sum[:, 1:])
+        trace("refinement")
+        return losses, metrics
+
+
+def _freeze_count(cfg) -> int:
+    """FREEZE_CONV_BODY_AT -> the number of frozen convolutions."""
+    at = cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT
+    if at <= 0 or not cfg.MODEL.BACKBONE.CONV_BODY.startswith("VGG"):
+        return 0
+    return FREEZE_CONV_COUNTS[at - 1]
+
+
 def detector_from_cfg(cfg) -> WSODDetector:
-    """Build the eval detector from a CfgNode."""
+    """Build the detector from a CfgNode. As in the JAX package, ``gt_cap``
+    (128), ``neck_dropout`` (0.5) and ``db_prob`` (0.3) have no config key
+    and keep their defaults; ``cap_b`` is a quarter of the bank capacity,
+    at least 64."""
     return WSODDetector(
         num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
         backbone_arch=cfg.MODEL.BACKBONE.CONV_BODY,
@@ -145,4 +307,18 @@ def detector_from_cfg(cfg) -> WSODDetector:
         regress_heur=cfg.MODEL.ROI_WEAK_HEAD.REGRESS_HEUR,
         reg_weights=tuple(cfg.MODEL.ROI_HEADS.BBOX_REG_WEIGHTS),
         compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+        db_method=cfg.DB.METHOD,
+        db_size=cfg.DB.SIZE,
+        contra=cfg.SOLVER.CONTRA,
+        partial_labels=cfg.MODEL.ROI_WEAK_HEAD.PARTIAL_LABELS,
+        faster_rcnn=cfg.MODEL.FASTER_RCNN,
+        p_thres=cfg.thres,
+        mining_nms=cfg.nms,
+        lmda=cfg.lmda,
+        temperature=cfg.temp,
+        loss_type=cfg.loss,
+        fg_iou=cfg.MODEL.ROI_HEADS.FG_IOU_THRESHOLD,
+        cap_a=cfg.TPU.BANK_CAPACITY,
+        cap_b=max(cfg.TPU.BANK_CAPACITY // 4, 64),
+        freeze_convs=_freeze_count(cfg),
     )

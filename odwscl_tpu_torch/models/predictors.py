@@ -1,10 +1,10 @@
-"""The MIST weak-detection predictor, eval mode.
+"""The MIST weak-detection predictor.
 
 Counterpart of ``odwscl_tpu/models/predictors.py:MISTPredictor``: cls/det
 heads plus ``num_refs`` refinement branches, each with 4*C box deltas. All
-heads are one fused matmul over the concatenated head weights. The eval
-softmaxes are taken with the proposal mask: the det softmax runs over P
-with padding excluded.
+heads are one fused matmul over the concatenated head weights. In train
+mode the heads return raw logits; the eval softmaxes are taken with the
+proposal mask: the det softmax runs over P with padding excluded.
 """
 
 from __future__ import annotations
@@ -54,17 +54,21 @@ class MISTPredictor(nn.Module):
             lin.weight.normal_(0.0, 0.001, generator=generator)
             lin.bias.zero_()
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor],
                            List[torch.Tensor]]:
-        """x [B, P, D], mask [B, P] -> (cls softmax [B,P,C], det softmax over
-        P [B,P,C], ref softmaxes, bbox deltas), the eval outputs."""
+        """x [B, P, D], mask [B, P] -> (cls, det, refs, bbox deltas): raw
+        logits in train mode; else the cls softmax [B,P,C], the det softmax
+        over P, the ref softmaxes and the deltas."""
         dt = self.compute_dtype
         lins = [getattr(self, name) for name, _ in self.heads]
         weight = torch.cat([lin.weight for lin in lins]).to(dt)
         bias = torch.cat([lin.bias for lin in lins]).to(dt)
         fused = F.linear(x.to(dt), weight, bias)
         outs = torch.split(fused, [f for _, f in self.heads], dim=-1)
+        if train:
+            return outs[0], outs[1], list(outs[2::2]), list(outs[3::2])
         refs = [_softmax_c(r) for r in outs[2::2]]
         return (_softmax_c(outs[0]), _softmax_p(outs[1], mask), refs,
                 list(outs[3::2]))

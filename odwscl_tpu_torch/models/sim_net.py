@@ -1,8 +1,7 @@
 """Contrastive projection head: in_dim -> in_dim -> 128, L2-normalized.
 
-Counterpart of ``odwscl_tpu/models/sim_net.py:SimNet``. Evaluation never
-calls it; it is here so the detector's ``state_dict`` covers the whole
-parameter tree of the JAX model.
+Counterpart of ``odwscl_tpu/models/sim_net.py:SimNet``: the embeddings of
+the contrastive mining and loss. Evaluation never calls it.
 """
 
 from __future__ import annotations

@@ -1,8 +1,14 @@
-"""VGG16-OICR backbone and the fc6/fc7 RoI neck, eval mode.
+"""VGG16-OICR backbone and the fc6/fc7 RoI neck.
 
 Counterpart of ``odwscl_tpu/models/vgg16.py``. The OICR variant drops pool4
 and dilates conv5 by 2 (pad 2), so the output stride is 8 with 512
 channels, and the final ReLU is stripped.
+
+Training: the first ``freeze_convs`` convolutions are frozen with
+``requires_grad_(False)``, so autograd never reaches them (the JAX
+package's ``stop_gradient`` at the freeze boundary). The neck's dropout
+takes explicit keep masks, one row per RoI, so that a recompute of some
+rows can reuse the masks of the all-RoI pass.
 
 Parameters are held in f32, as in the JAX package, and cast to the compute
 dtype at each use. Images come in NHWC, the JAX layout; viewed as NCHW they
@@ -15,9 +21,15 @@ here is its counterpart.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+# Conv counts delimiting the freeze blocks: FREEZE_CONV_BODY_AT = k freezes
+# the first FREEZE_CONV_COUNTS[k - 1] convolutions.
+FREEZE_CONV_COUNTS = [2, 4, 7, 10, 13]
 
 # Layer spec: int = 3x3 conv channels, 'M' = 2x2 maxpool, 'I' = identity
 # (removed pool), '<n>-D' = dilated 3x3 conv.
@@ -36,7 +48,8 @@ class VGGBackbone(nn.Module):
     (OICR variant), contiguous."""
 
     def __init__(self, arch: str = "VGG16-OICR",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 freeze_convs: int = 0):
         super().__init__()
         self.arch = arch
         self.compute_dtype = compute_dtype
@@ -54,6 +67,8 @@ class VGGBackbone(nn.Module):
             self._layers.append((i, 2 if dilated else 1))
             cin, i = ch, i + 1
         self.num_convs = i
+        for k in range(freeze_convs):
+            getattr(self, f"conv{k}").requires_grad_(False)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -83,15 +98,27 @@ class VGGBackbone(nn.Module):
 
 
 class VGGRoINeck(nn.Module):
-    """fc6/fc7 over pooled rois flattened in (h, w, c) order, eval mode
-    (dropout is the identity): [N, 7, 7, C] -> [N, hidden]."""
+    """fc6/fc7 over pooled rois flattened in (h, w, c) order: [N, 7, 7, C]
+    -> [N, hidden]. Dropout applies only where keep masks are given."""
 
     def __init__(self, in_dim: int = 512 * 7 * 7, hidden_dim: int = 4096,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.5):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         self.fc6 = nn.Linear(in_dim, hidden_dim)
         self.fc7 = nn.Linear(hidden_dim, hidden_dim)
+
+    def draw_keep(self, n: int, generator: torch.Generator, device
+                  ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """Train-mode keep masks of fc6 and fc7 for n rows ([n, hidden]
+        bool each), or None when the dropout rate is 0."""
+        if self.dropout_rate == 0.0:
+            return None
+        shape = (n, self.fc7.out_features)
+        return tuple(torch.rand(shape, generator=generator, device=device)
+                     >= self.dropout_rate for _ in range(2))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -99,9 +126,16 @@ class VGGRoINeck(nn.Module):
             fc.weight.normal_(0.0, 0.01, generator=generator)
             fc.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``keep``: the fc6 and fc7 keep masks of these rows (train-mode
+        dropout, kept units scaled by 1 / (1 - rate)), or None."""
         dt = self.compute_dtype
         x = x.reshape(x.shape[0], -1).to(dt)
-        for fc in (self.fc6, self.fc7):
+        for li, fc in enumerate((self.fc6, self.fc7)):
             x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
+            if keep is not None:
+                x = torch.where(keep[li], x / (1.0 - self.dropout_rate),
+                                0.0).to(dt)
         return x

@@ -1,7 +1,7 @@
 """Box geometry on padded ``[..., P, 4]`` xyxy tensors.
 
 Counterpart of ``odwscl_tpu/structures/boxes.py``: the Detectron "+1" pixel
-convention (width = x2 - x1 + 1) everywhere, so eval decoding matches the
+convention (width = x2 - x1 + 1) everywhere, so box coding and IoU match the
 reference bit-for-bit up to float rounding.
 """
 
@@ -60,6 +60,30 @@ def resize_boxes(boxes: torch.Tensor, ratio_w, ratio_h) -> torch.Tensor:
     return torch.stack([boxes[..., 0] * ratio_w, boxes[..., 1] * ratio_h,
                         boxes[..., 2] * ratio_w, boxes[..., 3] * ratio_h],
                        dim=-1)
+
+
+def encode_boxes(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+                 weights: Tuple[float, float, float, float] = (10.0, 10.0,
+                                                               5.0, 5.0)
+                 ) -> torch.Tensor:
+    """(dx, dy, dw, dh) regression targets of ``reference_boxes`` relative to
+    ``proposals``, both [..., 4] xyxy."""
+    ex_w = proposals[..., 2] - proposals[..., 0] + TO_REMOVE
+    ex_h = proposals[..., 3] - proposals[..., 1] + TO_REMOVE
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + TO_REMOVE
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + TO_REMOVE
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+
+    wx, wy, ww, wh = weights
+    dx = wx * (gt_cx - ex_cx) / ex_w
+    dy = wy * (gt_cy - ex_cy) / ex_h
+    dw = ww * torch.log(gt_w / ex_w)
+    dh = wh * torch.log(gt_h / ex_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_boxes(rel_codes: torch.Tensor, boxes: torch.Tensor,

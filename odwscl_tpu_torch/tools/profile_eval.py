@@ -102,6 +102,7 @@ def tta_busy_share(model, cfg, samples):
     from torch.profiler import ProfilerActivity, profile
 
     from odwscl_tpu_torch.engine.inference import Inferencer
+    from odwscl_tpu_torch.utils.profiling import device_busy_seconds
 
     inf = Inferencer(model, cfg, "cuda")
     inf.predict_samples(samples)                        # warm-up
@@ -114,14 +115,10 @@ def tta_busy_share(model, cfg, samples):
         inf.predict_samples(samples)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernels and copies on the device, all on one stream: no overlap
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in device)
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            "n_device_events": len(device), "stage_s": inf.timings,
-            "n_forwards": inf.n_forwards}
+    busy = device_busy_seconds(prof)
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "stage_s": inf.timings, "n_forwards": inf.n_forwards}
 
 
 def main(argv=None):

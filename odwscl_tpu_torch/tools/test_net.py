@@ -4,8 +4,8 @@
         [--weights W.pt|W.npz] [--task det|corloc] [--data-root DIR] \
         [--device cuda|cpu] [KEY VALUE ...]
 
-``--weights`` takes a port ``.pt`` state_dict or an ``.npz`` of the JAX
-package's flax params (``/``-joined keys; utils/from_jax.py). Without
+``--weights`` takes a port ``.pt`` (a state_dict or a training checkpoint
+of ``tools/train_net.py``) or an ``.npz`` of the JAX package's flax params (``/``-joined keys; utils/from_jax.py). Without
 weights the model is a seeded random init (``cfg.SEED``) and a warning is
 logged. Results go to ``OUTPUT_DIR/inference/<dataset>/``. Needs Pillow.
 """
@@ -24,7 +24,8 @@ def build_parser() -> argparse.ArgumentParser:
                                      "(PyTorch port)")
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--weights", default=None,
-                        help="port .pt state_dict or flax-params .npz")
+                        help="port .pt (state_dict or training checkpoint) "
+                             "or flax-params .npz")
     parser.add_argument("--task", default="det", choices=["det", "corloc"])
     parser.add_argument("--data-root", default="datasets")
     parser.add_argument("--device", default="cuda")
@@ -36,6 +37,7 @@ def load_model(cfg, weights=None):
     """The cfg's detector on the CPU, with ``weights`` or a random init
     seeded by ``cfg.SEED``."""
     from odwscl_tpu_torch.models.detector import detector_from_cfg
+    from odwscl_tpu_torch.utils.checkpoint import load_model_weights
     from odwscl_tpu_torch.utils.from_jax import state_dict_from_jax
 
     model = detector_from_cfg(cfg)
@@ -46,9 +48,27 @@ def load_model(cfg, weights=None):
     elif weights.endswith(".npz"):
         model.load_state_dict(state_dict_from_jax(weights))
     else:
-        model.load_state_dict(torch.load(weights, map_location="cpu",
-                                         weights_only=True))
+        model.load_state_dict(load_model_weights(weights))
     return model
+
+
+def run_test(cfg, model, data_root, device, task="det", timing_out=None):
+    """Evaluate ``model`` on every test dataset of the config; returns
+    {dataset name: result dict}; ``timing_out`` (a dict) receives each
+    dataset's stage times (engine/inference.py)."""
+    from odwscl_tpu_torch.data.build import make_eval_loaders
+    from odwscl_tpu_torch.engine.inference import inference
+
+    results = {}
+    for name, loader in make_eval_loaders(cfg, data_root):
+        out = os.path.join(cfg.OUTPUT_DIR, "inference", name)
+        os.makedirs(out, exist_ok=True)
+        timing = {}
+        results[name] = inference(model, cfg, loader, loader.dataset, out,
+                                  task=task, device=device, timing_out=timing)
+        if timing_out is not None:
+            timing_out[name] = timing
+    return results
 
 
 def main(argv=None, timing_out=None):
@@ -56,8 +76,6 @@ def main(argv=None, timing_out=None):
     {dataset name: result dict}. ``timing_out`` (a dict) receives each
     dataset's stage times (engine/inference.py)."""
     from odwscl_tpu_torch.config import get_default_cfg
-    from odwscl_tpu_torch.data.build import make_eval_loaders
-    from odwscl_tpu_torch.engine.inference import inference
     from odwscl_tpu_torch.utils.device import resolve_device
 
     args = build_parser().parse_args(argv)
@@ -73,17 +91,8 @@ def main(argv=None, timing_out=None):
                                "%(message)s")
 
     model = load_model(cfg, args.weights)
-    results = {}
-    for name, loader in make_eval_loaders(cfg, args.data_root):
-        out = os.path.join(cfg.OUTPUT_DIR, "inference", name)
-        os.makedirs(out, exist_ok=True)
-        timing = {}
-        results[name] = inference(model, cfg, loader, loader.dataset, out,
-                                  task=args.task, device=device,
-                                  timing_out=timing)
-        if timing_out is not None:
-            timing_out[name] = timing
-    return results
+    return run_test(cfg, model, args.data_root, device, args.task,
+                    timing_out)
 
 
 if __name__ == "__main__":

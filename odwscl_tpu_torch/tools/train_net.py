@@ -1,0 +1,149 @@
+"""Training CLI of the port, with ``tools/train_net.py``'s surface.
+
+    python -m odwscl_tpu_torch.tools.train_net --config-file CFG \
+        [--data-root DIR] [--skip-test] [--device cuda|cpu] \
+        [--nms X --lmda X ...] [KEY VALUE ...]
+
+The paper's flags (``--nms``, ``--lmda``, ``--iou``, ``--temp``,
+``--thres``, ``--loss``, ...) set the config keys of the same lowercase
+names. Training resumes from ``OUTPUT_DIR/last_checkpoint`` when there is
+one; otherwise ``MODEL.WEIGHT`` names the warm start (a port ``.pt``; it
+raises if the file is missing, and importing the reference's ImageNet
+``.pkl``/``.pth`` weights is not ported yet), and ``MODEL.WEIGHT ""``
+starts from a random init seeded by ``cfg.SEED``. Checkpoints go to
+``OUTPUT_DIR``; unless ``--skip-test`` the trained model is then evaluated
+as ``tools/test_net.py`` does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+import torch
+
+PAPER_FLAGS = [("nms", float), ("lmda", float), ("iou", float),
+               ("temp", float), ("thres", float), ("loss", str),
+               ("cluster", int), ("pos_update", int), ("min_size", float),
+               ("cls_hp", float), ("reg_hp", float), ("lmda2", float)]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="OD-WSCL training "
+                                     "(PyTorch port)")
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--skip-test", action="store_true")
+    parser.add_argument("--data-root", default="datasets")
+    parser.add_argument("--device", default="cuda")
+    for flag, typ in PAPER_FLAGS:
+        parser.add_argument(f"--{flag}", type=typ, default=None)
+    parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
+    return parser
+
+
+def update_iters(cfg) -> None:
+    """SOLVER.ITER_SIZE stretches the schedule by that factor."""
+    k = cfg.SOLVER.ITER_SIZE
+    if k > 1:
+        cfg.SOLVER.MAX_ITER *= k
+        cfg.SOLVER.STEPS = tuple(s * k for s in cfg.SOLVER.STEPS)
+        cfg.SOLVER.WARMUP_ITERS *= k
+        cfg.SOLVER.CHECKPOINT_PERIOD *= k
+
+
+def warm_start(cfg, model, data_root: str) -> None:
+    """Load ``cfg.MODEL.WEIGHT`` into the model, or raise."""
+    from odwscl_tpu_torch.config.catalog import ModelCatalog
+    from odwscl_tpu_torch.utils.checkpoint import load_model_weights
+
+    path = ModelCatalog.resolve_or_fail(cfg.MODEL.WEIGHT,
+                                        os.path.join(data_root, "weights"))
+    if not path.endswith(".pt"):
+        raise NotImplementedError(f"MODEL.WEIGHT {path}: importing the "
+                                  "reference's .pkl/.pth weights is not "
+                                  "ported yet (a port .pt is)")
+    model.load_state_dict(load_model_weights(path))
+
+
+def main(argv=None, timing_out=None):
+    """Train as the config says; returns the evaluation results (or None
+    with ``--skip-test``). ``timing_out`` (a dict) receives the loop's
+    per-step times and losses (engine/trainer.py) under ``train`` and the
+    evaluation's stage times under ``test``."""
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.data.build import make_train_loader
+    from odwscl_tpu_torch.engine.trainer import do_train
+    from odwscl_tpu_torch.models.detector import detector_from_cfg
+    from odwscl_tpu_torch.solver import make_optimizer
+    from odwscl_tpu_torch.tools.test_net import run_test
+    from odwscl_tpu_torch.utils.checkpoint import Checkpointer
+    from odwscl_tpu_torch.utils.device import resolve_device
+
+    args = build_parser().parse_args(argv)
+    cfg = get_default_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    for flag, _ in PAPER_FLAGS:
+        if getattr(args, flag) is not None:
+            cfg[flag] = getattr(args, flag)
+    update_iters(cfg)
+    cfg.freeze()
+    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: "
+                               "%(message)s")
+    logger = logging.getLogger("odwscl_tpu_torch.train_net")
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    with open(os.path.join(cfg.OUTPUT_DIR, "config.yml"), "w") as f:
+        f.write(cfg.dump())
+
+    model = detector_from_cfg(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(cfg.SEED))
+    model.to(device)
+    optimizer, _ = make_optimizer(cfg.SOLVER, model)
+    generator = torch.Generator(device=device).manual_seed(cfg.SEED)
+    ckpt = Checkpointer(cfg.OUTPUT_DIR)
+    start_iter = 0
+    if ckpt.has_checkpoint():
+        start_iter = ckpt.load(model, optimizer, generator)
+        logger.info("Resumed at iteration %d", start_iter)
+    elif cfg.MODEL.WEIGHT:
+        warm_start(cfg, model, args.data_root)
+        logger.info("Warm-started from %s", cfg.MODEL.WEIGHT)
+    else:
+        logger.warning("MODEL.WEIGHT is empty: training from a random init "
+                       "(seed %d)", cfg.SEED)
+
+    loader = make_train_loader(cfg, start_iter, args.data_root)
+    train_timing = {}
+    do_train(model, optimizer, loader, cfg.SOLVER.MAX_ITER, device,
+             generator, ckpt, cfg.SOLVER.CHECKPOINT_PERIOD,
+             start_iter=start_iter, timing_out=train_timing,
+             profile_iters=_profile_window(cfg.SOLVER.MAX_ITER, start_iter,
+                                           device))
+    if timing_out is not None:
+        timing_out["train"] = train_timing
+    if args.skip_test:
+        return None
+    test_timing = {}
+    results = run_test(cfg, model, args.data_root, device,
+                       timing_out=test_timing)
+    if timing_out is not None:
+        timing_out["test"] = test_timing
+    return results
+
+
+def _profile_window(max_iter: int, start_iter: int, device):
+    """On the card, trace steps 5-20 of the run (after the warm-up) to
+    read the device's idle share."""
+    first = start_iter + 5
+    if torch.device(device).type != "cuda" or first > max_iter:
+        return None
+    return first, min(max_iter, start_iter + 20)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
-Every module of ``odwscl_tpu_torch`` and ``chip_smoke.py`` is imported in a
-subprocess where ``jax`` and ``odwscl_tpu`` are blocked
+Every module of ``odwscl_tpu_torch`` (the training modules named below
+among them) and ``chip_smoke.py`` is imported in a subprocess where
+``jax``, ``flax``, ``optax`` and ``odwscl_tpu`` are blocked
 (``sys.modules[name] = None`` makes their import fail); afterwards no
 ``jax*`` or ``odwscl_tpu.*`` module may be loaded. No tolerance applies.
 """
@@ -14,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "odwscl_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "odwscl_tpu"):
     sys.modules[name] = None
 import odwscl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(odwscl_tpu_torch.__path__,
@@ -23,10 +24,14 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
-    m.split(".")[0] in ("jax", "jaxlib", "flax", "odwscl_tpu")))
+    m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "odwscl_tpu")))
 print(len(names), "modules", bad)
 assert not bad, bad
-assert len(names) >= 30, names
+for required in ("ops.dropblock", "losses.mining", "losses.supcon",
+                 "losses.pseudo_labels", "solver.build", "engine.trainer",
+                 "utils.checkpoint", "tools.train_net", "tools.profile_train"):
+    assert "odwscl_tpu_torch." + required in names, required
+assert len(names) >= 45, names
 """
 
 
