@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit code):
-1. Print the card's name and power limit; build the ROIPool forward and
-   backward kernels (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd}.cu) with
-   nvcc for sm_90a, both at once.
+1. Print the card's name and power limit; build the ROIPool forward,
+   backward and stage-profiler kernels
+   (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd,stages}.cu) with nvcc for
+   sm_90a, all three at once.
 2. Hold the forward kernel against its plain PyTorch version on the card,
    bit-exactly (atol 0) in f32 and bf16: a size grid of rois (1 cell up to
    the full map, malformed, off-map, masked, empty bins) and the eval
@@ -16,20 +17,28 @@ Phases (any failure ends the run with a non-zero exit code):
    shape feat [8, 160, 208, 512] (a padded 1200-scale batch), P = 2048.
    Routing exact, values within the atomics' reordering bound. Time both
    at the training shape.
-4. Run ``eval_forward`` at full width in f32 (TF32 off) on the card and on
+4. Hold the stage profiler's kernel (csrc/roi_pool_stages.cu), each of
+   its five stages (write, rows, rows_col0, cols, full), against
+   ``roi_pool_stage_plain`` on the card, bit-exactly (atol 0): the size
+   grid in f32 and bf16 and the bench shape feat [8, 104, 168, 512] bf16,
+   P = 2048; ``full`` also against the forward kernel. Then drive the
+   profiler (``odwscl_tpu_torch.tools.profile_pool_stages``) at the bench
+   shape: kernel #1, the five stages and ``torch.zeros`` (the library call
+   of ``write``) timed in turns, with their bounds and the stage deltas.
+5. Run ``eval_forward`` at full width in f32 (TF32 off) on the card and on
    the CPU with the same seeded weights and inputs; compare.
-5. Run one f32 train step (TF32 off) at full width on a small input on
+6. Run one f32 train step (TF32 off) at full width on a small input on
    the card and on the CPU with the same weights and the same DropBlock
    and noise draws; compare the mining decisions, losses and gradients.
-6. Drive the training path: ``odwscl_tpu_torch.tools.train_net`` with
+7. Drive the training path: ``odwscl_tpu_torch.tools.train_net`` with
    configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml (VGG16-OICR, bf16, batch
    8, scales 480-1200, random init) for 20 iterations on a synthetic VOC
    trainval split of 32 images of 375x500 with 2048 proposals each. Every
    step must have launched both kernels once; every loss must be finite.
-7. Drive the eval path: ``odwscl_tpu_torch.tools.test_net`` (14-transform
+8. Drive the eval path: ``odwscl_tpu_torch.tools.test_net`` (14-transform
    TTA, AVG) on the checkpoint that training wrote, on a synthetic test
    split of 16 images, tasks det and corloc. Every forward must have gone
-   through the forward kernel.
+   through the forward kernel. Neither path launches a stage kernel.
 
 Prints a ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -40,7 +49,6 @@ import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -51,12 +59,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "voc",
                       "voc07_contra_db_b8_lr0.01_mcg.yaml")
 
-# Peak device-memory rate by card (NVIDIA data sheets) and the f32 rate
-# outside the tensor cores, for the comparisons of the pooling kernel.
-MEM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100": 3.35e12, "H200": 4.8e12}
-F32_OPS_PER_S = {"H100 PCIe": 51.0e12, "H100": 67.0e12, "H200": 67.0e12}
-
-# phase 3: f32 card vs CPU. Both run the same f32 algorithm; the card sums
+# phase 5: f32 card vs CPU. Both run the same f32 algorithm; the card sums
 # convolutions and GEMMs in another order (cuDNN/cuBLAS tiling, no TF32).
 # Through 13 convs and 2 fc layers that drifts by ~1e-5 relative, so the
 # softmax scores (in [0, 1]) may move by 1e-3 at most and the decoded boxes
@@ -64,7 +67,7 @@ F32_OPS_PER_S = {"H100 PCIe": 51.0e12, "H100": 67.0e12, "H200": 67.0e12}
 SCORE_ATOL = 1e-3
 BOX_ATOL_PX = 5e-2
 
-# phase 5: f32 train step card vs CPU, same drift source. Losses 1e-3
+# phase 6: f32 train step card vs CPU, same drift source. Losses 1e-3
 # relative; gradients of the heads, neck and SimNet 1e-2 of each tensor's
 # largest magnitude (the drift of ~1e-5 at the features, amplified by the
 # scaled heads, the softmaxes and the supcon exponentials); the backbone is
@@ -77,13 +80,6 @@ TRAIN_GRAD_REL = 1e-2
 # (and the BCE's log1p(-1) then has a NaN gradient in both packages)
 HEAD_SCALE = 30.0
 TRAIN_STEPS = 20
-
-
-def card_rate(name, table):
-    for key in sorted(table, key=len, reverse=True):
-        if key in name:
-            return table[key]
-    raise RuntimeError(f"no published rate for card {name!r}")
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -100,23 +96,6 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bin_cells(rois, mask, h, w, scale=0.125, pooled=7):
-    """Cells scanned by the pooling of these rois (sum over bins), from
-    the same integer bin edges as the kernel."""
-    cells = np.floor(rois.astype(np.float32) * np.float32(scale)
-                     + np.float32(0.5)).astype(np.int64)
-    x1, y1, x2, y2 = (cells[..., i] for i in range(4))
-    rw = np.maximum(x2 - x1 + 1, 1)[..., None]
-    rh = np.maximum(y2 - y1 + 1, 1)[..., None]
-    k = np.arange(pooled)
-    hs = np.clip(k * rh // pooled + y1[..., None], 0, h)
-    he = np.clip(-(-(k + 1) * rh // pooled) + y1[..., None], 0, h)
-    ws = np.clip(k * rw // pooled + x1[..., None], 0, w)
-    we = np.clip(-(-(k + 1) * rw // pooled) + x1[..., None], 0, w)
-    per_roi = (he - hs).sum(-1) * (we - ws).sum(-1)
-    return int((per_roi * mask).sum())
 
 
 def grid_inputs(rng, c):
@@ -160,6 +139,7 @@ def main_path_inputs(rng, b=8, h=104, w=168, c=512, p=2048, xy_max=1000,
 
 def phase_kernel(dev, rp):
     import torch
+    from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound
 
     rng = np.random.RandomState(0)
     checks = {}
@@ -184,22 +164,13 @@ def phase_kernel(dev, rp):
     ms = cuda_ms(lambda: rp.roi_pool(f, r, m, 0.125), iters=20)
     plain_ms = cuda_ms(lambda: rp.roi_pool_plain(f, r, m, 0.125), iters=3,
                        warmup=1)
-    b, h, w, c = f.shape
-    p = r.shape[1]
-    name = torch.cuda.get_device_name(dev)
-    nbytes = (f.numel() + b * p * 49 * c) * f.element_size() \
-        + r.numel() * 4 + m.numel()
-    bytes_ms = nbytes / card_rate(name, MEM_BYTES_PER_S) * 1e3
-    ops = bin_cells(rois, mask, h, w) * c
-    ops_ms = ops / card_rate(name, F32_OPS_PER_S) * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, by, nbytes, ops = stage_bound(
+        "roi_pool", f, r, m, 0.125, torch.cuda.get_device_name(dev))
     print(f"[kernel] main shape bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e9:.3f} GB; {ops / 1e9:.2f} G comparisons = "
-          f"{ops_ms:.4f} ms)")
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}; "
+          f"{nbytes / 1e9:.3f} GB; {ops / 1e9:.2f} G comparisons)")
     return {"max_abs_err": max(checks.values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
 
 
 def phase_card_vs_cpu(dev):
@@ -247,11 +218,14 @@ def phase_card_vs_cpu(dev):
 def bwd_bound(feat, rois, mask, g, name):
     """(bound ms, by): feat and g read once, d feat written once in the
     feature dtype; the comparisons of the argmax scan at the f32 rate."""
-    b, h, w, c = feat.shape
+    from odwscl_tpu_torch.ops.roi_pool_stages import stage_work
+    from odwscl_tpu_torch.utils.profiling import (F32_OPS_PER_S,
+                                                  MEM_BYTES_PER_S, card_rate)
+
     nbytes = (2 * feat.numel() + g.numel()) * feat.element_size() \
         + rois.numel() * 4 + mask.numel()
     bytes_ms = nbytes / card_rate(name, MEM_BYTES_PER_S) * 1e3
-    ops = bin_cells(rois.cpu().numpy(), mask.cpu().numpy(), h, w) * c
+    ops = stage_work("roi_pool", feat, rois, mask, 0.125)[1]
     ops_ms = ops / card_rate(name, F32_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                     else "operations"), nbytes
@@ -317,6 +291,89 @@ def phase_bwd_kernel(dev, rp):
           f"{nbytes / 1e9:.3f} GB)")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by}
+
+
+STAGE_REPLACES = {
+    "write": "tools/profile_pool_stages.py:35 make_kernel[write]",
+    "rows": "tools/profile_pool_stages.py:35 make_kernel[rows]",
+    "rows_col0": "tools/profile_pool.py:61 _fwd_rows_only",
+    "cols": "tools/profile_pool.py:89 _fwd_cols_only",
+    "full": "tools/profile_pool_stages.py:35 make_kernel[full]"}
+
+
+def phase_stage_kernels(dev, rp, rs):
+    """Each stage kernel bit-exact against its plain version (max only
+    selects) and ``full`` against the forward kernel; then the profiler
+    driven at the bench shape, its launches counted. Returns the kernels
+    line's entries of the five stages."""
+    import torch
+    from odwscl_tpu_torch.tools import profile_pool_stages as pps
+
+    rng = np.random.RandomState(4)
+    worst = dict.fromkeys(rs.STAGES, 0.0)
+    plain_ms = {}
+    for label, (feat, rois, mask), dtypes in (
+            ("grid", grid_inputs(rng, 64), (torch.float32, torch.bfloat16)),
+            ("bench", pps.make_inputs(*pps.BENCH_SHAPE), (torch.bfloat16,))):
+        r = torch.from_numpy(rois).to(dev)
+        m = torch.from_numpy(mask).to(dev)
+        for dtype in dtypes:
+            f = torch.from_numpy(feat).to(dev, dtype)
+            plan = rs.stage_plan(f, r, m, pps.SCALE)
+            for stage in rs.STAGES:
+                got = rs.roi_pool_stage(f, r, m, pps.SCALE, stage, plan)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                want = rs.roi_pool_stage_plain(f, r, m, pps.SCALE, stage)
+                end.record()
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"roi_pool_stage[{stage}] kernel != "
+                                         f"plain ({label}, {dtype}): max "
+                                         f"|diff| {err}")
+                worst[stage] = max(worst[stage], err)
+                if label == "bench":
+                    plain_ms[stage] = start.elapsed_time(end)
+                if stage == "full" and not torch.equal(
+                        got, rp.roi_pool(f, r, m, pps.SCALE)):
+                    raise AssertionError(f"roi_pool_stage[full] != roi_pool "
+                                         f"kernel ({label}, {dtype})")
+            print(f"[stages] {label} {str(dtype)[6:]} feat {list(f.shape)} "
+                  f"P={r.shape[1]} (channel tile {plan.ct}, widest window "
+                  f"{plan.cw_max}): {', '.join(rs.STAGES)} bit-exact vs "
+                  "plain; full bit-exact vs the forward kernel")
+    del f, got, want
+    print("[stages] plain versions at the bench shape (one call each): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in plain_ms.items()))
+
+    rs.roi_pool_stage.launches = dict.fromkeys(rs.STAGES, 0)
+    prof = pps.main([])
+    launches = dict(rs.roi_pool_stage.launches)
+    if not all(launches.values()):
+        raise AssertionError(f"the profiler launched no kernel of some "
+                             f"stages: {launches}")
+    print(f"[stages] profiler launches per stage: {launches}")
+    no_lib = ("no PyTorch call computes this stage of ROIPool; torchvision "
+              "is not installed")
+    entries = []
+    for stage in rs.STAGES:
+        v = prof["variants"][stage]
+        entries.append({
+            "name": f"roi_pool_stage[{stage}]", "route": "cuda",
+            "source": "odwscl_tpu_torch/csrc/roi_pool_stages.cu",
+            "replaces": STAGE_REPLACES[stage], "launches": launches[stage],
+            "max_abs_err": worst[stage], "ms": v["ms"],
+            "plain_ms": plain_ms[stage], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"],
+            "library_ms": prof["library_ms"].get(stage),
+            "library_note": ("torch.zeros of the output's shape and dtype"
+                             if stage in prof["library_ms"] else no_lib)})
+    entries[rs.STAGES.index("cols")]["also_replaces"] = (
+        "tools/profile_pool_stages.py:35 make_kernel[cols]")
+    return entries
 
 
 def phase_train_card_vs_cpu(dev):
@@ -514,17 +571,18 @@ def phase_eval(rp, tmp, weights):
     return launches
 
 
-def build(rp):
-    """Build both kernels, one nvcc each, started together."""
+def build(rp, rs):
+    """Build the three kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    libs = (rp.KERNEL, rp.BWD_KERNEL, rs.STAGE_KERNEL)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(k.get) for k in (rp.KERNEL, rp.BWD_KERNEL)]:
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(k.get) for k in libs]:
             fut.result()
-    print(f"[build] roi_pool_fwd.cu, roi_pool_bwd.cu in "
+    print(f"[build] {', '.join(k.source.name for k in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for k in (rp.KERNEL, rp.BWD_KERNEL):
+    for k in libs:
         for line in k.compile_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {k.name}: {line.strip()}")
@@ -539,14 +597,13 @@ def main():
     sys.path.insert(0, ROOT)
     from odwscl_tpu_torch.config import get_default_cfg
     from odwscl_tpu_torch.ops import roi_pool as rp
+    from odwscl_tpu_torch.ops import roi_pool_stages as rs
+    from odwscl_tpu_torch.utils.profiling import card_name_and_limit
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    print(card_name_and_limit())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    build(rp)
+    build(rp, rs)
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -556,6 +613,7 @@ def main():
 
     fwd = timed("forward kernel checks", phase_kernel, dev, rp)
     bwd = timed("backward kernel checks", phase_bwd_kernel, dev, rp)
+    stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
     timed("eval card vs CPU", phase_card_vs_cpu, dev)
     timed("train card vs CPU", phase_train_card_vs_cpu, dev)
     cfg = get_default_cfg()
@@ -563,11 +621,15 @@ def main():
     tmp = tempfile.mkdtemp(prefix="odwscl_smoke_")
     try:
         write_data(tmp, cfg)
+        rs.roi_pool_stage.launches = dict.fromkeys(rs.STAGES, 0)
         (train_fwd, train_bwd), ckpt = timed("train main path", phase_train,
                                              rp, tmp)
         eval_fwd = timed("eval main path", phase_eval, rp, tmp, ckpt)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    if any(rs.roi_pool_stage.launches.values()):
+        raise AssertionError(f"the train and eval paths launched stage "
+                             f"kernels: {rs.roi_pool_stage.launches}")
 
     src = "odwscl_tpu_torch/csrc/"
     no_lib = ("no single PyTorch call computes ROIPool; torchvision is not "
@@ -582,7 +644,7 @@ def main():
          "source": src + "roi_pool_bwd.cu",
          "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:292 _bwd_kernel",
          "launches": train_bwd, **bwd, "library_ms": None,
-         "library_note": no_lib}]
+         "library_note": no_lib}] + stages
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

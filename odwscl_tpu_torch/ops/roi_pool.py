@@ -44,6 +44,18 @@ def _bin_edges(start: torch.Tensor, length: torch.Tensor, pooled: int,
     return lo.clamp(0, limit), hi.clamp(0, limit)
 
 
+def roi_bin_edges(rois: torch.Tensor, spatial_scale: float, pooled: int,
+                  h: int, w: int):
+    """Bin edges of every roi of ``rois`` [B, P, 4] on an [h, w] map: row
+    (lo, hi) and column (lo, hi), each [B * P, pooled]."""
+    cells = torch.floor(rois.to(torch.float32).reshape(-1, 4)
+                        * spatial_scale + 0.5).to(torch.int64)
+    x1, y1, x2, y2 = cells.unbind(-1)
+    hs, he = _bin_edges(y1, (y2 - y1 + 1).clamp(min=1), pooled, h)
+    ws, we = _bin_edges(x1, (x2 - x1 + 1).clamp(min=1), pooled, w)
+    return hs, he, ws, we
+
+
 def roi_pool_plain(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
                    spatial_scale: float, pooled: int = POOLED) -> torch.Tensor:
     """Plain torch RoI max pooling, exact for every roi size.
@@ -51,64 +63,70 @@ def roi_pool_plain(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
     feat [B, H, W, C]; rois [B, P, 4] xyxy in image pixels (f32); mask
     [B, P] bool -> [B, P, pooled, pooled, C] in feat's dtype.
 
-    Each roi's cell window (its clipped extent, padded to the largest in
-    the batch) is gathered in chunks, reduced over rows into the row bins,
-    then over columns into the column bins. The max of a rectangle is the
-    max over its columns of the max over its rows, so this is exact.
+    The max of a rectangle is the max over its columns of the max over its
+    rows, so the bin-by-bin reduction of ``pool_rects`` is exact.
     """
     b, h, w, c = feat.shape
     p = rois.shape[1]
-    dev = feat.device
-    out = torch.zeros((b * p, pooled, pooled, c), dtype=feat.dtype, device=dev)
     if b * p == 0:
-        return out.reshape(b, p, pooled, pooled, c)
-    geo = _Windows(feat, rois, mask, spatial_scale, pooled)
+        return torch.zeros((b, p, pooled, pooled, c), dtype=feat.dtype,
+                           device=feat.device)
+    edges = roi_bin_edges(rois, spatial_scale, pooled, h, w)
+    return pool_rects(feat, mask, *edges).reshape(b, p, pooled, pooled, c)
+
+
+def pool_rects(fmap: torch.Tensor, mask: torch.Tensor, row_lo: torch.Tensor,
+               row_hi: torch.Tensor, col_lo: torch.Tensor,
+               col_hi: torch.Tensor) -> torch.Tensor:
+    """out[n, i, j] = max of image n // P of ``fmap`` [B, H, W, C] over rows
+    [row_lo, row_hi)[n, i] x columns [col_lo, col_hi)[n, j]: [B * P, K, K,
+    C]. Empty rectangles and masked rois (``mask`` [B, P]) give 0.
+
+    Each roi's window is reduced over rows into the row bins, then over
+    columns.
+    """
+    geo = _Windows(fmap, mask, row_lo, row_hi, col_lo, col_hi)
+    n, k = row_lo.shape
+    out = torch.empty((n, k, k, geo.c), dtype=fmap.dtype, device=fmap.device)
     for s, e, win, _, row_in, col_in in geo.chunks():
-        for ph in range(pooled):
-            rowmax = torch.where(row_in[:, ph, :, None, None], win,
-                                 geo.neg).amax(dim=1)              # [n, mw, C]
-            out[s:e, ph] = torch.where(col_in[:, :, :, None],
-                                       rowmax[:, None], geo.neg).amax(dim=2)
-    out = torch.where(geo.dead[..., None], torch.zeros(
-        (), dtype=feat.dtype, device=dev), out)
-    return out.reshape(b, p, pooled, pooled, c)
+        for i in range(k):
+            rowmax = torch.where(row_in[:, i, :, None, None], win,
+                                 geo.neg).amax(dim=1)              # [m, mw, C]
+            out[s:e, i] = torch.where(col_in[:, :, :, None],
+                                      rowmax[:, None], geo.neg).amax(dim=2)
+    return torch.where(geo.dead[..., None], torch.zeros(
+        (), dtype=fmap.dtype, device=fmap.device), out)
 
 
 class _Windows:
-    """Bin edges of every roi and its cell window (the clipped extent,
-    padded to the largest in the batch), gathered from the map in chunks.
-    Shared by the plain forward and backward."""
+    """The bin rectangles of every roi, rows [row_lo, row_hi) x columns
+    [col_lo, col_hi) ([B * P, K] each, non-decreasing along the bins,
+    inside the map), and its cell window (rows row_lo[:, 0] to
+    row_hi[:, -1], columns likewise, padded to the largest in the batch),
+    gathered from the map in chunks with each cell's index."""
 
-    def __init__(self, feat, rois, mask, spatial_scale, pooled):
-        b, h, w, c = feat.shape
-        p = rois.shape[1]
-        dev = feat.device
-        self.feat, self.h, self.w, self.c = feat, h, w, c
-        cells = torch.floor(rois.to(torch.float32).reshape(b * p, 4)
-                            * spatial_scale + 0.5).to(torch.int64)
-        x1, y1, x2, y2 = cells.unbind(-1)
-        roi_w = (x2 - x1 + 1).clamp(min=1)
-        roi_h = (y2 - y1 + 1).clamp(min=1)
-        self.hs, self.he = _bin_edges(y1, roi_h, pooled, h)
-        self.ws, self.we = _bin_edges(x1, roi_w, pooled, w)
-        # window of cells that any bin of the roi can touch
-        self.r0, self.c0 = y1.clamp(0, h), x1.clamp(0, w)
-        self.mh = max(1, int(((y1 + roi_h).clamp(0, h) - self.r0).max()))
-        self.mw = max(1, int(((x1 + roi_w).clamp(0, w) - self.c0).max()))
-        self.img = torch.arange(b, device=dev).repeat_interleave(p)
-        self.neg = torch.tensor(float("-inf"), dtype=feat.dtype, device=dev)
-        empty = ((self.he <= self.hs)[:, :, None]
-                 | (self.we <= self.ws)[:, None, :])               # [BP, 7, 7]
-        self.dead = empty | ~mask.reshape(b * p)[:, None, None]
-        per_roi = self.mh * self.mw * c * feat.element_size() * 3
+    def __init__(self, fmap, mask, row_lo, row_hi, col_lo, col_hi):
+        b, h, w, c = fmap.shape
+        n = row_lo.shape[0]
+        dev = fmap.device
+        self.fmap, self.h, self.w, self.c, self.n = fmap, h, w, c, n
+        self.hs, self.he, self.ws, self.we = row_lo, row_hi, col_lo, col_hi
+        self.r0, self.c0 = row_lo[:, 0], col_lo[:, 0]
+        self.mh = max(1, int((row_hi[:, -1] - self.r0).max()))
+        self.mw = max(1, int((col_hi[:, -1] - self.c0).max()))
+        self.img = torch.arange(b, device=dev).repeat_interleave(n // b)
+        self.neg = torch.tensor(float("-inf"), dtype=fmap.dtype, device=dev)
+        empty = ((row_hi <= row_lo)[:, :, None]
+                 | (col_hi <= col_lo)[:, None, :])                 # [N, K, K]
+        self.dead = empty | ~mask.reshape(n)[:, None, None]
+        per_roi = self.mh * self.mw * c * fmap.element_size() * 3
         self.chunk = max(1, _PLAIN_CHUNK_BYTES // per_roi)
-        self.n = b * p
 
     def chunks(self):
         """Yields (s, e, win [n, mh, mw, C], cell index of win [n, mh, mw],
-        row_in [n, 7, mh], col_in [n, 7, mw]) for rois s:e."""
-        h, w, c, dev = self.h, self.w, self.c, self.feat.device
-        flat = self.feat.reshape(-1, c)
+        row_in [n, K, mh], col_in [n, K, mw]) for rois s:e."""
+        h, w, c, dev = self.h, self.w, self.c, self.fmap.device
+        flat = self.fmap.reshape(-1, c)
         for s in range(0, self.n, self.chunk):
             e = min(s + self.chunk, self.n)
             rows = self.r0[s:e, None] + torch.arange(self.mh, device=dev)
@@ -146,7 +164,8 @@ def roi_pool_backward_plain(feat: torch.Tensor, rois: torch.Tensor,
     dfeat = torch.zeros(b * h * w * c, dtype=torch.float32, device=dev)
     if b * p == 0:
         return dfeat.reshape(b, h, w, c).to(feat.dtype)
-    geo = _Windows(feat, rois, mask, spatial_scale, pooled)
+    geo = _Windows(feat, mask, *roi_bin_edges(rois, spatial_scale, pooled,
+                                              h, w))
     g = grad.reshape(b * p, pooled, pooled, c).to(torch.float32)
     ch = torch.arange(c, device=dev)
     xs = torch.arange(geo.mw, device=dev)[None, :, None]

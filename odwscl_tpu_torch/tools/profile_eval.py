@@ -127,19 +127,15 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args(argv)
 
-    import subprocess
-
     from odwscl_tpu_torch.config import get_default_cfg
     from odwscl_tpu_torch.data.transforms import Sample
     from odwscl_tpu_torch.models import Batch
     from odwscl_tpu_torch.models.detector import detector_from_cfg
     from odwscl_tpu_torch.utils.device import resolve_device
+    from odwscl_tpu_torch.utils.profiling import card_name_and_limit
 
     dev = resolve_device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader", "-i", "0"],
-                          capture_output=True, text=True,
-                          check=True).stdout.strip()
+    card = card_name_and_limit()
     cfg = get_default_cfg()
     cfg.merge_from_file(CONFIG)
     cfg.freeze()

@@ -30,7 +30,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import time
 import warnings
 
@@ -134,13 +133,11 @@ def main(argv=None):
     from odwscl_tpu_torch.ops.roi_pool import roi_pool, roi_pool_backward
     from odwscl_tpu_torch.solver import make_optimizer
     from odwscl_tpu_torch.utils.device import resolve_device
-    from odwscl_tpu_torch.utils.profiling import device_busy_seconds
+    from odwscl_tpu_torch.utils.profiling import (card_name_and_limit,
+                                                  device_busy_seconds)
 
     dev = resolve_device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader", "-i", "0"],
-                          capture_output=True, text=True,
-                          check=True).stdout.strip()
+    card = card_name_and_limit()
     cfg = get_default_cfg()
     cfg.merge_from_file(CONFIG)
     cfg.merge_from_list(["MODEL.WEIGHT", ""])

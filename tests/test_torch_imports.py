@@ -29,7 +29,8 @@ print(len(names), "modules", bad)
 assert not bad, bad
 for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "losses.pseudo_labels", "solver.build", "engine.trainer",
-                 "utils.checkpoint", "tools.train_net", "tools.profile_train"):
+                 "utils.checkpoint", "tools.train_net", "tools.profile_train",
+                 "ops.roi_pool_stages", "tools.profile_pool_stages"):
     assert "odwscl_tpu_torch." + required in names, required
 assert len(names) >= 45, names
 """
