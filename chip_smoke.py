@@ -8,15 +8,20 @@ Phases (any failure ends the run with a non-zero exit code):
    backward and stage-profiler kernels
    (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd,stages}.cu) with nvcc for
    sm_90a, all three at once.
-2. Hold the forward kernel against its plain PyTorch version on the card,
-   bit-exactly (atol 0) in f32 and bf16: a size grid of rois (1 cell up to
-   the full map, malformed, off-map, masked, empty bins) and the eval
-   shape feat [8, 104, 168, 512], P = 2048. Time both at the eval shape.
-3. Hold the backward kernel against ``roi_pool_backward_plain`` on the
-   card in f32 and bf16: the size grid, a bf16 ties case and the training
-   shape feat [8, 160, 208, 512] (a padded 1200-scale batch), P = 2048.
-   Routing exact, values within the atomics' reordering bound. Time both
-   at the training shape.
+2. Hold both instantiations of the forward kernel against their plain
+   PyTorch versions on the card, bit-exactly (atol 0) in f32 and bf16: the
+   output against ``roi_pool_plain`` and the training forward's int16
+   argmax codes against ``roi_pool_argmax_plain``'s, on a size grid of
+   rois (1 cell up to the full map, malformed, off-map, masked, empty
+   bins), the eval shape feat [8, 104, 168, 512] and the training shape
+   feat [8, 160, 208, 512] (a padded 1200-scale batch), P = 2048.
+3. Hold the backward kernel, fed by the forward kernel's argmax, against
+   the map-rescan ``roi_pool_backward_plain`` on the card in f32 and bf16:
+   the size grid, a bf16 ties case and the training shape. Routing exact,
+   values within the f32 reordering bound. Then time, in turns in one
+   run: #1 at the eval shape, the training forward at the training shape,
+   #2 and its yardstick (``index_add_`` of g at the cells decoded from the
+   stored argmax); and each plain version once.
 4. Hold the stage profiler's kernel (csrc/roi_pool_stages.cu), each of
    its five stages (write, rows, rows_col0, cols, full), against
    ``roi_pool_stage_plain`` on the card, bit-exactly (atol 0): the size
@@ -34,11 +39,13 @@ Phases (any failure ends the run with a non-zero exit code):
    configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml (VGG16-OICR, bf16, batch
    8, scales 480-1200, random init) for 20 iterations on a synthetic VOC
    trainval split of 32 images of 375x500 with 2048 proposals each. Every
-   step must have launched both kernels once; every loss must be finite.
+   step must have launched the training forward (with the argmax) and the
+   backward once, and the eval forward never; every loss must be finite.
 8. Drive the eval path: ``odwscl_tpu_torch.tools.test_net`` (14-transform
    TTA, AVG) on the checkpoint that training wrote, on a synthetic test
    split of 16 images, tasks det and corloc. Every forward must have gone
-   through the forward kernel. Neither path launches a stage kernel.
+   through the forward kernel without the argmax, and nothing else. Neither
+   path launches a stage kernel.
 
 Prints a ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -137,40 +144,52 @@ def main_path_inputs(rng, b=8, h=104, w=168, c=512, p=2048, xy_max=1000,
     return feat, rois, np.ones((b, p), bool)
 
 
+def train_shape_inputs(rng):
+    """A 1200-scale batch of 375x500 images: 1200x1600, padded 1280x1664,
+    feat [8, 160, 208, 512], P = 2048 rois of 16-300 px."""
+    return main_path_inputs(rng, h=160, w=208, xy_max=1200, limit=(1599, 1199))
+
+
 def phase_kernel(dev, rp):
+    """Both instantiations of the forward kernel against their plain
+    versions, bit-exactly (atol 0): the output against ``roi_pool_plain``
+    and the argmax codes against ``roi_pool_argmax_plain``'s, on the grid
+    and at the eval and training shapes."""
     import torch
-    from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound
 
     rng = np.random.RandomState(0)
-    checks = {}
+    worst = {"eval": 0.0, "argmax": 0.0}
     for label, (feat, rois, mask) in (("grid", grid_inputs(rng, 64)),
-                                      ("main", main_path_inputs(rng))):
+                                      ("eval", main_path_inputs(rng)),
+                                      ("train", train_shape_inputs(rng))):
         r = torch.from_numpy(rois).to(dev)
         m = torch.from_numpy(mask).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             f = torch.from_numpy(feat).to(dev, dtype)
+            want, want_codes = rp.roi_pool_argmax_plain(f, r, m, 0.125)
+            if not torch.equal(want, rp.roi_pool_plain(f, r, m, 0.125)):
+                raise AssertionError("roi_pool_argmax_plain's output != "
+                                     f"roi_pool_plain ({label}, {dtype})")
             got = rp.roi_pool(f, r, m, 0.125)
-            want = rp.roi_pool_plain(f, r, m, 0.125)
+            got_a, codes = rp.roi_pool_argmax(f, r, m, 0.125)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.equal(got, want):
-                raise AssertionError(f"roi_pool kernel != plain ({label}, "
-                                     f"{dtype}): max |diff| {err}")
-            checks[f"{label}/{str(dtype)[6:]}"] = err
-            print(f"[kernel] {label} {str(dtype)[6:]} feat "
-                  f"{list(f.shape)} P={r.shape[1]}: bit-exact vs plain")
-    # timing at the main-path shape, bf16 (the config's compute dtype)
-    f = torch.from_numpy(feat).to(dev, torch.bfloat16)
-    ms = cuda_ms(lambda: rp.roi_pool(f, r, m, 0.125), iters=20)
-    plain_ms = cuda_ms(lambda: rp.roi_pool_plain(f, r, m, 0.125), iters=3,
-                       warmup=1)
-    bound_ms, by, nbytes, ops = stage_bound(
-        "roi_pool", f, r, m, 0.125, torch.cuda.get_device_name(dev))
-    print(f"[kernel] main shape bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}; "
-          f"{nbytes / 1e9:.3f} GB; {ops / 1e9:.2f} G comparisons)")
-    return {"max_abs_err": max(checks.values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+            for name, out in (("eval", got), ("argmax", got_a)):
+                err = (out.float() - want.float()).abs().max().item()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"roi_pool kernel [{name}] != plain "
+                                         f"({label}, {dtype}): max |diff| "
+                                         f"{err}")
+                worst[name] = max(worst[name], err)
+            if not torch.equal(codes, want_codes):
+                bad = int((codes != want_codes).sum())
+                raise AssertionError(f"roi_pool kernel argmax codes != plain "
+                                     f"({label}, {dtype}): {bad} differ")
+            print(f"[kernel] {label} {str(dtype)[6:]} feat {list(f.shape)} "
+                  f"P={r.shape[1]}: both instantiations bit-exact vs plain, "
+                  f"argmax codes equal ({int((codes != rp.NO_CELL).sum())} "
+                  "routed)")
+            del want, want_codes, got, got_a, codes
+    return worst
 
 
 def phase_card_vs_cpu(dev):
@@ -232,18 +251,18 @@ def bwd_bound(feat, rois, mask, g, name):
 
 
 def phase_bwd_kernel(dev, rp):
-    """Kernel vs plain backward: routing exact (strictly positive g, so
-    both are non-zero on the same cells); values within the reordering of
-    the f32 atomics, |d| <= n * 2^-23 * sum|g| per cell (n = the bins that
-    route to the cell); after the cast to bf16 at most one bf16 ulp."""
+    """Kernel vs plain backward: the training forward kernel's argmax, then
+    the backward kernel from it, against the map-rescan
+    ``roi_pool_backward_plain``. Routing exact (strictly positive g, so both
+    are non-zero on the same cells); values within the reordering of the
+    f32 sums, |d| <= n * 2^-23 * sum|g| per cell (n = the bins that route to
+    the cell); after the cast to bf16 at most one bf16 ulp."""
     import torch
 
     rng = np.random.RandomState(2)
     feat_grid, rois_grid, mask_grid = grid_inputs(rng, 64)
     ties = np.round(feat_grid * 1.5).astype(np.float32)     # a few values
-    # a 1200-scale batch of 375x500 images: 1200x1600, padded 1280x1664
-    train = main_path_inputs(rng, h=160, w=208, xy_max=1200,
-                             limit=(1599, 1199))
+    train = train_shape_inputs(rng)
     worst = 0.0
     for label, (feat, rois, mask), dtypes in (
             ("grid", (feat_grid, rois_grid, mask_grid),
@@ -256,7 +275,9 @@ def phase_bwd_kernel(dev, rp):
             f = torch.from_numpy(feat).to(dev, dtype)
             g = (torch.rand(r.shape[:2] + (7, 7, f.shape[3]), device=dev)
                  + 0.05).to(dtype)
-            got = rp.roi_pool_backward(f, r, m, g, 0.125).float()
+            _, codes = rp.roi_pool_argmax(f, r, m, 0.125)
+            got = rp.roi_pool_backward(codes, r, m, g, 0.125,
+                                       tuple(f.shape[1:3])).float()
             want = rp.roi_pool_backward_plain(f, r, m, g, 0.125).float()
             torch.cuda.synchronize()
             if not torch.equal(got != 0, want != 0):
@@ -278,19 +299,113 @@ def phase_bwd_kernel(dev, rp):
                   f"P={r.shape[1]}: same cells as plain, max |diff| "
                   f"{err.max().item():.3e} (within the bound), "
                   f"{int((want != 0).sum())} cells routed")
-    f = torch.from_numpy(train[0]).to(dev, torch.bfloat16)
-    g = torch.rand(r.shape[:2] + (7, 7, f.shape[3]), device=dev).to(
-        torch.bfloat16)
-    ms = cuda_ms(lambda: rp.roi_pool_backward(f, r, m, g, 0.125), iters=10)
-    plain_ms = cuda_ms(lambda: rp.roi_pool_backward_plain(f, r, m, g, 0.125),
-                       iters=2, warmup=1)
+            del g, codes, got, want, err, bound
+    return worst
+
+
+def argmax_cells(rp, codes, rois, mask, g, hw):
+    """The index_add_ yardstick's inputs, built from the stored argmax:
+    the flat d feat index of every routed cotangent, and the cotangents in
+    f32."""
+    import torch
+
+    b, p, _, _, c = codes.shape
+    h, w = hw
+    hs, _, ws, we = rp.roi_bin_edges(rois, 0.125, 7, h, w)
+    off = rp.decode_cells(codes).reshape(b * p, 7, 7, c).long()
+    live = (off != 0xFFFF) & mask.reshape(-1)[:, None, None, None]
+    bw = (we - ws).clamp(min=1)[:, None, :, None]
+    y = hs[:, :, None, None] + off // bw
+    x = ws[:, None, :, None] + off % bw
+    img = torch.arange(b, device=codes.device).repeat_interleave(p)
+    cell = (((img[:, None, None, None] * h + y) * w + x) * c
+            + torch.arange(c, device=codes.device))
+    return cell[live], g.reshape(b * p, 7, 7, c)[live].float()
+
+
+def phase_timing(dev, rp):
+    """#1 at the eval shape, the training forward at the training shape and
+    #2 beside its index_add_ yardstick, timed in turns in one run (3
+    rounds), with their bounds and each design's own traffic."""
+    import torch
+    from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound, stage_work
+    from odwscl_tpu_torch.utils.profiling import MEM_BYTES_PER_S, card_rate
+
     name = torch.cuda.get_device_name(dev)
-    bound_ms, by, nbytes = bwd_bound(f, r, m, g, name)
-    print(f"[bwd] train shape bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}; "
-          f"{nbytes / 1e9:.3f} GB)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+    rate = card_rate(name, MEM_BYTES_PER_S)
+    rng = np.random.RandomState(5)
+    fe, re_, me = (torch.from_numpy(a).to(dev) for a in main_path_inputs(rng))
+    fe = fe.to(torch.bfloat16)
+    ft, rt, mt = (torch.from_numpy(a).to(dev)
+                  for a in train_shape_inputs(rng))
+    ft = ft.to(torch.bfloat16)
+    hw = tuple(ft.shape[1:3])
+    _, codes = rp.roi_pool_argmax(ft, rt, mt, 0.125)
+    g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+    cells, vals = argmax_cells(rp, codes, rt, mt, g, hw)
+    n_dfeat = ft.numel()
+
+    def yardstick():
+        d = torch.zeros(n_dfeat, dtype=torch.float32, device=dev)
+        d.index_add_(0, cells, vals)
+        return d.to(torch.bfloat16)
+
+    lib_out = yardstick().reshape(ft.shape)
+    got = rp.roi_pool_backward(codes, rt, mt, g, 0.125, hw)
+    if not torch.equal(got != 0, lib_out != 0):
+        raise AssertionError("roi_pool_bwd and its index_add_ yardstick "
+                             "route differently")
+    fns = {"fwd": lambda: rp.roi_pool(fe, re_, me, 0.125),
+           "fwd_argmax": lambda: rp.roi_pool_argmax(ft, rt, mt, 0.125),
+           "bwd": lambda: rp.roi_pool_backward(codes, rt, mt, g, 0.125, hw),
+           "bwd_library": yardstick}
+    times = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, iters=10))
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    plain_ms = {
+        "fwd": cuda_ms(lambda: rp.roi_pool_plain(fe, re_, me, 0.125),
+                       iters=1, warmup=0),
+        "fwd_argmax": cuda_ms(lambda: rp.roi_pool_argmax_plain(
+            ft, rt, mt, 0.125), iters=1, warmup=0),
+        "bwd": cuda_ms(lambda: rp.roi_pool_backward_argmax_plain(
+            codes, rt, mt, g, 0.125, hw), iters=1, warmup=0)}
+    fwd_bound, fwd_by, fwd_bytes, _ = stage_bound("roi_pool", fe, re_, me,
+                                                  0.125, name)
+    # the training forward's own least traffic: #1's plus the argmax
+    train_bytes = (stage_work("roi_pool", ft, rt, mt, 0.125)[0]
+                   + codes.numel() * codes.element_size())
+    bwd_ms, bwd_by, bwd_bytes = bwd_bound(ft, rt, mt, g, name)
+    bwd_design = (g.numel() + n_dfeat) * 2 + codes.numel() * 2 \
+        + rt.numel() * 4 + mt.numel()
+    print(f"[timing] {name}; ms per launch, mean of 3 readings of 10 in "
+          "turns: " + ", ".join(f"{k} {v:.4f} ({', '.join(f'{t:.4f}' for t in times[k])})"
+                                for k, v in ms.items()))
+    print(f"[timing] #1 eval shape bf16: {ms['fwd']:.4f} ms, bound "
+          f"{fwd_bound:.4f} ms ({fwd_by}, {fwd_bytes / 1e9:.4f} GB), plain "
+          f"{plain_ms['fwd']:.3f} ms")
+    print(f"[timing] #1[argmax] train shape bf16: {ms['fwd_argmax']:.4f} ms, "
+          f"bound {train_bytes / rate * 1e3:.4f} ms (bytes: map, output and "
+          f"argmax, {train_bytes / 1e9:.4f} GB), plain "
+          f"{plain_ms['fwd_argmax']:.3f} ms")
+    print(f"[timing] #2 train shape bf16: {ms['bwd']:.4f} ms, bound "
+          f"{bwd_ms:.4f} ms ({bwd_by}: feat, g and d feat, "
+          f"{bwd_bytes / 1e9:.4f} GB); this design's traffic (g, argmax, d "
+          f"feat) {bwd_design / 1e9:.4f} GB = "
+          f"{bwd_design / rate * 1e3:.4f} ms; index_add_ yardstick "
+          f"{ms['bwd_library']:.4f} ms ({cells.numel()} routed cotangents); "
+          f"plain {plain_ms['bwd']:.3f} ms")
+    return {
+        "fwd": {"ms": ms["fwd"], "plain_ms": plain_ms["fwd"],
+                "bound_ms": fwd_bound, "bound_by": fwd_by},
+        "fwd_argmax": {"ms": ms["fwd_argmax"],
+                       "plain_ms": plain_ms["fwd_argmax"],
+                       "bound_ms": train_bytes / rate * 1e3,
+                       "bound_by": "bytes"},
+        "bwd": {"ms": ms["bwd"], "plain_ms": plain_ms["bwd"],
+                "bound_ms": bwd_ms, "bound_by": bwd_by,
+                "library_ms": ms["bwd_library"]}}
 
 
 STAGE_REPLACES = {
@@ -480,14 +595,16 @@ def phase_train(rp, tmp):
     out = os.path.join(tmp, "train")
     timing = {}
     torch.cuda.reset_peak_memory_stats()
-    rp.roi_pool.launches = rp.roi_pool_backward.launches = 0
+    rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+    rp.roi_pool_backward.launches = 0
     t0 = time.perf_counter()
     train_net.main(["--config-file", CONFIG, "--data-root", tmp,
                     "--device", "cuda", "--skip-test", "OUTPUT_DIR", out,
                     "MODEL.WEIGHT", "", "SOLVER.MAX_ITER", str(TRAIN_STEPS),
                     "SOLVER.CHECKPOINT_PERIOD", "10"], timing_out=timing)
     wall = time.perf_counter() - t0
-    launches = (rp.roi_pool.launches, rp.roi_pool_backward.launches)
+    launches = (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+                rp.roi_pool_backward.launches)
     steps = timing["train"]["steps"]
     if len(steps) != TRAIN_STEPS:
         raise AssertionError(f"{len(steps)} train steps, not {TRAIN_STEPS}")
@@ -495,9 +612,9 @@ def phase_train(rp, tmp):
         bad = [k for k, v in s.items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f"iteration {s['iter']}: non-finite {bad}")
-    if launches != (TRAIN_STEPS, TRAIN_STEPS):
-        raise AssertionError(f"kernel launches (fwd, bwd) {launches} for "
-                             f"{TRAIN_STEPS} steps")
+    if launches != (0, TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"kernel launches (fwd, fwd[argmax], bwd) "
+                             f"{launches} for {TRAIN_STEPS} steps")
     window = steps[4:]
     med = statistics.median(s["step_s"] for s in window)
     data_wait = sum(s["data_s"] for s in window)
@@ -513,12 +630,13 @@ def phase_train(rp, tmp):
     print("[train] losses step 1 -> 20: " + ", ".join(
         f"{k} {steps[0][k]:.4f} -> {steps[-1][k]:.4f}"
         for k in ("loss", "loss_img", "loss_sim", "loss_ref_cls0")))
-    print(f"[train] kernel launches: roi_pool_fwd {launches[0]}, "
-          f"roi_pool_bwd {launches[1]} = steps {TRAIN_STEPS}")
+    print(f"[train] kernel launches: roi_pool_fwd[argmax] {launches[1]}, "
+          f"roi_pool_bwd {launches[2]} = steps {TRAIN_STEPS}; roi_pool_fwd "
+          f"{launches[0]}")
     for name in ("model_0000010.pt", "model_0000020.pt", "model_final.pt"):
         if not os.path.exists(os.path.join(out, name)):
             raise AssertionError(f"checkpoint {name} missing")
-    return launches, os.path.join(out, "model_final.pt")
+    return launches[1:], os.path.join(out, "model_final.pt")
 
 
 def phase_eval(rp, tmp, weights):
@@ -531,7 +649,8 @@ def phase_eval(rp, tmp, weights):
     n_batches = math.ceil(n_images / cfg.TEST.IMS_PER_BATCH)
     n_tta = 2 * (1 + len(cfg.TEST.BBOX_AUG.SCALES))
     results = {}
-    rp.roi_pool.launches = rp.roi_pool_backward.launches = 0
+    rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+    rp.roi_pool_backward.launches = 0
     for task in ("det", "corloc"):
         timing = {}
         t0 = time.perf_counter()
@@ -563,11 +682,14 @@ def phase_eval(rp, tmp, weights):
               f"NMS+top-K+to-host {t['finalize_s']:.2f}, eval "
               f"{t['eval_s']:.3f}; CLI wall {wall:.2f} s")
     total = sum(t["n_forwards"] for _, t, _ in results.values())
-    if launches != total or rp.roi_pool_backward.launches:
+    if (launches != total or rp.roi_pool_argmax.launches
+            or rp.roi_pool_backward.launches):
         raise AssertionError(f"roi_pool kernel launched {launches} times for "
-                             f"{total} forwards")
+                             f"{total} forwards (argmax "
+                             f"{rp.roi_pool_argmax.launches}, backward "
+                             f"{rp.roi_pool_backward.launches})")
     print(f"[eval] roi_pool kernel launches {launches} = forwards {total} "
-          f"({n_tta} per batch)")
+          f"({n_tta} per batch); no argmax, no backward")
     return launches
 
 
@@ -611,8 +733,9 @@ def main():
         print(f"[phase] {label} {time.perf_counter() - t0:.1f} s")
         return out
 
-    fwd = timed("forward kernel checks", phase_kernel, dev, rp)
-    bwd = timed("backward kernel checks", phase_bwd_kernel, dev, rp)
+    fwd_err = timed("forward kernel checks", phase_kernel, dev, rp)
+    bwd_err = timed("backward kernel checks", phase_bwd_kernel, dev, rp)
+    tm = timed("kernel timing", phase_timing, dev, rp)
     stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
     timed("eval card vs CPU", phase_card_vs_cpu, dev)
     timed("train card vs CPU", phase_train_card_vs_cpu, dev)
@@ -634,17 +757,22 @@ def main():
     src = "odwscl_tpu_torch/csrc/"
     no_lib = ("no single PyTorch call computes ROIPool; torchvision is not "
               "installed")
+    fwd_src = {"route": "cuda", "source": src + "roi_pool_fwd.cu",
+               "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:245 _fwd_kernel"}
     kernels = [
-        {"name": "roi_pool_fwd", "route": "cuda",
-         "source": src + "roi_pool_fwd.cu",
-         "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:245 _fwd_kernel",
-         "launches": train_fwd + eval_fwd, **fwd, "library_ms": None,
+        {"name": "roi_pool_fwd", **fwd_src, "launches": eval_fwd,
+         "max_abs_err": fwd_err["eval"], **tm["fwd"], "library_ms": None,
          "library_note": no_lib},
+        {"name": "roi_pool_fwd[argmax]", **fwd_src, "launches": train_fwd,
+         "max_abs_err": fwd_err["argmax"], **tm["fwd_argmax"],
+         "library_ms": None, "library_note": no_lib},
         {"name": "roi_pool_bwd", "route": "cuda",
          "source": src + "roi_pool_bwd.cu",
          "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:292 _bwd_kernel",
-         "launches": train_bwd, **bwd, "library_ms": None,
-         "library_note": no_lib}] + stages
+         "launches": train_bwd, "max_abs_err": bwd_err, **tm["bwd"],
+         "library_note": ("torch.zeros f32, one index_add_ of g at the cells "
+                          "decoded from the stored argmax (indices built "
+                          "outside the timing), then .to(bf16)")}] + stages
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,38 +1,64 @@
-// 7x7 RoI max pooling, backward, for NVIDIA Hopper (sm_90a).
+// 7x7 RoI max pooling, backward from the stored argmax, for NVIDIA Hopper
+// (sm_90a).
 //
-// Replaces: odwscl_tpu/ops/roi_pool_pallas.py:_bwd_kernel (the Pallas TPU
-// kernel behind the custom_vjp of roi_pool_tpu), which reproduces the CUDA
-// ROIPool backward:
+// Replaces: odwscl_tpu/ops/roi_pool_pallas.py:_bwd_kernel (:292, the
+// Pallas TPU kernel behind the custom_vjp of roi_pool_tpu), which
+// reproduces the CUDA ROIPool backward:
 //   - each bin's cotangent goes whole to the bin's FIRST maximum in
-//     row-major order (scan y, then x, with a strict '>', as the forward's
-//     running max in roi_pool_fwd.cu does), so ties, bf16 ties included,
-//     are routed to one cell and never split;
+//     row-major order, so ties, bf16 ties included, are routed to one cell
+//     and never split;
 //   - empty bins, masked rois and bins whose cells are all off the map
 //     contribute nothing;
-//   - cell rounding and bin edges are the forward's own, integer-exact;
-//   - the gradient accumulates in f32; the wrapper casts it to the
-//     feature dtype.
-// The plain PyTorch version is roi_pool_backward_plain in ops/roi_pool.py.
-// Routing is exact; the f32 sums agree up to the order of the atomic adds.
+//   - the gradient accumulates in f32 and is returned in the feature dtype.
+// The first maximum comes from the training forward (csrc/roi_pool_fwd.cu,
+// ARGMAX): one int16 code per output element, the offset (y - hs) *
+// (we - ws) + (x - ws) of the cell inside its bin, read as unsigned 16-bit,
+// 0xFFFF for no cell. The bin edges are recomputed here in integers, as the
+// forward computes them. The plain PyTorch version is
+// roi_pool_backward_argmax_plain in ops/roi_pool.py (decode, one f32
+// index_add_, cast); the map-rescan roi_pool_backward_plain is the oracle of
+// the routing. Routing is exact; the f32 sums agree up to their order.
 //
-// The argmax is recomputed here from (feat, rois, mask), as the JAX
-// custom_vjp does (its residuals hold no argmax): a stored int32 argmax
-// would be [B, P, 7, 7, C], 1.6 GB at B = 8, P = 2048, C = 512, written by
-// the forward and read back here, more bytes than the rescan of the map,
-// which mostly hits L2.
+// Why the argmax is stored: the first design recomputed it here by
+// rescanning each bin of the map, as the JAX custom_vjp does, on the
+// assumption that the rescan mostly hits L2. On the card the rescan cost
+// as much as a whole forward (7.07 of the backward's 16.93 ms at the
+// 1200-scale training step, NVIDIA H100 80GB HBM3, 700 W, PERF.md), while
+// the int16 argmax costs 822 MB written by the forward and 822 MB read
+// here at the training shape, about 0.5 ms at 3.35 TB/s.
 //
-// Bound: bytes. The least traffic is feat and the cotangent g read once and
-// d_feat written once in the feature dtype. At the training shape (feat
-// [8, 160, 208, 512] bf16, P = 2048) that is 272 MB + 822 MB + 272 MB. The
-// design adds the f32 scratch: zeroed, read-modified-written by the
-// atomics, and read once more by the cast.
+// Bound: bytes. The function's own least traffic is feat and the cotangent
+// g read once and d feat written once in the feature dtype (the bound kept
+// from the first design, which read feat): at the training shape (feat
+// [8, 160, 208, 512] bf16, P = 2048) 272 + 822 + 272 MB. This design reads
+// g and the argmax instead of feat: 822 + 822 + 272 MB.
 //
-// Design: one block per (image, roi), threads over channel pairs (bf16x2 or
-// float2 loads, so a warp reads one contiguous run of the NHWC channel
-// axis), as in the forward. Each thread scans each bin keeping (max, cell)
-// per channel and adds the cotangent to the winning cell of the f32 scratch
-// with one atomicAdd per channel. Blocks of overlapping rois add to the
-// same cells in no fixed order, hence the atomics. No shared memory.
+// Design: one block per (channel tile of kTileC = 256, map tile of kTileH x
+// kTileW = 8 x 8 cells, image) owns that part of d feat outright. Its f32
+// accumulator acc[cell][channel] (64 KB) lives in shared memory, so the
+// first design's 411 M global f32 atomics, its zeroed f32 scratch and the
+// separate cast pass are gone.
+//   - Roi list: the block tests the P rois of its image kList at a time,
+//     one thread per roi (mask, and which row and column bins meet the
+//     tile: two contiguous ranges), and appends the hits, with warp
+//     ballots, to a list in shared memory.
+//   - Accumulate: each warp takes one (listed roi, row bin) at a time and
+//     walks that row's bins that meet the tile, kBins (3) with their loads
+//     in flight together; lanes over the tile's channels, 8 each, so each
+//     lane reads 16 bytes of argmax codes and of g per bin. Each lane
+//     decodes its cells (an exact float division) and, if a cell lies in
+//     the tile, adds the cotangent with a shared-memory atomicAdd: warps
+//     may meet on a word, lanes never do. Channel k of lane l lives in
+//     plane k, word l of its cell, so the 32 lanes of an add touch 32 banks.
+//   - Epilogue: acc is cast to the feature dtype and every cell of the
+//     tile is written once, 16 bytes per store.
+// g and the argmax are read once per map tile that a bin meets: about 1.5x
+// at the training shape with 8 x 8 tiles. Two blocks of 512 threads share
+// an SM (64 registers each). The tile sizes, kBins and the block shape were
+// picked on the card among 8x4 to 32x32 tiles, 32 to 256 channels, 1 to 7
+// bins in flight and 256 or 512 threads, kBins at the batches of the six
+// train scales (odwscl_tpu_torch/tools/tune_roi_pool.py; readings in
+// PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,17 +68,55 @@
 namespace {
 
 constexpr int kPooled = 7;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileH = 8;   // map rows per block
+constexpr int kTileW = 8;   // map columns per block
+constexpr int kPer = 8;     // channels per lane (a multiple of 8)
+constexpr int kBins = 3;    // bins whose loads are in flight together
+constexpr int kList = 512;  // rois listed at a time
+constexpr int kMinBlocks = 2;  // blocks per SM the registers must allow
+constexpr int kTileC = 32 * kPer;
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr size_t kAccBytes =
+    static_cast<size_t>(kTileH) * kTileW * kTileC * sizeof(float);
 
-struct Bf16x2 {
-  using Vec = __nv_bfloat162;
-  static __device__ __forceinline__ float2 to_float2(Vec v) {
-    return __bfloat1622float2(v);
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// A lane's cotangents as loaded (kPer values in 16-byte vectors), read
+// one channel at a time (at), and 8 channels of d feat stored from f32
+// (store8)
+struct Bf16 {
+  using Elem = __nv_bfloat16;
+  static constexpr int kBytes = 2;
+  static __device__ __forceinline__ float at(const uint4* g, int k) {
+    const uint32_t w = word(g[k / 8], (k % 8) / 2);
+    return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+  static __device__ __forceinline__ void store8(Elem* dst, const float* f) {
+    uint4 v;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(dst) = v;
   }
 };
 
-struct F32x2 {
-  using Vec = float2;
-  static __device__ __forceinline__ float2 to_float2(Vec v) { return v; }
+struct F32 {
+  using Elem = float;
+  static constexpr int kBytes = 4;
+  static __device__ __forceinline__ float at(const uint4* g, int k) {
+    return __uint_as_float(word(g[k / 4], k % 4));
+  }
+  static __device__ __forceinline__ void store8(Elem* dst, const float* f) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
 };
 
 __device__ __forceinline__ int round_cell(float x, float scale) {
@@ -64,96 +128,214 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+__device__ __forceinline__ int bin_lo(int k, int len, int start, int limit) {
+  return clampi(k * len / kPooled + start, 0, limit);
+}
+
+__device__ __forceinline__ int bin_hi(int k, int len, int start, int limit) {
+  return clampi(((k + 1) * len + kPooled - 1) / kPooled + start, 0, limit);
+}
+
+// channel j of the tile lives in plane j % kPer, word j / kPer of its cell
+__device__ __forceinline__ int acc_slot(int j) {
+  return (j % kPer) * 32 + j / kPer;
+}
+
+// Grid (channel tiles, map tiles, images).
 template <typename T>
-__global__ void roi_pool_bwd_kernel(const typename T::Vec* __restrict__ feat,
-                                    const float* __restrict__ rois,
-                                    const uint8_t* __restrict__ mask,
-                                    const typename T::Vec* __restrict__ grad,
-                                    float* __restrict__ dfeat,
-                                    int P, int H, int W, int C2,
-                                    float scale) {
-  const int roi = blockIdx.x;  // b * P + p
-  if (!mask[roi]) return;
-  const int b = roi / P;
-  const int C = 2 * C2;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
+                    const float* __restrict__ rois,
+                    const uint8_t* __restrict__ mask,
+                    const typename T::Elem* __restrict__ grad,
+                    typename T::Elem* __restrict__ dfeat, int P, int H,
+                    int W, int C, float scale, int tiles_w) {
+  constexpr int kCodeVecs = kPer / 8;          // uint4 of codes per lane
+  constexpr int kGradVecs = kPer * T::kBytes / 16;
+  extern __shared__ __align__(16) float acc[];  // [kTileH * kTileW][kTileC]
+  __shared__ int4 box[kList];   // x1, y1, roi_w, roi_h of the listed rois
+  __shared__ int ids[kList];    // their flat index b * P + p
+  __shared__ int span[kList];   // their row and column bins that meet the tile
+  __shared__ int count;
 
-  const float* r = rois + static_cast<int64_t>(roi) * 4;
-  const int x1 = round_cell(r[0], scale);
-  const int y1 = round_cell(r[1], scale);
-  const int x2 = round_cell(r[2], scale);
-  const int y2 = round_cell(r[3], scale);
-  const int roi_w = max(x2 - x1 + 1, 1);
-  const int roi_h = max(y2 - y1 + 1, 1);
-  const typename T::Vec* fimg = feat + static_cast<int64_t>(b) * H * W * C2;
-  float* dimg = dfeat + static_cast<int64_t>(b) * H * W * C;
-  const typename T::Vec* g_roi =
-      grad + static_cast<int64_t>(roi) * kPooled * kPooled * C2;
+  const int c0 = blockIdx.x * kTileC;
+  const int ty0 = (blockIdx.y / tiles_w) * kTileH;
+  const int tx0 = (blockIdx.y % tiles_w) * kTileW;
+  const int th = min(ty0 + kTileH, H) - ty0;
+  const int tw = min(tx0 + kTileW, W) - tx0;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int cl = c0 + lane * kPer;  // the lane's first channel
+  const bool lane_live = cl < C;    // C is a multiple of 8
 
-  for (int c = threadIdx.x; c < C2; c += blockDim.x) {
-    for (int ph = 0; ph < kPooled; ++ph) {
-      const int hs = clampi(ph * roi_h / kPooled + y1, 0, H);
-      const int he = clampi(((ph + 1) * roi_h + kPooled - 1) / kPooled + y1,
-                            0, H);
-      if (he <= hs) continue;
-      for (int pw = 0; pw < kPooled; ++pw) {
-        const int ws = clampi(pw * roi_w / kPooled + x1, 0, W);
-        const int we = clampi(((pw + 1) * roi_w + kPooled - 1) / kPooled + x1,
-                              0, W);
-        if (we <= ws) continue;
-        const float2 g = T::to_float2(g_roi[(ph * kPooled + pw) * C2 + c]);
-        if (g.x == 0.f && g.y == 0.f) continue;
-        float2 m = make_float2(-INFINITY, -INFINITY);
-        int64_t ax = -1, ay = -1;  // winning cell (y * W + x) per channel
-        for (int y = hs; y < he; ++y) {
-          const typename T::Vec* row =
-              fimg + (static_cast<int64_t>(y) * W) * C2 + c;
-          for (int x = ws; x < we; ++x) {
-            const float2 v = T::to_float2(row[static_cast<int64_t>(x) * C2]);
-            const int64_t cell = static_cast<int64_t>(y) * W + x;
-            if (v.x > m.x) { m.x = v.x; ax = cell; }
-            if (v.y > m.y) { m.y = v.y; ay = cell; }
+  for (int i = tid; i < kTileH * kTileW * kTileC; i += kThreads) acc[i] = 0.f;
+
+  for (int base = 0; base < P; base += kList) {
+    __syncthreads();  // the previous list is consumed (and acc is zeroed)
+    if (tid == 0) count = 0;
+    __syncthreads();
+    // list the rois whose bins meet the tile, with the ranges of those
+    // bins (bins are ordered, so each range is contiguous)
+    for (int p = base + tid; p < base + kList; p += kThreads) {
+      const int roi = b * P + p;
+      int4 q = make_int4(0, 0, 1, 1);
+      int ph0 = kPooled, ph1 = 0, pw0 = kPooled, pw1 = 0;
+      if (p < P && mask[roi]) {
+        const float* r = rois + static_cast<int64_t>(roi) * 4;
+        q.x = round_cell(r[0], scale);
+        q.y = round_cell(r[1], scale);
+        q.z = max(round_cell(r[2], scale) - q.x + 1, 1);
+        q.w = max(round_cell(r[3], scale) - q.y + 1, 1);
+#pragma unroll
+        for (int k = 0; k < kPooled; ++k) {
+          if (max(bin_lo(k, q.w, q.y, H), ty0) <
+              min(bin_hi(k, q.w, q.y, H), ty0 + th)) {
+            ph0 = min(ph0, k);
+            ph1 = k + 1;
+          }
+          if (max(bin_lo(k, q.z, q.x, W), tx0) <
+              min(bin_hi(k, q.z, q.x, W), tx0 + tw)) {
+            pw0 = min(pw0, k);
+            pw1 = k + 1;
           }
         }
-        if (ax >= 0 && g.x != 0.f) atomicAdd(dimg + ax * C + 2 * c, g.x);
-        if (ay >= 0 && g.y != 0.f) atomicAdd(dimg + ay * C + 2 * c + 1, g.y);
+      }
+      const bool keep = ph1 > ph0 && pw1 > pw0;
+      const unsigned hits = __ballot_sync(0xffffffffu, keep);
+      int slot = 0;
+      if (lane == 0 && hits) slot = atomicAdd(&count, __popc(hits));
+      slot = __shfl_sync(0xffffffffu, slot, 0) +
+             __popc(hits & ((1u << lane) - 1u));
+      if (keep) {
+        box[slot] = q;
+        ids[slot] = roi;
+        span[slot] = ph0 | (ph1 << 8) | (pw0 << 16) | (pw1 << 24);
       }
     }
+    __syncthreads();
+
+    // each warp takes one (listed roi, row bin) at a time and walks the
+    // row's bins that meet the tile, kBins at a time with their loads in
+    // flight together; lanes over the tile's channels, kPer each
+    const int items = count * kPooled;
+    for (int it = warp; it < items; it += kWarps) {
+      const int li = it / kPooled;
+      const int sp = span[li];
+      const int ph = it - li * kPooled;
+      if (ph < (sp & 0xff) || ph >= ((sp >> 8) & 0xff)) continue;
+      const int pw0 = (sp >> 16) & 0xff, pw1 = (sp >> 24) & 0xff;
+      const int4 r = box[li];
+      const int hs = bin_lo(ph, r.w, r.y, H);
+      const int64_t row0 =
+          (static_cast<int64_t>(ids[li]) * kPooled + ph) * kPooled;
+      for (int pwb = pw0; pwb < pw1; pwb += kBins) {
+        uint4 codes[kBins][kCodeVecs];
+        uint4 g[kBins][kGradVecs];
+#pragma unroll
+        for (int u = 0; u < kBins; ++u) {
+          const int64_t e = (row0 + pwb + u) * C + cl;
+          const bool live = pwb + u < pw1 && lane_live;
+#pragma unroll
+          for (int v = 0; v < kCodeVecs; ++v)
+            codes[u][v] = live ? __ldg(argmax + e / 8 + v)
+                               : make_uint4(~0u, ~0u, ~0u, ~0u);
+#pragma unroll
+          for (int v = 0; v < kGradVecs; ++v)
+            if (live)
+              g[u][v] = __ldg(reinterpret_cast<const uint4*>(grad + e) + v);
+        }
+#pragma unroll
+        for (int u = 0; u < kBins; ++u) {
+          const int pw = pwb + u;
+          if (pw >= pw1) break;
+          const int ws = bin_lo(pw, r.z, r.x, W);
+          const int bw = bin_hi(pw, r.z, r.x, W) - ws;
+          // dy = code / bw, exact: (code + 0.5) / bw lies at least 0.5 / bw
+          // from an integer, and one rounding of code * inv + 0.5 * inv
+          // errs by less than (code + 1) * 2^-23 / bw
+          const float inv = 1.0f / static_cast<float>(bw);
+          const float half_inv = 0.5f * inv;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const uint32_t w = word(codes[u][k / 8], (k % 8) / 2);
+            const int code = (k & 1) ? (w >> 16) : (w & 0xffffu);
+            if (code == 0xffff) continue;
+            const int dy = static_cast<int>(
+                __fmaf_rn(static_cast<float>(code), inv, half_inv));
+            const int y = hs + dy - ty0;
+            const int x = ws + code - dy * bw - tx0;
+            if (static_cast<unsigned>(y) < static_cast<unsigned>(th) &&
+                static_cast<unsigned>(x) < static_cast<unsigned>(tw))
+              atomicAdd(&acc[(y * kTileW + x) * kTileC + k * 32 + lane],
+                        T::at(g[u], k));
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // epilogue: each cell of the tile, 8 channels per thread
+  constexpr int kVecs = kTileC / 8;
+  for (int it = tid; it < kTileH * kTileW * kVecs; it += kThreads) {
+    const int cell = it / kVecs;
+    const int j0 = (it - cell * kVecs) * 8;
+    const int y = cell / kTileW;
+    const int x = cell % kTileW;
+    if (y >= th || x >= tw || c0 + j0 >= C) continue;
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = acc[cell * kTileC + acc_slot(j0 + j)];
+    T::store8(dfeat + ((static_cast<int64_t>(b) * H + ty0 + y) * W + tx0 + x)
+                  * C + c0 + j0,
+              f);
   }
 }
 
 template <typename T>
-int launch(const void* feat, const float* rois, const uint8_t* mask,
-           const void* grad, float* dfeat, int B, int P, int H, int W, int C,
+int launch(const void* argmax, const float* rois, const uint8_t* mask,
+           const void* grad, void* dfeat, int B, int P, int H, int W, int C,
            float scale, void* stream) {
-  if (B * P == 0) return 0;
-  const int c2 = C / 2;
-  int threads = ((c2 + 31) / 32) * 32;
-  threads = threads > 1024 ? 1024 : threads;
-  roi_pool_bwd_kernel<T><<<B * P, threads, 0,
+  if (B * H * W == 0 || C == 0) return 0;
+  if (C % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (kAccBytes > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        roi_pool_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kAccBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tiles_w = (W + kTileW - 1) / kTileW;
+  const int tiles_h = (H + kTileH - 1) / kTileH;
+  const dim3 grid((C + kTileC - 1) / kTileC, tiles_h * tiles_w, B);
+  roi_pool_bwd_kernel<T><<<grid, kThreads, kAccBytes,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const typename T::Vec*>(feat), rois, mask,
-      static_cast<const typename T::Vec*>(grad), dfeat, P, H, W, c2, scale);
+      static_cast<const uint4*>(argmax), rois, mask,
+      static_cast<const typename T::Elem*>(grad),
+      static_cast<typename T::Elem*>(dfeat), P, H, W, C, scale, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface, bound with ctypes. feat [B, H, W, C] contiguous (C even),
-// rois [B, P, 4] f32, mask [B, P] bool (1 byte), grad [B, P, 7, 7, C] in the
-// feature dtype, dfeat [B, H, W, C] f32 zeroed by the caller (accumulated
-// into). Returns the cudaError_t of the launch.
-extern "C" int roi_pool_bwd_bf16(const void* feat, const float* rois,
+// C interface, bound with ctypes. argmax [B, P, 7, 7, C] int16 (the
+// training forward's codes), rois [B, P, 4] f32, mask [B, P] bool (1 byte),
+// grad [B, P, 7, 7, C] in the feature dtype, dfeat [B, H, W, C] in the
+// feature dtype (every cell written; C a multiple of 8, 16-byte aligned).
+// Returns the cudaError_t of the launch.
+extern "C" int roi_pool_bwd_bf16(const void* argmax, const float* rois,
                                  const uint8_t* mask, const void* grad,
-                                 float* dfeat, int B, int P, int H, int W,
+                                 void* dfeat, int B, int P, int H, int W,
                                  int C, float scale, void* stream) {
-  return launch<Bf16x2>(feat, rois, mask, grad, dfeat, B, P, H, W, C, scale,
-                        stream);
+  return launch<Bf16>(argmax, rois, mask, grad, dfeat, B, P, H, W, C, scale,
+                      stream);
 }
 
-extern "C" int roi_pool_bwd_f32(const void* feat, const float* rois,
+extern "C" int roi_pool_bwd_f32(const void* argmax, const float* rois,
                                 const uint8_t* mask, const void* grad,
-                                float* dfeat, int B, int P, int H, int W,
+                                void* dfeat, int B, int P, int H, int W,
                                 int C, float scale, void* stream) {
-  return launch<F32x2>(feat, rois, mask, grad, dfeat, B, P, H, W, C, scale,
-                       stream);
+  return launch<F32>(argmax, rois, mask, grad, dfeat, B, P, H, W, C, scale,
+                     stream);
 }

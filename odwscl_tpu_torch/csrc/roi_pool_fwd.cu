@@ -1,32 +1,61 @@
-// 7x7 RoI max pooling, forward, for NVIDIA Hopper (sm_90a).
+// 7x7 RoI max pooling, forward, for NVIDIA Hopper (sm_90a), with and
+// without the argmax.
 //
-// Replaces: odwscl_tpu/ops/roi_pool_pallas.py:_fwd_kernel (the Pallas TPU
-// kernel behind roi_pool_tpu), which reproduces the CUDA ROIPool semantics:
+// Replaces: odwscl_tpu/ops/roi_pool_pallas.py:_fwd_kernel (:245, the
+// Pallas TPU kernel behind roi_pool_tpu), which reproduces the CUDA ROIPool
+// semantics:
 //   - cell coordinates are floor(x * scale + 0.5) in f32;
 //   - malformed rois (x2 < x1 or y2 < y1) are forced to 1x1 cells;
 //   - bin (ph, pw) covers rows [floor(ph*h/7), ceil((ph+1)*h/7)) + y1 and
 //     the same for columns, in integer arithmetic, clipped to the map;
 //   - empty bins and masked rois give 0.
-// The plain PyTorch version is roi_pool_plain in ops/roi_pool.py; the two
-// agree bit-exactly (max selects one of the inputs; no arithmetic on them).
+// The training instantiation (ARGMAX) also writes, per output element, the
+// int16 code of the bin's FIRST maximum in row-major order (y, then x,
+// strict '>'): its offset (y - hs) * (we - ws) + (x - ws) inside the bin,
+// read as unsigned 16-bit, or -1 (0xFFFF) for an empty bin, a masked roi
+// or a bin of -inf only. The reference CUDA ROIPool stores the argmax the
+// same way; csrc/roi_pool_bwd.cu routes the cotangent by it. The plain
+// PyTorch versions are roi_pool_plain and roi_pool_argmax_plain in
+// ops/roi_pool.py; both agree bit-exactly (max selects one of the inputs,
+// the codes are integers).
 //
-// Bound: bytes. The least traffic is the feature map read once plus the
-// [B, P, 7, 7, C] output written once: at the main-path shape
-// (feat [8, 104, 168, 512] bf16, P = 2048) that is 143 MB + 822 MB, about
-// 0.29 ms at an H100 SXM's 3.35 TB/s. The comparisons (one per scanned cell
-// and channel) are far below the card's rate.
+// Bound: bytes. The least traffic is each map cell that the output depends
+// on read once, plus the [B, P, 7, 7, C] output (and the argmax) written
+// once: at the eval shape (feat [8, 104, 168, 512] bf16, P = 2048) 956.8
+// MB, 0.2856 ms at an H100 SXM's 3.35 TB/s (stage_work in
+// ops/roi_pool_stages.py). The comparisons are far below the card's rate.
 //
-// Design for that bound: one block per (image, roi), threads over channels,
-// two channels per thread (bf16x2 or float2), so every load and store of a
-// warp is one contiguous run along the NHWC channel axis. Each thread
-// derives the roi's cell box and all 49 bin edges in integers and scans
-// each bin with a running max; nothing is staged in shared memory. The
-// output is written exactly once. Cells of overlapping rois are re-read,
-// and consecutive blocks pool rois of the same image, so those re-reads
-// mostly hit L2 (one image's map is 18 MB at the main-path shape). The
-// map is read from device memory directly, so any map and roi size is
-// accepted: unlike the TPU kernel there is no VMEM feasibility gate and no
-// fallback. No argmax is stored; the backward comes with the training path.
+// What held the first design back (one block per roi, threads over channel
+// pairs, every bin scanned on its own with a float compare per channel): it
+// loaded 8.22 GB of bin cells at that shape, 61x the map that the rois
+// cover, mostly from L2, and ran at 12.3% of the bound. This design:
+//   - Channel tile of 64 and 16-byte loads: 8 (bf16) or 16 (f32) lanes
+//     cover the tile's 128 or 256 bytes of a cell.
+//   - Rows read once per thread: the thread of (roi, column bin pw, kGroup
+//     = 2 row bins, 16 bytes of channels) walks its bins' rows once; per
+//     row it takes the max over the column bin, then folds it into the row
+//     bins that hold it (a row shared by the two bins is loaded once).
+//     The maxima are packed: one bf16x2 max (__hmax2) or f32 max per two
+//     or one channels. With ARGMAX, a packed compare mask (__hgt2_mask)
+//     keeps, per channel, the first column of the row max and then the
+//     first row of the bin max (strict '>', in order): the first row-major
+//     maximum, as 16-bit offsets two to a word. Two row bins per thread
+//     (not all seven) keep the chain of dependent row loads short and the
+//     registers at 64, four blocks to an SM.
+//   - A block pools kRun = 4 consecutive rois, one at a time; the output
+//     (and the argmax) is written once, with 16-byte stores.
+// Reuse of the map across rois is left to L1 and L2. Two designs that order
+// the rois spatially (a counting sort on the card) were timed against this
+// one (odwscl_tpu_torch/tools/roi_pool_fwd_ordered.cu): the same loads over
+// runs of neighbouring rois, 4-12% slower at a training step's batches;
+// and runs of neighbouring rois whose windows are staged in shared memory
+// with cp.async, 2.5x slower, as each band of rows is a barrier at which
+// the threads whose bins miss it idle. kGroup, kRun, the loads in flight
+// (kUnroll, kUnrollArgmax) and the block size were picked on the card at
+// the batches of the six train scales
+// (odwscl_tpu_torch/tools/tune_roi_pool.py; readings in PERF.md).
+// The map is read from device memory directly, so any map and roi size is
+// accepted: unlike the TPU kernel there is no VMEM feasibility gate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,22 +65,70 @@
 namespace {
 
 constexpr int kPooled = 7;
+constexpr int kTileC = 64;  // channels per block
+constexpr int kGroup = 2;   // row bins per thread
+constexpr int kMinThreads = 256;  // threads per block, at least
+constexpr int kRun = 4;     // consecutive rois per block
+constexpr int kUnroll = 4;  // loads in flight per thread: eval forward
+constexpr int kUnrollArgmax = 2;  // and training forward
 
-struct Bf16x2 {
-  using Vec = __nv_bfloat162;
-  static __device__ __forceinline__ float2 to_float2(Vec v) {
-    return __bfloat1622float2(v);
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// 16 bytes of the NHWC channel axis (8 bf16 or 4 f32 values) as 4 words,
+// and the int16 codes of those channels as kWords words of two codes.
+// vmax is the elementwise max; gt(a, b, i) is the mask of the codes of
+// word i whose channels have a > b (0xFFFF per code).
+struct Bf16 {
+  static constexpr int kVec = 8;
+  static constexpr int kWords = 4;
+  static constexpr uint32_t kNeg = 0xff80ff80u;  // two bf16 -inf
+  static __device__ __forceinline__ __nv_bfloat162 h2(uint32_t w) {
+    return *reinterpret_cast<const __nv_bfloat162*>(&w);
   }
-  static __device__ __forceinline__ Vec from_float2(float2 v) {
-    return __floats2bfloat162_rn(v.x, v.y);  // exact: v holds bf16 values
+  static __device__ __forceinline__ uint4 vmax(uint4 a, uint4 b) {
+    uint4 o;
+    const __nv_bfloat162 x = __hmax2(h2(a.x), h2(b.x));
+    const __nv_bfloat162 y = __hmax2(h2(a.y), h2(b.y));
+    const __nv_bfloat162 z = __hmax2(h2(a.z), h2(b.z));
+    const __nv_bfloat162 w = __hmax2(h2(a.w), h2(b.w));
+    o.x = *reinterpret_cast<const uint32_t*>(&x);
+    o.y = *reinterpret_cast<const uint32_t*>(&y);
+    o.z = *reinterpret_cast<const uint32_t*>(&z);
+    o.w = *reinterpret_cast<const uint32_t*>(&w);
+    return o;
+  }
+  static __device__ __forceinline__ uint32_t gt(const uint4& a,
+                                                const uint4& b, int i) {
+    return __hgt2_mask(h2(word(a, i)), h2(word(b, i)));
   }
 };
 
-struct F32x2 {
-  using Vec = float2;
-  static __device__ __forceinline__ float2 to_float2(Vec v) { return v; }
-  static __device__ __forceinline__ Vec from_float2(float2 v) { return v; }
+struct F32 {
+  static constexpr int kVec = 4;
+  static constexpr int kWords = 2;
+  static constexpr uint32_t kNeg = 0xff800000u;  // -inf
+  static __device__ __forceinline__ float f(const uint4& v, int k) {
+    return __uint_as_float(word(v, k));
+  }
+  static __device__ __forceinline__ uint4 vmax(uint4 a, uint4 b) {
+    return make_uint4(__float_as_uint(fmaxf(f(a, 0), f(b, 0))),
+                      __float_as_uint(fmaxf(f(a, 1), f(b, 1))),
+                      __float_as_uint(fmaxf(f(a, 2), f(b, 2))),
+                      __float_as_uint(fmaxf(f(a, 3), f(b, 3))));
+  }
+  static __device__ __forceinline__ uint32_t gt(const uint4& a,
+                                                const uint4& b, int i) {
+    return (f(a, 2 * i) > f(b, 2 * i) ? 0x0000ffffu : 0u) |
+           (f(a, 2 * i + 1) > f(b, 2 * i + 1) ? 0xffff0000u : 0u);
+  }
 };
+
+__device__ __forceinline__ uint32_t pick(uint32_t old, uint32_t neu,
+                                         uint32_t mask) {
+  return (old & ~mask) | (neu & mask);
+}
 
 __device__ __forceinline__ int round_cell(float x, float scale) {
   // two roundings, as the reference computes it; no fused multiply-add
@@ -62,94 +139,218 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+// bin k of a roi of `len` cells from `start`: [lo, hi), clipped to the map
+__device__ __forceinline__ int bin_lo(int k, int len, int start, int limit) {
+  return clampi(k * len / kPooled + start, 0, limit);
+}
+
+__device__ __forceinline__ int bin_hi(int k, int len, int start, int limit) {
+  return clampi(((k + 1) * len + kPooled - 1) / kPooled + start, 0, limit);
+}
+
+// Threads per roi and channel tile: kLanes (16-byte vectors of the tile) x
+// 8 (the column bin pw; pw = 7 idles, so that no warp mixes two rois) x
+// kGroups (the thread's kGroup row bins). A block pools kSlots rois at a
+// time, kRun in all; grid (runs of kRun rois, channel tiles).
 template <typename T>
-__global__ void roi_pool_fwd_kernel(const typename T::Vec* __restrict__ feat,
-                                    const float* __restrict__ rois,
-                                    const uint8_t* __restrict__ mask,
-                                    typename T::Vec* __restrict__ out,
-                                    int P, int H, int W, int C2,
-                                    float scale) {
-  const int roi = blockIdx.x;  // b * P + p
-  const int b = roi / P;
-  typename T::Vec* out_roi =
-      out + static_cast<int64_t>(roi) * kPooled * kPooled * C2;
-  const float2 zero = make_float2(0.f, 0.f);
+struct Shape {
+  static constexpr int kLanes = kTileC / T::kVec;
+  static constexpr int kGroups = (kPooled + kGroup - 1) / kGroup;
+  static constexpr int kPerRoi = kLanes * 8 * kGroups;
+  static constexpr int kSlots = kPerRoi >= kMinThreads ? 1
+                                                       : kMinThreads / kPerRoi;
+  static constexpr int kThreads = kPerRoi * kSlots;
+};
 
-  if (!mask[roi]) {
-    for (int c = threadIdx.x; c < C2; c += blockDim.x)
-      for (int bin = 0; bin < kPooled * kPooled; ++bin)
-        out_roi[bin * C2 + c] = T::from_float2(zero);
-    return;
-  }
+// One thread's share of a roi: row bins ph0 .. ph0 + nph - 1 ([hs, he)),
+// column bin [ws, we), and their running maxima and argmax codes.
+template <typename T>
+struct Bins {
+  int hs[kGroup], he[kGroup], nph, ws, we, y_end;
+  uint4 m[kGroup];
+  uint32_t code[kGroup][T::kWords];
 
-  const float* r = rois + static_cast<int64_t>(roi) * 4;
-  const int x1 = round_cell(r[0], scale);
-  const int y1 = round_cell(r[1], scale);
-  const int x2 = round_cell(r[2], scale);
-  const int y2 = round_cell(r[3], scale);
-  const int roi_w = max(x2 - x1 + 1, 1);
-  const int roi_h = max(y2 - y1 + 1, 1);
-  const typename T::Vec* fimg =
-      feat + static_cast<int64_t>(b) * H * W * C2;
-
-  for (int c = threadIdx.x; c < C2; c += blockDim.x) {
-    for (int ph = 0; ph < kPooled; ++ph) {
-      const int hs = clampi(ph * roi_h / kPooled + y1, 0, H);
-      const int he = clampi(((ph + 1) * roi_h + kPooled - 1) / kPooled + y1,
-                            0, H);
-      for (int pw = 0; pw < kPooled; ++pw) {
-        const int ws = clampi(pw * roi_w / kPooled + x1, 0, W);
-        const int we = clampi(((pw + 1) * roi_w + kPooled - 1) / kPooled + x1,
-                              0, W);
-        float2 m = zero;
-        if (he > hs && we > ws) {
-          m = make_float2(-INFINITY, -INFINITY);
-          for (int y = hs; y < he; ++y) {
-            const typename T::Vec* row =
-                fimg + (static_cast<int64_t>(y) * W) * C2 + c;
-            for (int x = ws; x < we; ++x) {
-              const float2 v = T::to_float2(row[static_cast<int64_t>(x) * C2]);
-              m.x = v.x > m.x ? v.x : m.x;
-              m.y = v.y > m.y ? v.y : m.y;
-            }
-          }
-        }
-        out_roi[(ph * kPooled + pw) * C2 + c] = T::from_float2(m);
+  __device__ __forceinline__ Bins(const float* rois, bool live, int roi,
+                                  int ph0, int pw, int H, int W,
+                                  float scale) {
+    nph = min(kGroup, kPooled - ph0);
+    ws = we = y_end = 0;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      hs[j] = he[j] = 0;
+      m[j] = make_uint4(T::kNeg, T::kNeg, T::kNeg, T::kNeg);
+#pragma unroll
+      for (int w = 0; w < T::kWords; ++w) code[j][w] = 0xffffffffu;
+    }
+    if (!live) return;
+    const float* r = rois + static_cast<int64_t>(roi) * 4;
+    const int x1 = round_cell(r[0], scale);
+    const int y1 = round_cell(r[1], scale);
+    const int roi_w = max(round_cell(r[2], scale) - x1 + 1, 1);
+    const int roi_h = max(round_cell(r[3], scale) - y1 + 1, 1);
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (j < nph) {
+        hs[j] = bin_lo(ph0 + j, roi_h, y1, H);
+        he[j] = bin_hi(ph0 + j, roi_h, y1, H);
+        y_end = he[j];
       }
     }
+    ws = bin_lo(pw, roi_w, x1, W);
+    we = bin_hi(pw, roi_w, x1, W);
+  }
+
+  // Row y of the column bin: its we - ws cells from p, `stride` vectors
+  // apart, read from device memory (GLOBAL) or from the shared memory of
+  // the staged design (tools/roi_pool_fwd_ordered.cu).
+  template <bool ARGMAX, bool GLOBAL>
+  __device__ __forceinline__ void row(const uint4* p, int stride, int y) {
+    constexpr int kWords = T::kWords;
+    constexpr int kLoads = ARGMAX ? kUnrollArgmax : kUnroll;
+    const int bw = we - ws;
+    // the row's max over the column bin, and per channel the first column
+    // that reaches it (two 16-bit columns per word)
+    uint4 r = make_uint4(T::kNeg, T::kNeg, T::kNeg, T::kNeg);
+    uint32_t rx[kWords];
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) rx[w] = 0;
+    for (int x0 = 0; x0 < bw; x0 += kLoads) {
+      uint4 v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        if (x0 + u >= bw) continue;
+        if constexpr (GLOBAL)
+          v[u] = __ldg(p + (x0 + u) * stride);
+        else
+          v[u] = p[(x0 + u) * stride];
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        if (x0 + u >= bw) break;
+        if constexpr (ARGMAX) {
+          const uint32_t xx = static_cast<uint32_t>(x0 + u) * 0x10001u;
+#pragma unroll
+          for (int w = 0; w < kWords; ++w)
+            rx[w] = pick(rx[w], xx, T::gt(v[u], r, w));
+        }
+        r = T::vmax(r, v[u]);
+      }
+    }
+    // fold the row into the row bins that hold it: a strict '>' over rows
+    // in order keeps the first row-major maximum
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (j >= nph || y < hs[j] || y >= he[j]) continue;
+      if constexpr (ARGMAX) {
+        const uint32_t off = static_cast<uint32_t>((y - hs[j]) * bw) * 0x10001u;
+#pragma unroll
+        for (int w = 0; w < kWords; ++w)
+          code[j][w] = pick(code[j][w], rx[w] + off, T::gt(r, m[j], w));
+      }
+      m[j] = T::vmax(m[j], r);
+    }
+  }
+
+  // the output (and argmax) vectors of the thread's bins; e0 indexes the
+  // vector of bin (ph0, pw)
+  template <bool ARGMAX>
+  __device__ __forceinline__ void store(uint4* out, uint32_t* argmax,
+                                        int64_t e0, int CV) const {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (j >= nph) break;
+      const int64_t e = e0 + static_cast<int64_t>(j) * kPooled * CV;
+      const bool empty = he[j] <= hs[j] || we <= ws;  // masked: all empty
+      out[e] = empty ? make_uint4(0, 0, 0, 0) : m[j];
+      if constexpr (ARGMAX) {
+        if constexpr (T::kWords == 4)
+          reinterpret_cast<uint4*>(argmax)[e] =
+              make_uint4(code[j][0], code[j][1], code[j][2], code[j][3]);
+        else
+          reinterpret_cast<uint2*>(argmax)[e] =
+              make_uint2(code[j][0], code[j][1]);
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ int64_t out_vec(int roi, int ph, int pw, int CV,
+                                           int cv) {
+  return (static_cast<int64_t>(roi) * kPooled * kPooled + ph * kPooled + pw)
+             * CV + cv;
+}
+
+template <typename T, bool ARGMAX>
+__global__ void __launch_bounds__(Shape<T>::kThreads)
+roi_pool_fwd_kernel(const uint4* __restrict__ feat,
+                    const float* __restrict__ rois,
+                    const uint8_t* __restrict__ mask, uint4* __restrict__ out,
+                    uint32_t* __restrict__ argmax, int N, int P, int H,
+                    int W, int CV, float scale) {
+  using S = Shape<T>;
+  const int cv = blockIdx.y * S::kLanes + threadIdx.x;
+  const int pw = threadIdx.y;
+  const int ph0 = threadIdx.z % S::kGroups * kGroup;  // the thread's row bins
+  const int slot = threadIdx.z / S::kGroups;
+  if (pw >= kPooled || cv >= CV) return;  // no barrier follows
+  const int64_t row_stride = static_cast<int64_t>(W) * CV;
+  const int end = min(N, static_cast<int>(blockIdx.x + 1) * kRun);
+
+  for (int roi = blockIdx.x * kRun + slot; roi < end; roi += S::kSlots) {
+    Bins<T> s(rois, mask[roi], roi, ph0, pw, H, W, scale);
+    if (s.we > s.ws) {
+      const uint4* src =
+          feat + (static_cast<int64_t>(roi / P) * H * W + s.ws) * CV + cv;
+      for (int y = s.hs[0]; y < s.y_end; ++y)
+        s.template row<ARGMAX, true>(src + y * row_stride, CV, y);
+    }
+    s.template store<ARGMAX>(out, argmax, out_vec(roi, ph0, pw, CV, cv), CV);
   }
 }
 
 template <typename T>
 int launch(const void* feat, const float* rois, const uint8_t* mask,
-           void* out, int B, int P, int H, int W, int C, float scale,
-           void* stream) {
+           void* out, void* argmax, int B, int P, int H, int W, int C,
+           float scale, void* stream) {
   if (B * P == 0) return 0;
-  const int c2 = C / 2;
-  int threads = ((c2 + 31) / 32) * 32;
-  threads = threads > 1024 ? 1024 : threads;
-  roi_pool_fwd_kernel<T><<<B * P, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const typename T::Vec*>(feat), rois, mask,
-      static_cast<typename T::Vec*>(out), P, H, W, c2, scale);
+  if (C % 8 || H <= 0 || W <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using S = Shape<T>;
+  const int n = B * P;
+  const int cv = C / T::kVec;
+  const dim3 block(S::kLanes, 8, S::kGroups * S::kSlots);
+  const dim3 grid((n + kRun - 1) / kRun, (cv + S::kLanes - 1) / S::kLanes);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint4*>(feat);
+  auto* o = static_cast<uint4*>(out);
+  auto* a = static_cast<uint32_t*>(argmax);
+  if (argmax)
+    roi_pool_fwd_kernel<T, true><<<grid, block, 0, s>>>(
+        f, rois, mask, o, a, n, P, H, W, cv, scale);
+  else
+    roi_pool_fwd_kernel<T, false><<<grid, block, 0, s>>>(
+        f, rois, mask, o, a, n, P, H, W, cv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface, bound with ctypes. feat [B, H, W, C] contiguous (C even),
-// rois [B, P, 4] f32, mask [B, P] bool (1 byte), out [B, P, 7, 7, C] in the
-// feature dtype. Returns the cudaError_t of the launch.
+// C interface, bound with ctypes. feat [B, H, W, C] contiguous (C a
+// multiple of 8, 16-byte aligned), rois [B, P, 4] f32, mask [B, P] bool (1
+// byte), out [B, P, 7, 7, C] in the feature dtype, argmax [B, P, 7, 7, C]
+// int16 or NULL (the eval forward). Returns the cudaError_t of the launch.
 extern "C" int roi_pool_fwd_bf16(const void* feat, const float* rois,
-                                 const uint8_t* mask, void* out, int B, int P,
-                                 int H, int W, int C, float scale,
-                                 void* stream) {
-  return launch<Bf16x2>(feat, rois, mask, out, B, P, H, W, C, scale, stream);
+                                 const uint8_t* mask, void* out, void* argmax,
+                                 int B, int P, int H, int W, int C,
+                                 float scale, void* stream) {
+  return launch<Bf16>(feat, rois, mask, out, argmax, B, P, H, W, C, scale,
+                      stream);
 }
 
 extern "C" int roi_pool_fwd_f32(const void* feat, const float* rois,
-                                const uint8_t* mask, void* out, int B, int P,
-                                int H, int W, int C, float scale,
-                                void* stream) {
-  return launch<F32x2>(feat, rois, mask, out, B, P, H, W, C, scale, stream);
+                                const uint8_t* mask, void* out, void* argmax,
+                                int B, int P, int H, int W, int C,
+                                float scale, void* stream) {
+  return launch<F32>(feat, rois, mask, out, argmax, B, P, H, W, C, scale,
+                     stream);
 }

@@ -18,7 +18,8 @@ the collator pads):
    time plus any wait on the host in between; the host syncs are counted
    per stage (``torch.cuda.set_sync_debug_mode``);
 3. the backward and the optimizer step, timed the same way; the backbone's
-   backward and the two ROIPool kernels also timed alone at the step's
+   backward and the two ROIPool kernels (the training forward with its
+   argmax, then the backward from it) also timed alone at the step's
    shapes, so the neck and heads' backward is the remainder.
 
 Prints one JSON line per part with the card's name and power limit.
@@ -130,7 +131,8 @@ def main(argv=None):
     from odwscl_tpu_torch.config import get_default_cfg
     from odwscl_tpu_torch.engine.trainer import train_step
     from odwscl_tpu_torch.models.detector import detector_from_cfg
-    from odwscl_tpu_torch.ops.roi_pool import roi_pool, roi_pool_backward
+    from odwscl_tpu_torch.ops.roi_pool import (roi_pool_argmax,
+                                               roi_pool_backward)
     from odwscl_tpu_torch.solver import make_optimizer
     from odwscl_tpu_torch.utils.device import resolve_device
     from odwscl_tpu_torch.utils.profiling import (card_name_and_limit,
@@ -194,18 +196,20 @@ def main(argv=None):
     bb_bwd_ms = statistics.median(bb_bwd)
     optimizer.zero_grad(set_to_none=True)
     feats = feats.detach()
-    pool_ms, pooled = _events_ms(lambda: roi_pool(
+    pool_ms, (pooled, argmax) = _events_ms(lambda: roi_pool_argmax(
         feats, batch.boxes, batch.box_mask, model.pooler_scale))
     gp = torch.randn_like(pooled)
     pool_bwd_ms, _ = _events_ms(lambda: roi_pool_backward(
-        feats, batch.boxes, batch.box_mask, gp, model.pooler_scale))
+        argmax, batch.boxes, batch.box_mask, gp, model.pooler_scale,
+        tuple(feats.shape[1:3])))
     print(json.dumps({"part": "stages_ms", "card": card, **shape,
                       "forward": ms, "host_syncs": syncs,
                       "optimizer": opt_ms,
                       "alone": {"backbone_forward": bb_fwd_ms,
                                 "backbone_backward": bb_bwd_ms,
-                                "roi_pool_fwd_kernel": pool_ms,
-                                "roi_pool_bwd_kernel": pool_bwd_ms},
+                                "roi_pool_fwd_argmax_kernel": pool_ms,
+                                "roi_pool_bwd_kernel": pool_bwd_ms,
+                                "roi_pool_pair": pool_ms + pool_bwd_ms},
                       "neck_heads_backward": ms["backward"] - bb_bwd_ms
                       - pool_bwd_ms}))
 

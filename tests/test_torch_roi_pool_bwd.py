@@ -103,7 +103,8 @@ def test_masked_and_offmap_rois_route_nothing():
 
 def test_autograd_function_gradcheck():
     """The Function's backward is the derivative of its forward (f64, no
-    ties), on the CPU path."""
+    ties), on the CPU path: the training forward's argmax, then the
+    backward from it."""
     rng = np.random.RandomState(0)
     feat = torch.tensor(rng.randn(2, 6, 8, 2), dtype=torch.float64,
                         requires_grad=True)
@@ -119,13 +120,16 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     rois = torch.tensor([[[0.0, 0.0, 12.0, 12.0]]])     # 4x4 cells at 0.25
     mask = torch.ones(1, 1, dtype=torch.bool)
     g = torch.ones(1, 1, 7, 7, 8)
-    before = (rp.roi_pool.launches, rp.roi_pool_backward.launches)
+    before = (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+              rp.roi_pool_backward.launches)
     out = rp.RoIPoolFunction.apply(feat.requires_grad_(), rois, mask,
                                      0.25)
     out.backward(g)
-    assert (rp.roi_pool.launches, rp.roi_pool_backward.launches) == before
+    assert (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+            rp.roi_pool_backward.launches) == before
     assert feat.grad.sum() == g.sum()   # every bin live: all of g arrives
     with pytest.raises(ValueError):
-        rp.roi_pool_backward(torch.zeros(1, 4, 4, 8, device="meta"),
+        rp.roi_pool_backward(torch.zeros(1, 1, 7, 7, 8, dtype=torch.int16,
+                                         device="meta"),
                              rois.to("meta"), mask.to("meta"),
-                             g.to("meta"), 0.25)
+                             g.to("meta"), 0.25, (4, 4))
