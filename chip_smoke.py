@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit code):
-1. Print the card's name and power limit; build the ROIPool forward,
-   backward and stage-profiler kernels
-   (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd,stages}.cu) with nvcc for
-   sm_90a, all three at once.
+1. Print the card's name and power limit; build the ROIPool forward
+   kernel, with the stage profiler's instantiations, and the backward
+   kernel (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd}.cu) with nvcc for
+   sm_90a, both at once.
 2. Hold both instantiations of the forward kernel against their plain
    PyTorch versions on the card, bit-exactly (atol 0) in f32 and bf16: the
    output against ``roi_pool_plain`` and the training forward's int16
@@ -22,14 +22,17 @@ Phases (any failure ends the run with a non-zero exit code):
    run: #1 at the eval shape, the training forward at the training shape,
    #2 and its yardstick (``index_add_`` of g at the cells decoded from the
    stored argmax); and each plain version once.
-4. Hold the stage profiler's kernel (csrc/roi_pool_stages.cu), each of
-   its five stages (write, rows, rows_col0, cols, full), against
-   ``roi_pool_stage_plain`` on the card, bit-exactly (atol 0): the size
-   grid in f32 and bf16 and the bench shape feat [8, 104, 168, 512] bf16,
-   P = 2048; ``full`` also against the forward kernel. Then drive the
-   profiler (``odwscl_tpu_torch.tools.profile_pool_stages``) at the bench
-   shape: kernel #1, the five stages and ``torch.zeros`` (the library call
-   of ``write``) timed in turns, with their bounds and the stage deltas.
+4. Hold the stage profiler's kernel (the forward kernel of
+   csrc/roi_pool_fwd.cu cut by stage), each of its five stages (write,
+   rows, rows_col0, cols, full), against ``roi_pool_stage_plain`` on the
+   card, bit-exactly (atol 0): the size grid on the 200x260 map and on a
+   13x6 map (the rows stage's columns reach the zero pad) in f32 and bf16,
+   and the bench shape feat [8, 104, 168, 512] bf16, P = 2048; ``full``
+   also against the forward kernel. A C that is not a multiple of 8 must
+   raise. Then drive the profiler
+   (``odwscl_tpu_torch.tools.profile_pool_stages``) at the bench shape:
+   kernel #1, the five stages and ``torch.zeros`` (the library call of
+   ``write``) timed in turns, with their bounds and the stage deltas.
 5. Run ``eval_forward`` at full width in f32 (TF32 off) on the card and on
    the CPU with the same seeded weights and inputs; compare.
 6. Run one f32 train step (TF32 off) at full width on a small input on
@@ -105,10 +108,10 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def grid_inputs(rng, c):
+def grid_inputs(rng, c, h=200, w=260):
     """Size grid of the JAX package's Pallas tests: sweep rois (every size
-    class, degenerate and off-map) plus a dense extent grid 1..259 cells."""
-    h, w = 200, 260
+    class, degenerate and off-map) plus a dense extent grid 1..259 cells,
+    on an [h, w] map."""
     sweep = [[16, 8, 100, 90], [40, 40, 47.9, 47.9], [3, 5, 30, 100],
              [0, 0, 8, 8], [10, 10, 130, 120], [5, 5, 230, 110],
              [5, 5, 60, 500], [0, 0, 255, 191], [0, 0, 1990, 1480],
@@ -427,8 +430,10 @@ def phase_stage_kernels(dev, rp, rs):
     rng = np.random.RandomState(4)
     worst = dict.fromkeys(rs.STAGES, 0.0)
     plain_ms = {}
+    both = (torch.float32, torch.bfloat16)
     for label, (feat, rois, mask), dtypes in (
-            ("grid", grid_inputs(rng, 64), (torch.float32, torch.bfloat16)),
+            ("grid", grid_inputs(rng, 64), both),
+            ("narrow", grid_inputs(rng, 64, h=13, w=6), both),
             ("bench", pps.make_inputs(*pps.BENCH_SHAPE), (torch.bfloat16,))):
         r = torch.from_numpy(rois).to(dev)
         m = torch.from_numpy(mask).to(dev)
@@ -457,9 +462,15 @@ def phase_stage_kernels(dev, rp, rs):
                     raise AssertionError(f"roi_pool_stage[full] != roi_pool "
                                          f"kernel ({label}, {dtype})")
             print(f"[stages] {label} {str(dtype)[6:]} feat {list(f.shape)} "
-                  f"P={r.shape[1]} (channel tile {plan.ct}, widest window "
-                  f"{plan.cw_max}): {', '.join(rs.STAGES)} bit-exact vs "
+                  f"P={r.shape[1]}: {', '.join(rs.STAGES)} bit-exact vs "
                   "plain; full bit-exact vs the forward kernel")
+    try:
+        rs.roi_pool_stage(torch.zeros((1, 8, 8, 12), device=dev), r[:1],
+                          m[:1], pps.SCALE, "rows")
+    except ValueError as e:
+        print(f"[stages] C=12 refused: {e}")
+    else:
+        raise AssertionError("roi_pool_stage took C=12, not a multiple of 8")
     del f, got, want
     print("[stages] plain versions at the bench shape (one call each): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in plain_ms.items()))
@@ -478,7 +489,7 @@ def phase_stage_kernels(dev, rp, rs):
         v = prof["variants"][stage]
         entries.append({
             "name": f"roi_pool_stage[{stage}]", "route": "cuda",
-            "source": "odwscl_tpu_torch/csrc/roi_pool_stages.cu",
+            "source": "odwscl_tpu_torch/csrc/roi_pool_fwd.cu",
             "replaces": STAGE_REPLACES[stage], "launches": launches[stage],
             "max_abs_err": worst[stage], "ms": v["ms"],
             "plain_ms": plain_ms[stage], "bound_ms": v["bound_ms"],
@@ -693,11 +704,11 @@ def phase_eval(rp, tmp, weights):
     return launches
 
 
-def build(rp, rs):
-    """Build the three kernels, one nvcc each, started together."""
+def build(rp):
+    """Build the two kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = (rp.KERNEL, rp.BWD_KERNEL, rs.STAGE_KERNEL)
+    libs = (rp.KERNEL, rp.BWD_KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(k.get) for k in libs]:
@@ -725,7 +736,7 @@ def main():
     dev = torch.device("cuda", 0)
     print(card_name_and_limit())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    build(rp, rs)
+    build(rp)
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()

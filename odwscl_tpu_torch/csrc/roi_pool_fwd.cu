@@ -56,6 +56,28 @@
 // (odwscl_tpu_torch/tools/tune_roi_pool.py; readings in PERF.md).
 // The map is read from device memory directly, so any map and roi size is
 // accepted: unlike the TPU kernel there is no VMEM feasibility gate.
+//
+// The stage profiler (roi_pool_stage_bf16/_f32) is this kernel cut by
+// rectangle. It replaces the TPU profiling kernels built from the blocks
+// of the Pallas forward: tools/profile_pool.py:_fwd_rows_only (:61) and
+// _fwd_cols_only (:89), and tools/profile_pool_stages.py:make_kernel (:35).
+// Each STAGE gives output bin (ph, pw) of a live roi another rectangle,
+// over which the thread runs the same row walk and store (Bins::cut), with
+// the same launch shape, so each stage times a part of this loop:
+//   write      no rectangle: the store path alone (zeros);
+//   rows       rows of row bin ph x columns [xs, xs + 8), for every pw;
+//   rows_col0  rows of row bin ph x column xs;
+//   cols       map row ph x the columns of bin pw inside [xs, xs + cw);
+//   full       the forward itself (this kernel's eval instantiation).
+// (xs, cw) is the roi's column window as the TPU kernel plans it
+// (ops/roi_pool_stages.py:tpu_windows). The TPU reads a zero-padded map; the
+// pad enters only where a rows stage's columns reach past W (the window
+// plan allows it on maps narrower than 8 columns): the running max of a
+// bin with rows then starts at +0 (a cols row past H holds only zeros,
+// which an empty rectangle gives too). The plain version of every
+// stage is roi_pool_stage_plain, and stage_edges there spells out these
+// rectangles; they agree bit-exactly. Bound: bytes, as for the forward
+// (stage_work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +93,9 @@ constexpr int kMinThreads = 256;  // threads per block, at least
 constexpr int kRun = 4;     // consecutive rois per block
 constexpr int kUnroll = 4;  // loads in flight per thread: eval forward
 constexpr int kUnrollArgmax = 2;  // and training forward
+
+// the stage profiler's stages, in the order of ops/roi_pool_stages.py:STAGES
+enum Stage { kWrite = 0, kRows = 1, kRowsCol0 = 2, kCols = 3, kFull = 4 };
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -200,6 +225,33 @@ struct Bins {
     we = bin_hi(pw, roi_w, x1, W);
   }
 
+  // A stage's rectangles in place of the bins' (see the file's head), for
+  // a live roi whose column window is [xs, xs + cw).
+  template <int STAGE>
+  __device__ __forceinline__ void cut(int xs, int cw, int ph0, int H,
+                                      int W) {
+    if constexpr (STAGE == kCols) {
+      ws = max(ws, xs);
+      we = min(we, xs + cw);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (j < nph) {
+          hs[j] = min(ph0 + j, H);
+          he[j] = min(ph0 + j + 1, H);
+          y_end = he[j];
+        }
+      }
+    } else {
+      constexpr int kSpan = STAGE == kRows ? 8 : 1;
+      ws = min(xs, W);
+      we = min(xs + kSpan, W);
+      if (xs + kSpan > W) {  // columns of the zero pad right of the map
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) m[j] = make_uint4(0, 0, 0, 0);
+      }
+    }
+  }
+
   // Row y of the column bin: its we - ws cells from p, `stride` vectors
   // apart, read from device memory (GLOBAL) or from the shared memory of
   // the staged design (tools/roi_pool_fwd_ordered.cu).
@@ -280,13 +332,15 @@ __device__ __forceinline__ int64_t out_vec(int roi, int ph, int pw, int CV,
              * CV + cv;
 }
 
-template <typename T, bool ARGMAX>
+// xs, cw: the rois' column windows, read by the rows and cols stages only
+template <typename T, bool ARGMAX, int STAGE = kFull>
 __global__ void __launch_bounds__(Shape<T>::kThreads)
 roi_pool_fwd_kernel(const uint4* __restrict__ feat,
                     const float* __restrict__ rois,
-                    const uint8_t* __restrict__ mask, uint4* __restrict__ out,
-                    uint32_t* __restrict__ argmax, int N, int P, int H,
-                    int W, int CV, float scale) {
+                    const uint8_t* __restrict__ mask,
+                    const int* __restrict__ xs, const int* __restrict__ cw,
+                    uint4* __restrict__ out, uint32_t* __restrict__ argmax,
+                    int N, int P, int H, int W, int CV, float scale) {
   using S = Shape<T>;
   const int cv = blockIdx.y * S::kLanes + threadIdx.x;
   const int pw = threadIdx.y;
@@ -297,7 +351,11 @@ roi_pool_fwd_kernel(const uint4* __restrict__ feat,
   const int end = min(N, static_cast<int>(blockIdx.x + 1) * kRun);
 
   for (int roi = blockIdx.x * kRun + slot; roi < end; roi += S::kSlots) {
-    Bins<T> s(rois, mask[roi], roi, ph0, pw, H, W, scale);
+    const bool live = STAGE != kWrite && mask[roi];
+    Bins<T> s(rois, live, roi, ph0, pw, H, W, scale);
+    if constexpr (STAGE != kWrite && STAGE != kFull) {
+      if (live) s.template cut<STAGE>(xs[roi], cw[roi], ph0, H, W);
+    }
     if (s.we > s.ws) {
       const uint4* src =
           feat + (static_cast<int64_t>(roi / P) * H * W + s.ws) * CV + cv;
@@ -308,10 +366,10 @@ roi_pool_fwd_kernel(const uint4* __restrict__ feat,
   }
 }
 
-template <typename T>
+template <typename T, bool ARGMAX, int STAGE = kFull>
 int launch(const void* feat, const float* rois, const uint8_t* mask,
-           void* out, void* argmax, int B, int P, int H, int W, int C,
-           float scale, void* stream) {
+           const int* xs, const int* cw, void* out, void* argmax, int B,
+           int P, int H, int W, int C, float scale, void* stream) {
   if (B * P == 0) return 0;
   if (C % 8 || H <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -320,17 +378,48 @@ int launch(const void* feat, const float* rois, const uint8_t* mask,
   const int cv = C / T::kVec;
   const dim3 block(S::kLanes, 8, S::kGroups * S::kSlots);
   const dim3 grid((n + kRun - 1) / kRun, (cv + S::kLanes - 1) / S::kLanes);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const uint4*>(feat);
-  auto* o = static_cast<uint4*>(out);
-  auto* a = static_cast<uint32_t*>(argmax);
-  if (argmax)
-    roi_pool_fwd_kernel<T, true><<<grid, block, 0, s>>>(
-        f, rois, mask, o, a, n, P, H, W, cv, scale);
-  else
-    roi_pool_fwd_kernel<T, false><<<grid, block, 0, s>>>(
-        f, rois, mask, o, a, n, P, H, W, cv, scale);
+  roi_pool_fwd_kernel<T, ARGMAX, STAGE>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint4*>(feat), rois, mask, xs, cw,
+          static_cast<uint4*>(out), static_cast<uint32_t*>(argmax), n, P, H,
+          W, cv, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fwd(const void* feat, const float* rois, const uint8_t* mask,
+               void* out, void* argmax, int B, int P, int H, int W, int C,
+               float scale, void* stream) {
+  return argmax ? launch<T, true>(feat, rois, mask, nullptr, nullptr, out,
+                                  argmax, B, P, H, W, C, scale, stream)
+                : launch<T, false>(feat, rois, mask, nullptr, nullptr, out,
+                                   nullptr, B, P, H, W, C, scale, stream);
+}
+
+template <typename T>
+int launch_stage(const void* feat, const float* rois, const uint8_t* mask,
+                 const int* xs, const int* cw, void* out, int B, int P,
+                 int H, int W, int C, float scale, int stage, void* stream) {
+  switch (stage) {
+    case kWrite:
+      return launch<T, false, kWrite>(feat, rois, mask, xs, cw, out, nullptr,
+                                      B, P, H, W, C, scale, stream);
+    case kRows:
+      return launch<T, false, kRows>(feat, rois, mask, xs, cw, out, nullptr,
+                                     B, P, H, W, C, scale, stream);
+    case kRowsCol0:
+      return launch<T, false, kRowsCol0>(feat, rois, mask, xs, cw, out,
+                                         nullptr, B, P, H, W, C, scale,
+                                         stream);
+    case kCols:
+      return launch<T, false, kCols>(feat, rois, mask, xs, cw, out, nullptr,
+                                     B, P, H, W, C, scale, stream);
+    case kFull:
+      return launch<T, false, kFull>(feat, rois, mask, xs, cw, out, nullptr,
+                                     B, P, H, W, C, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -343,14 +432,45 @@ extern "C" int roi_pool_fwd_bf16(const void* feat, const float* rois,
                                  const uint8_t* mask, void* out, void* argmax,
                                  int B, int P, int H, int W, int C,
                                  float scale, void* stream) {
-  return launch<Bf16>(feat, rois, mask, out, argmax, B, P, H, W, C, scale,
-                      stream);
+  return launch_fwd<Bf16>(feat, rois, mask, out, argmax, B, P, H, W, C,
+                          scale, stream);
 }
 
 extern "C" int roi_pool_fwd_f32(const void* feat, const float* rois,
                                 const uint8_t* mask, void* out, void* argmax,
                                 int B, int P, int H, int W, int C,
                                 float scale, void* stream) {
-  return launch<F32>(feat, rois, mask, out, argmax, B, P, H, W, C, scale,
-                     stream);
+  return launch_fwd<F32>(feat, rois, mask, out, argmax, B, P, H, W, C, scale,
+                         stream);
+}
+
+// The stage profiler: as roi_pool_fwd_*, without the argmax, plus xs and cw
+// [B, P] int32 (each roi's column window; read by the rows, rows_col0 and
+// cols stages) and stage 0..4 = write, rows, rows_col0, cols, full.
+extern "C" int roi_pool_stage_bf16(const void* feat, const float* rois,
+                                   const uint8_t* mask, const int* xs,
+                                   const int* cw, void* out, int B, int P,
+                                   int H, int W, int C, float scale,
+                                   int stage, void* stream) {
+  return launch_stage<Bf16>(feat, rois, mask, xs, cw, out, B, P, H, W, C,
+                            scale, stage, stream);
+}
+
+extern "C" int roi_pool_stage_f32(const void* feat, const float* rois,
+                                  const uint8_t* mask, const int* xs,
+                                  const int* cw, void* out, int B, int P,
+                                  int H, int W, int C, float scale,
+                                  int stage, void* stream) {
+  return launch_stage<F32>(feat, rois, mask, xs, cw, out, B, P, H, W, C,
+                           scale, stage, stream);
+}
+
+// The launch shape of a dtype of `itemsize` bytes (2: bf16, 4: f32):
+// channels per block, rois per block, threads per block.
+extern "C" void roi_pool_block_shape(int itemsize, int* shape) {
+  const int threads = itemsize == 2 ? Shape<Bf16>::kThreads
+                                    : Shape<F32>::kThreads;
+  shape[0] = kTileC;
+  shape[1] = kRun;
+  shape[2] = threads;
 }

@@ -307,6 +307,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # the stage profiler's entry points (ops/roi_pool_stages.py)
+    for fn in (lib.roi_pool_stage_bf16, lib.roi_pool_stage_f32):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.roi_pool_block_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.roi_pool_block_shape.restype = None
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:

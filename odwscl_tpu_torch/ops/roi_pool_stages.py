@@ -3,15 +3,13 @@
 Counterpart of the TPU profiling kernels built from the blocks of
 ``odwscl_tpu/ops/roi_pool_pallas.py``: ``tools/profile_pool.py``
 (``_fwd_rows_only``, ``_fwd_cols_only``) and
-``tools/profile_pool_stages.py`` (``make_kernel``). They time the exact
-forward's two stages apart: a row stage that takes, for every column of
-the roi's column window, the 7 row-bin maxima, and a column stage that
-reduces those over each column bin.
+``tools/profile_pool_stages.py`` (``make_kernel``). They time parts of the
+exact forward apart.
 
 Each roi's column window is the TPU kernel's (``_roi_meta``,
 ``_padded_dims``, ``_cws``): an 8-aligned start ``xs`` and a width ``cw``
-of 24, 40 or 88 columns or the padded map width. The map is read as if
-zero-padded to [round_up(H, 8), max(round_up(W, 8), 24)].
+of 24, 40 or 88 columns or the padded map width. The TPU reads the map as
+if zero-padded to [round_up(H, 8), max(round_up(W, 8), 24)].
 
 Stages (masked rois give 0 in every stage):
 
@@ -24,13 +22,20 @@ Stages (masked rois give 0 in every stage):
   fill); 0 where that set is empty. It also stands for ``make_kernel``'s
   cols, whose TPU output is undefined (it reduces scratch that nothing
   wrote);
-- ``full``: the exact forward, ``roi_pool_plain``.
+- ``full``: the exact forward, ``roi_pool_plain``'s bins.
+
+``stage_edges`` gives each stage as a rectangle per output bin on the
+unpadded map, plus a flag where the zero pad enters (only ``rows``
+columns at or beyond W): that is the kernel's spec, and
+``roi_pool_stage_plain`` is built on it.
 
 ``roi_pool_stage`` dispatches on the device as ``roi_pool`` does: CPU
-tensors take ``roi_pool_stage_plain``; CUDA tensors launch the kernel
-(``csrc/roi_pool_stages.cu``) or raise. ``roi_pool_stage.launches`` counts
-launches per stage. ``stage_work`` and ``stage_bound`` count the bytes and
-comparisons that a stage, or the forward kernel, needs on given inputs.
+tensors take ``roi_pool_stage_plain``; CUDA tensors launch the forward
+kernel (``csrc/roi_pool_fwd.cu``) instantiated for the stage, which runs
+the forward's own loop over the stage's rectangles, or raise.
+``roi_pool_stage.launches`` counts launches per stage. ``stage_work`` and
+``stage_bound`` count the bytes and comparisons that a stage, or the
+forward kernel, needs on given inputs.
 """
 
 from __future__ import annotations
@@ -39,26 +44,21 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
-from ..utils.cuda_build import CudaLibrary
 from ..utils.profiling import F32_OPS_PER_S, MEM_BYTES_PER_S, card_rate
-from .roi_pool import (POOLED, _check_cuda_inputs, pool_rects, roi_bin_edges,
-                       roi_pool_plain)
+from .roi_pool import (KERNEL, POOLED, _check_cuda_inputs, _check_vectors,
+                       pool_rects, roi_bin_edges)
 
 STAGES = ("write", "rows", "rows_col0", "cols", "full")
 COLUMN_WINDOWS = (24, 40, 88)
-SMEM_LIMIT = 232448       # bytes of shared memory a block may use on sm_90
+ROW_SPANS = {"rows": 8, "rows_col0": 1}   # columns from xs a rows stage reads
 
 
 class StagePlan(NamedTuple):
-    """What a launch needs besides the tensors: each roi's window start
-    and width (int32 [B, P] on the feature's device; width 0 for a masked
-    roi), the widest window and the channel tile."""
+    """Each roi's window start and width (int32 [B, P] on the feature's
+    device; width 0 for a masked roi)."""
     xs: torch.Tensor
     cw: torch.Tensor
-    cw_max: int
-    ct: int
 
 
 def padded_dims(h: int, w: int):
@@ -91,28 +91,54 @@ def tpu_windows(rois: torch.Tensor, mask: torch.Tensor, spatial_scale: float,
     return torch.where(mask, xs, zero), torch.where(mask, cw, zero)
 
 
-def channel_tile(c: int, cw_max: int, itemsize: int) -> int:
-    """The largest even ct dividing C whose row-bin scratch, 7 x cw_max x
-    ct values, fits a block's shared memory; raises if even 2 does not."""
-    for ct in range(c - c % 2, 1, -2):
-        if c % ct == 0 and 7 * cw_max * ct * itemsize <= SMEM_LIMIT:
-            return ct
-    raise ValueError(f"roi_pool_stage: a {cw_max}-column window needs "
-                     f"{7 * cw_max * 2 * itemsize} bytes of shared memory "
-                     f"for 2 of C={c} channels, more than a block's "
-                     f"{SMEM_LIMIT}")
-
-
 def stage_plan(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
                spatial_scale: float) -> StagePlan:
-    """The windows of these rois and the launch's channel tile. Reads the
-    widest window back to the host (one synchronisation); a caller that
-    launches several stages on the same rois plans once."""
-    _, h, w, c = feat.shape
+    """The windows of these rois on feat's map, made on the rois' device
+    with no read-back to the host; a caller that launches several stages
+    on the same rois plans once."""
+    _, h, w, _ = feat.shape
     xs, cw = tpu_windows(rois, mask, spatial_scale, h, w)
-    cw_max = int(cw.max()) if cw.numel() else 0
-    return StagePlan(xs.contiguous(), cw.contiguous(), cw_max,
-                     channel_tile(c, cw_max, feat.element_size()))
+    return StagePlan(xs.contiguous(), cw.contiguous())
+
+
+def stage_edges(rois: torch.Tensor, mask: torch.Tensor, spatial_scale: float,
+                h: int, w: int, stage: str):
+    """The rectangle of every output bin of ``stage`` on the unpadded [h,
+    w] map: (row_lo, row_hi, col_lo, col_hi), [B * P, 7] each (bin (ph, pw)
+    covers rows [row_lo, row_hi)[:, ph] x columns [col_lo, col_hi)[:, pw],
+    clipped to the map), and ``pad`` [B * P] bool: the roi's rectangles
+    also reach the zero pad, so a non-empty one's max starts at +0.
+
+    - ``write``: every rectangle empty;
+    - ``rows``, ``rows_col0``: row bin ph x columns [xs, xs + 8) or [xs,
+      xs + 1) clipped to W, for every pw; ``pad`` where those columns pass
+      W;
+    - ``cols``: row ph (clipped to H: a row of the pad holds only zeros,
+      which an empty rectangle gives too) x column bin pw inside [xs, xs +
+      cw);
+    - ``full``: the forward's bins (``roi_bin_edges``).
+    """
+    _check_stage(stage)
+    n = rois.shape[0] * rois.shape[1]
+    dev = rois.device
+    hs, he, ws, we = roi_bin_edges(rois, spatial_scale, POOLED, h, w)
+    pad = torch.zeros(n, dtype=torch.bool, device=dev)
+    if stage == "write":
+        zero = torch.zeros_like(hs)
+        return zero, zero, zero, zero, pad
+    if stage == "full":
+        return hs, he, ws, we, pad
+    xs, cw = (t.reshape(n).long()
+              for t in tpu_windows(rois, mask, spatial_scale, h, w))
+    if stage == "cols":
+        rows = torch.arange(POOLED, device=dev).expand(n, POOLED)
+        return (rows.clamp(max=h), (rows + 1).clamp(max=h),
+                torch.maximum(ws, xs[:, None]),
+                torch.minimum(we, (xs + cw)[:, None]), pad)
+    span = ROW_SPANS[stage]
+    col_lo = xs.clamp(max=w)[:, None].expand(n, POOLED)
+    col_hi = (xs + span).clamp(max=w)[:, None].expand(n, POOLED)
+    return hs, he, col_lo, col_hi, xs + span > w
 
 
 def _check_stage(stage):
@@ -124,32 +150,18 @@ def roi_pool_stage_plain(feat: torch.Tensor, rois: torch.Tensor,
                          mask: torch.Tensor, spatial_scale: float,
                          stage: str) -> torch.Tensor:
     """Plain torch version of each stage: feat [B, H, W, C], rois [B, P, 4]
-    f32, mask [B, P] bool -> [B, P, 7, 7, C] in feat's dtype."""
+    f32, mask [B, P] bool -> [B, P, 7, 7, C] in feat's dtype. The max of
+    each ``stage_edges`` rectangle, started at +0 where ``pad``."""
     _check_stage(stage)
-    if stage == "full":
-        return roi_pool_plain(feat, rois, mask, spatial_scale)
     b, h, w, c = feat.shape
     p = rois.shape[1]
-    n = b * p
-    if stage == "write" or n == 0:
+    if b * p == 0:
         return torch.zeros((b, p, POOLED, POOLED, c), dtype=feat.dtype,
                            device=feat.device)
-    hp, wp = padded_dims(h, w)
-    padded = F.pad(feat, (0, 0, 0, wp - w, 0, hp - h))
-    xs, cw = (t.reshape(n).long()
-              for t in tpu_windows(rois, mask, spatial_scale, h, w))
-    hs, he, ws, we = roi_bin_edges(rois, spatial_scale, POOLED, h, w)
-    if stage == "cols":
-        col_lo = torch.maximum(ws, xs[:, None])
-        col_hi = torch.minimum(we, (xs + cw)[:, None])
-        row_lo = torch.arange(POOLED, device=feat.device).expand(n, POOLED)
-        row_hi = row_lo + 1
-    else:
-        row_lo, row_hi = hs, he
-        col_lo = xs[:, None].expand(n, POOLED)
-        col_hi = col_lo + (8 if stage == "rows" else 1)
-    return pool_rects(padded, mask, row_lo, row_hi, col_lo,
-                      col_hi).reshape(b, p, POOLED, POOLED, c)
+    *rects, pad = stage_edges(rois, mask, spatial_scale, h, w, stage)
+    out = pool_rects(feat, mask, *rects)       # empty and masked bins: 0
+    out = torch.where(pad[:, None, None, None], out.clamp(min=0), out)
+    return out.reshape(b, p, POOLED, POOLED, c)
 
 
 def _cells_covered(b, h, w, img, r0, r1, c0, c1):
@@ -191,8 +203,8 @@ def stage_work(name, feat, rois, mask, spatial_scale):
     if name in ("roi_pool", "full"):
         c0, c1 = ws[:, 0], we[:, -1]
         per_roi = rows * (we - ws).clamp(min=0).sum(1)
-    elif name in ("rows", "rows_col0"):
-        span = 8 if name == "rows" else 1
+    elif name in ROW_SPANS:
+        span = ROW_SPANS[name]
         c0, c1 = xs, xs + span
         per_roi = rows * span
     else:                                              # cols
@@ -218,28 +230,22 @@ def stage_bound(name, feat, rois, mask, spatial_scale, card):
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    for fn in (lib.roi_pool_stage_bf16, lib.roi_pool_stage_f32):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-
-
-STAGE_KERNEL = CudaLibrary("roi_pool_stages", _bind)
+def block_shape(dtype: torch.dtype) -> dict:
+    """The launch shape of the forward kernel (and so of every stage) for
+    ``dtype``, as the built library reports it: channels, rois and threads
+    per block."""
+    shape = (ctypes.c_int * 3)()
+    KERNEL.get().roi_pool_block_shape(torch.finfo(dtype).bits // 8, shape)
+    return dict(zip(("channel_tile", "rois_per_block", "threads"), shape))
 
 
 def _check_plan(plan, feat, rois):
     b, p = rois.shape[:2]
-    for t in (plan.xs, plan.cw):
+    for t in plan:
         if (t.dtype != torch.int32 or tuple(t.shape) != (b, p)
                 or not t.is_contiguous() or t.device != feat.device):
             raise ValueError("roi_pool_stage plan: xs and cw must be "
                              f"contiguous int32 [{b}, {p}] on {feat.device}")
-    c = feat.shape[3]
-    if (plan.ct < 2 or plan.ct % 2 or c % plan.ct or 7 * plan.cw_max
-            * plan.ct * feat.element_size() > SMEM_LIMIT):
-        raise ValueError(f"roi_pool_stage plan: channel tile {plan.ct} does "
-                         f"not fit C={c} and a {plan.cw_max}-column window")
 
 
 def roi_pool_stage(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
@@ -249,7 +255,8 @@ def roi_pool_stage(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
     [B, H, W, C] (NHWC), rois [B, P, 4], mask [B, P] -> [B, P, 7, 7, C].
 
     CPU tensors take ``roi_pool_stage_plain``. CUDA tensors launch the
-    kernel on the current stream (f32 or bf16, C even) with ``plan`` (from
+    forward kernel's stage instantiation on the current stream (f32 or
+    bf16, C a multiple of 8, feat 16-byte aligned) with ``plan`` (from
     ``stage_plan`` on the same rois, made here if None) or raise; each
     launch adds one to ``roi_pool_stage.launches[stage]``.
     """
@@ -257,14 +264,15 @@ def roi_pool_stage(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
     if feat.device.type == "cpu":
         return roi_pool_stage_plain(feat, rois, mask, spatial_scale, stage)
     _check_cuda_inputs(feat, rois, mask, POOLED)
+    b, h, w, c = feat.shape
+    _check_vectors("roi_pool_stage", feat, c)
     if plan is None:
         plan = stage_plan(feat, rois, mask, spatial_scale)
     _check_plan(plan, feat, rois)
-    b, h, w, c = feat.shape
     p = rois.shape[1]
     out = torch.empty((b, p, POOLED, POOLED, c), dtype=feat.dtype,
                       device=feat.device)
-    lib = STAGE_KERNEL.get()
+    lib = KERNEL.get()
     fn = (lib.roi_pool_stage_bf16 if feat.dtype == torch.bfloat16
           else lib.roi_pool_stage_f32)
     with torch.cuda.device(feat.device):
@@ -272,7 +280,7 @@ def roi_pool_stage(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
         err = fn(feat.data_ptr(), rois.data_ptr(), mask.data_ptr(),
                  plan.xs.data_ptr(), plan.cw.data_ptr(), out.data_ptr(),
                  b, p, h, w, c, float(spatial_scale), STAGES.index(stage),
-                 plan.ct, plan.cw_max, stream)
+                 stream)
     if err != 0:
         raise RuntimeError(f"roi_pool_stage[{stage}] launch failed: "
                            f"cudaError_t {err}")

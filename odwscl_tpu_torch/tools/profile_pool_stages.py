@@ -22,14 +22,24 @@ On the card (the default) it times kernel #1 (``roi_pool``) and the five
 stage kernels (``roi_pool_stage``, one plan for all) with CUDA events,
 and beside them ``torch.zeros`` of the output's shape, the one PyTorch
 call that computes a stage (``write``): 20 launches after a warm-up, in
-turns (A B ... B A), twice. It prints each time with its bound
-(``stage_work``: the map cells it needs and the output, over the card's
-published rate) and share of that bound, its share of #1's time, the
-stage deltas (rows - write: the row stage; cols - write: the column
-stage; full - write: all the per-roi work), the card's name and power
-limit, and last one JSON line with all of it. With ``--device cpu`` it
-runs each plain version once at ``--shape`` and prints its host time as
-"plain (cpu)".
+turns (A B ... B A), twice. Each stage is #1's own kernel
+(``csrc/roi_pool_fwd.cu``) with the same launch shape, its loop run over
+another rectangle per output bin, so the deltas read as cuts of #1:
+
+- ``write``: the launch and the store path alone, no roi read;
+- ``row_walk`` = rows_col0 - write: walking each bin's rows, one load per
+  row (the chain of dependent row loads and folds);
+- ``row_strip`` = rows - write: the same rows, 8 columns each;
+- ``column_reduction`` = cols - write: one row per row bin, reduced
+  across the bin's columns;
+- ``per_roi_work`` = full - write: all of #1's work past its stores.
+
+It prints each time with its bound (``stage_work``: the map cells it
+needs and the output, over the card's published rate) and share of that
+bound, its share of #1's time, the deltas, the block shape, the card's
+name and power limit, and last one JSON line with all of it. With
+``--device cpu`` it runs each plain version once at ``--shape`` and
+prints its host time as "plain (cpu)".
 """
 
 from __future__ import annotations
@@ -44,8 +54,8 @@ import numpy as np
 import torch
 
 from ..ops.roi_pool import POOLED, roi_pool
-from ..ops.roi_pool_stages import (STAGES, roi_pool_stage, stage_bound,
-                                   stage_plan)
+from ..ops.roi_pool_stages import (STAGES, block_shape, roi_pool_stage,
+                                   stage_bound, stage_plan)
 from ..utils.device import resolve_device
 from ..utils.profiling import card_name_and_limit
 
@@ -121,11 +131,12 @@ def profile(feat, rois, mask):
         torch.zeros, (b, rois.shape[1], POOLED, POOLED, c), dtype=feat.dtype,
         device=feat.device)
     times = time_in_turns(fns, ITERS)
+    block = block_shape(feat.dtype)
     print(card)
     print(f"feat {list(feat.shape)} {str(feat.dtype)[6:]}, "
-          f"P={rois.shape[1]}, channel tile {plan.ct}, widest window "
-          f"{plan.cw_max} columns; {ITERS} launches x "
-          f"{len(times['roi_pool'])} readings each")
+          f"P={rois.shape[1]}; blocks of {block['channel_tile']} channels x "
+          f"{block['rois_per_block']} rois, {block['threads']} threads; "
+          f"{ITERS} launches x {len(times['roi_pool'])} readings each")
     variants = {}
     base = statistics.mean(times["roi_pool"])
     for key in NAMES:
@@ -146,15 +157,16 @@ def profile(feat, rois, mask):
           f"output, the library call of write; readings "
           f"{min(times['torch.zeros']):.4f}-{max(times['torch.zeros']):.4f})")
     ms = {k: v["ms"] for k, v in variants.items()}
-    deltas = {"row_stage": ms["rows"] - ms["write"],
-              "column_stage": ms["cols"] - ms["write"],
+    deltas = {"row_walk": ms["rows_col0"] - ms["write"],
+              "row_strip": ms["rows"] - ms["write"],
+              "column_reduction": ms["cols"] - ms["write"],
               "per_roi_work": ms["full"] - ms["write"]}
     print("stage deltas: " + ", ".join(f"{k} {v:.4f} ms"
                                        for k, v in deltas.items()))
     result = {"card": card, "device": name,
               "shape": list(feat.shape) + [rois.shape[1]],
-              "dtype": str(feat.dtype)[6:], "ct": plan.ct,
-              "cw_max": plan.cw_max, "iters": ITERS, "variants": variants,
+              "dtype": str(feat.dtype)[6:], "block": block,
+              "iters": ITERS, "variants": variants,
               "library_ms": library_ms, "deltas_ms": deltas}
     print(json.dumps(result))
     return result

@@ -25,17 +25,21 @@ image of 8:
   ``profile_train``'s own shape). The ``mix`` line is their mean: the
   ROIPool time of an average training step.
 
-The forward variants must give the shipped kernel's output and argmax
-bit for bit, the backward variants (not the ablations) its routing; a
-variant that does not is marked. Prints one JSON line per shape with the
-card's name and power limit. The chosen constants and the readings are in
-PERF.md.
+Beside each forward variant it times that source's ``write`` stage (the
+forward's stores alone, ``ops/roi_pool_stages.py``) and ``torch.zeros``
+of the output, the library call that computes it. The forward variants
+must give the shipped kernel's output and argmax bit for bit, and their
+``write`` stage zeros, the backward variants (not the ablations) its
+routing; a variant that does not is marked. Prints one JSON line per
+shape with the card's name and power limit. The chosen constants and the
+readings are in PERF.md.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from ..ops import roi_pool as rp
+from ..ops.roi_pool_stages import STAGES
 from ..utils.cuda_build import BUILD_DIR, CSRC_DIR, CudaLibrary
 from ..utils.device import resolve_device
 from ..utils.profiling import card_name_and_limit
@@ -91,6 +96,16 @@ FWD_VARIANTS = {
     "kTileC=32": {"kTileC": 32},
     "kMinThreads=128": {"kMinThreads": 128},
     "loads kept out of L1": {r"__ldg\(p \+": "__ldcg(p +"},
+    "streaming stores": {
+        r"out\[e\] = empty \? make_uint4\(0, 0, 0, 0\) : m\[j\];":
+            "__stcs(out + e, empty ? make_uint4(0, 0, 0, 0) : m[j]);"},
+    "channel tiles fastest in the grid": {
+        r"const int cv = blockIdx\.y \* S::kLanes":
+            "const int cv = blockIdx.x * S::kLanes",
+        r"\(blockIdx\.x \+ 1\) \* kRun": "(blockIdx.y + 1) * kRun",
+        r"int roi = blockIdx\.x \* kRun": "int roi = blockIdx.y * kRun",
+        r"grid\(\(n \+ kRun - 1\) / kRun, \(cv \+ S::kLanes - 1\) / S::kLanes\)":
+            "grid((cv + S::kLanes - 1) / S::kLanes, (n + kRun - 1) / kRun)"},
 }
 ORDERED_VARIANTS = {  # tools/roi_pool_fwd_ordered.cu appended
     "spatial order": {"kStagedRun": 0},
@@ -188,6 +203,24 @@ def _fwd_call(lib, feat, rois, mask, out, codes, order=None):
     return call
 
 
+def _write_call(lib, feat, rois, mask, out):
+    """A launch of ``lib``'s bf16 ``write`` stage into ``out`` (it reads no
+    column window)."""
+    b, h, w, c = feat.shape
+    p = rois.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = lib.roi_pool_stage_bf16(
+            feat.data_ptr(), rois.data_ptr(), mask.data_ptr(), None, None,
+            out.data_ptr(), b, p, h, w, c, SCALE, STAGES.index("write"),
+            stream)
+        if err:
+            raise RuntimeError(f"roi_pool_stage[write] launch failed: {err}")
+        return out
+    return call
+
+
 def _bwd_call(lib, codes, rois, mask, g, d):
     b, p = rois.shape[:2]
     hw = tuple(d.shape[1:3])
@@ -260,6 +293,13 @@ def main(argv=None):
                     calls[key] = call
                     same[key] = torch.equal(o, ref_out) and (
                         not am or torch.equal(a, ref_codes))
+                if name in fwd:
+                    call = _write_call(lib.get(), feat, rois, mask, out)
+                    calls[f"write {name}"] = call
+                    same[f"write {name}"] = not call().any()
+            calls["torch.zeros"] = functools.partial(
+                torch.zeros, out.shape, dtype=out.dtype, device=dev)
+            same["torch.zeros"] = True
         if args.only != "fwd":
             for name, lib in bwd.items():
                 call = _bwd_call(lib.get(), ref_codes, rois, mask, g, d)

@@ -171,16 +171,11 @@ def test_stage_matches_tpu_variant(stage, chunk2):
         assert np.count_nonzero(want[mask]) > 0
 
 
-def _naive(stage, feat, rois, mask):
-    """Each stage's definition, one roi, bin and cell at a time, over the
-    zero-padded map."""
-    b, h, w, c = feat.shape
-    hp, wp = jrp._padded_dims(h, w)
-    padded = np.zeros((b, hp, wp, c), feat.dtype)
-    padded[:, :h, :w] = feat
+def _naive_rects(stage, rois, mask, h, w):
+    """Each stage's definition: yields, per live roi (bi, pi) and bin (ph,
+    pw), the rows and columns of the zero-padded map whose max it is."""
     xs_all, cw_all = (t.numpy() for t in rs.tpu_windows(
         torch.from_numpy(rois), torch.from_numpy(mask), SCALE, h, w))
-    out = np.zeros(rois.shape[:2] + (7, 7, c), feat.dtype)
     for bi, pi in zip(*np.nonzero(mask)):
         x1, y1, x2, y2 = (int(v) for v in np.floor(
             rois[bi, pi] * np.float32(SCALE) + np.float32(0.5)))
@@ -202,16 +197,29 @@ def _naive(stage, feat, rois, mask):
                     ys, xr = [ph], range(max(ws, xs), min(we, xs + cw))
                 else:
                     ys, xr = [], []
-                cells = [padded[bi, y, x] for y in ys for x in xr]
-                if cells:
-                    out[bi, pi, ph, pw] = np.max(cells, axis=0)
+                yield bi, pi, ph, pw, ys, xr
+
+
+def _naive(stage, feat, rois, mask):
+    """Each stage's definition, one roi, bin and cell at a time, over the
+    zero-padded map."""
+    b, h, w, c = feat.shape
+    hp, wp = jrp._padded_dims(h, w)
+    padded = np.zeros((b, hp, wp, c), feat.dtype)
+    padded[:, :h, :w] = feat
+    out = np.zeros(rois.shape[:2] + (7, 7, c), feat.dtype)
+    for bi, pi, ph, pw, ys, xr in _naive_rects(stage, rois, mask, h, w):
+        cells = [padded[bi, y, x] for y in ys for x in xr]
+        if cells:
+            out[bi, pi, ph, pw] = np.max(cells, axis=0)
     return out
 
 
-@pytest.mark.parametrize("h,w", [(24, 120), (5, 100), (13, 17)])
+@pytest.mark.parametrize("h,w", [(24, 120), (5, 100), (13, 17), (11, 6)])
 def test_plain_matches_definition_on_padded_maps(h, w):
-    """Maps whose width is not a multiple of 8 (zero columns in the rows
-    stages' [xs, xs + 8)) or lower than 7 rows (zero rows in cols)."""
+    """Maps whose width is not a multiple of 8, lower than 7 rows (zero
+    rows in cols) or narrower than 8 columns (zero columns in the rows
+    stage's [xs, xs + 8))."""
     feat, rois, mask = _inputs(seed=1, h=h, w=w)
     for stage in rs.STAGES:
         got = _port(stage, feat, rois, mask).numpy()
@@ -273,15 +281,49 @@ def test_masked_rois_give_zero_in_every_stage():
         assert not out[~mask].any(), stage
 
 
-def test_channel_tile():
-    # the bench shape: bf16, widest window 88 columns -> 128 channels
-    assert rs.channel_tile(512, 88, 2) == 128
-    # a full-width roi of a 264-wide map in f32 -> 16 channels
-    assert rs.channel_tile(64, 264, 4) == 16
-    assert rs.channel_tile(6, 24, 4) == 6
-    assert rs.channel_tile(512, 0, 2) == 512            # every roi masked
-    with pytest.raises(ValueError, match="shared memory"):
-        rs.channel_tile(512, 5000, 4)
+@pytest.mark.parametrize("h,w", [(24, 120), (5, 100), (13, 17), (11, 6)])
+def test_stage_edges_match_definition(h, w):
+    """The kernel's spec: each bin's rectangle on the unpadded map holds
+    the definition's in-map cells, and where it is non-empty the pad flag
+    says whether the definition also reads the zero pad (then the max
+    starts at +0; where it is empty, both give 0)."""
+    _, rois, mask = _inputs(h=h, w=w)
+    n = rois.shape[0] * rois.shape[1]
+    pads = 0
+    for stage in rs.STAGES:
+        r0, r1, c0, c1, pad = (t.numpy() for t in rs.stage_edges(
+            torch.from_numpy(rois), torch.from_numpy(mask), SCALE, h, w,
+            stage))
+        assert r0.shape == c1.shape == (n, 7) and pad.shape == (n,)
+        for bi, pi, ph, pw, ys, xr in _naive_rects(stage, rois, mask, h, w):
+            i = bi * rois.shape[1] + pi
+            want = {(y, x) for y in ys for x in xr if y < h and x < w}
+            got = {(y, x) for y in range(r0[i, ph], r1[i, ph])
+                   for x in range(c0[i, pw], c1[i, pw])}
+            assert got == want, (stage, pi, ph, pw)
+            if got:
+                reads_pad = any(y >= h or x >= w for y in ys for x in xr)
+                assert pad[i] == reads_pad, (stage, pi, ph, pw)
+                pads += reads_pad
+    assert pads > 0 if w < 8 else pads == 0
+
+
+def test_stage_plan_reads_nothing_back(monkeypatch):
+    """The plan stays on the rois' device: no value goes to the host."""
+    feat, rois, mask = (torch.from_numpy(a) for a in _inputs())
+
+    def refuse(*_):
+        raise AssertionError("stage_plan read a tensor back to the host")
+
+    for name in ("item", "tolist", "numpy", "__int__", "__float__",
+                 "__bool__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    plan = rs.stage_plan(feat, rois, mask, SCALE)
+    monkeypatch.undo()
+    xs, cw = rs.tpu_windows(rois, mask, SCALE, 24, 120)
+    assert plan._fields == ("xs", "cw")
+    assert torch.equal(plan.xs, xs) and torch.equal(plan.cw, cw)
+    assert plan.xs.is_contiguous() and plan.cw.dtype == torch.int32
 
 
 def test_cpu_dispatch_counts_no_launch():
