@@ -22,7 +22,18 @@ Phases (any failure ends the run with a non-zero exit code):
    run: #1 at the eval shape, the training forward at the training shape,
    #2 and its yardstick (``index_add_`` of g at the cells decoded from the
    stored argmax); and each plain version once.
-4. Hold the stage profiler's kernel (the forward kernel of
+4. The same three kernels at the R-50-C5 shape (C = 2048, stride 16):
+   checked as in 2 and 3 on a 1200-scale image, feat [2, 75, 100, 2048],
+   P = 256, rois 16-720 px, f32 and bf16; then checked again, f32 and
+   bf16, and timed in turns (bf16) at a padded 1200-scale batch, feat
+   [8, 80, 104, 2048], P = 2048, with their byte bounds. At that shape
+   the plain versions run per image on chunks of rois sorted by size
+   (they are per roi, so the chunks are exact): both forward
+   instantiations and their argmax codes bit-exact against
+   ``roi_pool_argmax_plain``; the backward, from the kernel's codes,
+   against the f32 sums of ``roi_pool_backward_argmax_plain`` over the
+   plain codes, routing exact, values within the bounds of 3.
+5. Hold the stage profiler's kernel (the forward kernel of
    csrc/roi_pool_fwd.cu cut by stage), each of its five stages (write,
    rows, rows_col0, cols, full), against ``roi_pool_stage_plain`` on the
    card, bit-exactly (atol 0): the size grid on the 200x260 map and on a
@@ -33,24 +44,40 @@ Phases (any failure ends the run with a non-zero exit code):
    (``odwscl_tpu_torch.tools.profile_pool_stages``) at the bench shape:
    kernel #1, the five stages and ``torch.zeros`` (the library call of
    ``write``) timed in turns, with their bounds and the stage deltas.
-5. Run ``eval_forward`` at full width in f32 (TF32 off) on the card and on
-   the CPU with the same seeded weights and inputs; compare.
-6. Run one f32 train step (TF32 off) at full width on a small input on
-   the card and on the CPU with the same weights and the same DropBlock
-   and noise draws; compare the mining decisions, losses and gradients.
+6. For VGG16-OICR and for R-18-C5: run ``eval_forward`` at full width in
+   f32 (TF32 off) on the card and on the CPU with the same seeded weights
+   and inputs, then one f32 train step on a small input with the same
+   DropBlock and noise draws; compare the outputs, the mining decisions,
+   the losses and the gradients.
 7. Drive the training path: ``odwscl_tpu_torch.tools.train_net`` with
    configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml (VGG16-OICR, bf16, batch
    8, scales 480-1200, random init) for 20 iterations on a synthetic VOC
    trainval split of 32 images of 375x500 with 2048 proposals each. Every
    step must have launched the training forward (with the argmax) and the
    backward once, and the eval forward never; every loss must be finite.
-8. Drive the eval path: ``odwscl_tpu_torch.tools.test_net`` (14-transform
-   TTA, AVG) on the checkpoint that training wrote, on a synthetic test
-   split of 16 images, tasks det and corloc. Every forward must have gone
-   through the forward kernel without the argmax, and nothing else. Neither
-   path launches a stage kernel.
-
-Prints a ``{"kernels": [...]}`` line and, last, a one-line JSON result.
+8. Hold the device resize against the host path on the card: at each
+   TTA scale, each test image's valid region of ``resize_image_batch``
+   (from the f32 normalized originals) against the host path's collated
+   image (PIL's uint8 resize, then the normalization), within the CPU
+   test's bound (1.01 BGR-255 units per pixel, 0.35 on average), the
+   canvases equal and zero beyond each target. Then drive the eval path:
+   ``odwscl_tpu_torch.tools.test_net`` (14-transform TTA, AVG) on the
+   checkpoint that training wrote, on a synthetic test split of 16
+   images: det and corloc with the host resize, det with
+   ``TPU.EVAL_DEVICE_RESIZE True``. Every forward must have gone through
+   the forward kernel without the argmax, and nothing else; the two
+   modes' merged scores must agree within the bound of
+   tests/test_torch_device_resize.py, the boxes within 0.1 px.
+9. Drive the R-50-C5 configuration
+   (configs/voc/voc07_r50_c5_contra_db_b8_lr0.02_ss.yaml at full width:
+   C5 at stride 16, neck 100352 -> 2048 -> 4096, bf16, batch 8): write a
+   Caffe2 detectron ``.pkl`` of random blobs where ``MODEL.WEIGHT``'s
+   catalog name resolves, train 10 iterations from it as in 7 (the frozen
+   stem, layer1 and norms must still hold the file's values), then
+   evaluate the checkpoint in both resize modes as in 8. No path launches
+   a stage kernel.
+Prints a ``[summary]`` line of the end-to-end numbers, a
+``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
 """
 
@@ -68,6 +95,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "voc",
                       "voc07_contra_db_b8_lr0.01_mcg.yaml")
+CONFIG_R50 = os.path.join(ROOT, "configs", "voc",
+                          "voc07_r50_c5_contra_db_b8_lr0.02_ss.yaml")
 
 # phase 5: f32 card vs CPU. Both run the same f32 algorithm; the card sums
 # convolutions and GEMMs in another order (cuDNN/cuBLAS tiling, no TF32).
@@ -87,9 +116,27 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_REL = 1e-2
 # score heads scaled so that the argmaxes of the mining are well apart; at
 # the full 4096 width a larger factor saturates the softmaxes to exactly 1
-# (and the BCE's log1p(-1) then has a NaN gradient in both packages)
-HEAD_SCALE = 30.0
+# (and the BCE's log1p(-1) then has a NaN gradient in both packages). The
+# random R-18-C5's head logits are an order of magnitude above VGG16's, so
+# its factor is that much smaller.
+HEAD_SCALE = {"VGG16-OICR": 30.0, "R-18-C5": 3.0}
 TRAIN_STEPS = 20
+# phase 8: device-resize vs host-resize merged boxes. The CPU test's toy
+# model regresses nothing (its boxes are the scaled proposals: 1e-2 px);
+# here the trained bf16 heads' deltas move with the ~1 BGR-255 unit
+# pixel differences of the two resamplers (observed 0.035 px on VGG16's
+# 20-step checkpoint, 0.041 px on R-50-C5's), so the bound is 0.1 px. The
+# resampled images themselves are held to the CPU test's bound (at most
+# 1.01 BGR-255 units per pixel, 0.35 on average per image).
+MERGE_BOX_ATOL_PX = 0.1
+RESIZE_MAX = 1.01
+RESIZE_MEAN = 0.35
+# phase 4: the plain versions at the R-50-C5 timed shape run per image on
+# chunks of this many rois
+C2048_CHUNK = 256
+# the end-to-end numbers, printed again as one line near the end
+SUMMARY = []
+R50_STEPS = 10
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -136,12 +183,13 @@ def grid_inputs(rng, c, h=200, w=260):
 
 
 def main_path_inputs(rng, b=8, h=104, w=168, c=512, p=2048, xy_max=1000,
-                     limit=(1332, 799)):
+                     limit=(1332, 799), wh=(16, 300)):
     """The eval bench shape by default: 832x1344 images (stride 8), rois
-    16-300 px starting below ``xy_max``, clipped to ``limit`` (x, y)."""
+    16-300 px (``wh``) starting below ``xy_max``, clipped to ``limit``
+    (x, y)."""
     feat = rng.randn(b, h, w, c).astype(np.float32)
     x1y1 = rng.uniform(0, xy_max, (b, p, 2))
-    wh = rng.uniform(16, 300, (b, p, 2))
+    wh = rng.uniform(*wh, (b, p, 2))
     rois = np.concatenate([x1y1, np.minimum(x1y1 + wh, limit)],
                           -1).astype(np.float32)
     return feat, rois, np.ones((b, p), bool)
@@ -153,28 +201,39 @@ def train_shape_inputs(rng):
     return main_path_inputs(rng, h=160, w=208, xy_max=1200, limit=(1599, 1199))
 
 
-def phase_kernel(dev, rp):
+def r50_check_inputs(rng):
+    """A 1200-scale image (1200x1600) at stride 16 for R-50-C5: feat
+    [2, 75, 100, 2048], P = 256 rois of 16-720 px."""
+    return main_path_inputs(rng, b=2, h=75, w=100, c=2048, p=256,
+                            xy_max=1200, limit=(1599, 1199), wh=(16, 720))
+
+
+def r50_train_inputs(rng):
+    """A padded 1200-scale training batch at stride 16: feat
+    [8, 80, 104, 2048], P = 2048 rois of 16-720 px."""
+    return main_path_inputs(rng, h=80, w=104, c=2048, xy_max=1200,
+                            limit=(1599, 1199), wh=(16, 720))
+
+
+def phase_kernel(dev, rp, cases):
     """Both instantiations of the forward kernel against their plain
     versions, bit-exactly (atol 0): the output against ``roi_pool_plain``
-    and the argmax codes against ``roi_pool_argmax_plain``'s, on the grid
-    and at the eval and training shapes."""
+    and the argmax codes against ``roi_pool_argmax_plain``'s, for each
+    (label, inputs, spatial scale) of ``cases``."""
     import torch
 
-    rng = np.random.RandomState(0)
     worst = {"eval": 0.0, "argmax": 0.0}
-    for label, (feat, rois, mask) in (("grid", grid_inputs(rng, 64)),
-                                      ("eval", main_path_inputs(rng)),
-                                      ("train", train_shape_inputs(rng))):
+    for label, (feat, rois, mask), scale in cases:
         r = torch.from_numpy(rois).to(dev)
         m = torch.from_numpy(mask).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             f = torch.from_numpy(feat).to(dev, dtype)
-            want, want_codes = rp.roi_pool_argmax_plain(f, r, m, 0.125)
-            if not torch.equal(want, rp.roi_pool_plain(f, r, m, 0.125)):
+            want, want_codes = rp.roi_pool_argmax_plain(f, r, m, scale)
+            if not torch.equal(want, rp.roi_pool_plain(f, r, m, scale)):
                 raise AssertionError("roi_pool_argmax_plain's output != "
                                      f"roi_pool_plain ({label}, {dtype})")
-            got = rp.roi_pool(f, r, m, 0.125)
-            got_a, codes = rp.roi_pool_argmax(f, r, m, 0.125)
+            got = rp.roi_pool(f, r, m, scale)
+            got_a, codes = rp.roi_pool_argmax(f, r, m, scale)
             torch.cuda.synchronize()
             for name, out in (("eval", got), ("argmax", got_a)):
                 err = (out.float() - want.float()).abs().max().item()
@@ -195,9 +254,21 @@ def phase_kernel(dev, rp):
     return worst
 
 
-def phase_card_vs_cpu(dev):
+def _detector(arch, **kw):
+    """A seeded f32 detector of ``arch`` at full width."""
     import torch
-    from odwscl_tpu_torch.models import Batch, WSODDetector
+    from odwscl_tpu_torch.models import WSODDetector
+
+    scale = 0.125 if arch.startswith("VGG") else 0.0625
+    model = WSODDetector(compute_dtype="float32", backbone_arch=arch,
+                         pooler_scale=scale, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model
+
+
+def phase_card_vs_cpu(dev, arch="VGG16-OICR"):
+    import torch
+    from odwscl_tpu_torch.models import Batch
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -213,8 +284,7 @@ def phase_card_vs_cpu(dev):
                                              - 1)], -1).astype(np.float32)
     mask = rng.uniform(size=(b, p)) > 0.1
     batch = Batch(*(torch.from_numpy(a) for a in (images, sizes, boxes, mask)))
-    model = WSODDetector(compute_dtype="float32")
-    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = _detector(arch)
     t0 = time.perf_counter()
     s_cpu, b_cpu = model.eval_forward(batch)
     t_cpu = time.perf_counter() - t0
@@ -226,7 +296,8 @@ def phase_card_vs_cpu(dev):
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     ds = (s_gpu.cpu() - s_cpu).abs().max().item()
     db = (b_gpu.cpu() - b_cpu).abs().max().item()
-    print(f"[slice] f32 eval_forward card vs CPU, B={b} {h}x{w} P={p}: "
+    print(f"[slice] {arch} f32 eval_forward card vs CPU, B={b} {h}x{w} "
+          f"P={p}: "
           f"max |d score| {ds:.3e} (tol {SCORE_ATOL}), max |d box| "
           f"{db:.3e} px (tol {BOX_ATOL_PX}); score range "
           f"[{s_cpu.min().item():.4f}, {s_cpu.max().item():.4f}]; "
@@ -237,7 +308,7 @@ def phase_card_vs_cpu(dev):
         raise AssertionError("card and CPU eval_forward disagree")
 
 
-def bwd_bound(feat, rois, mask, g, name):
+def bwd_bound(feat, rois, mask, g, name, scale=0.125):
     """(bound ms, by): feat and g read once, d feat written once in the
     feature dtype; the comparisons of the argmax scan at the f32 rate."""
     from odwscl_tpu_torch.ops.roi_pool_stages import stage_work
@@ -247,41 +318,47 @@ def bwd_bound(feat, rois, mask, g, name):
     nbytes = (2 * feat.numel() + g.numel()) * feat.element_size() \
         + rois.numel() * 4 + mask.numel()
     bytes_ms = nbytes / card_rate(name, MEM_BYTES_PER_S) * 1e3
-    ops = stage_work("roi_pool", feat, rois, mask, 0.125)[1]
+    ops = stage_work("roi_pool", feat, rois, mask, scale)[1]
     ops_ms = ops / card_rate(name, F32_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                     else "operations"), nbytes
 
 
-def phase_bwd_kernel(dev, rp):
+def bwd_cases(rng):
+    """The backward's cases at C = 512 (stride 8): the size grid, a bf16
+    ties case and the training shape."""
+    import torch
+
+    feat_grid, rois_grid, mask_grid = grid_inputs(rng, 64)
+    ties = np.round(feat_grid * 1.5).astype(np.float32)     # a few values
+    both = (torch.float32, torch.bfloat16)
+    return [("grid", (feat_grid, rois_grid, mask_grid), both, 0.125),
+            ("ties", (ties, rois_grid, mask_grid), (torch.bfloat16,), 0.125),
+            ("train", train_shape_inputs(rng), both, 0.125)]
+
+
+def phase_bwd_kernel(dev, rp, cases):
     """Kernel vs plain backward: the training forward kernel's argmax, then
     the backward kernel from it, against the map-rescan
-    ``roi_pool_backward_plain``. Routing exact (strictly positive g, so both
-    are non-zero on the same cells); values within the reordering of the
-    f32 sums, |d| <= n * 2^-23 * sum|g| per cell (n = the bins that route to
+    ``roi_pool_backward_plain``, for each (label, inputs, dtypes, spatial
+    scale) of ``cases``. Routing exact (strictly positive g, so both are
+    non-zero on the same cells); values within the reordering of the f32
+    sums, |d| <= n * 2^-23 * sum|g| per cell (n = the bins that route to
     the cell); after the cast to bf16 at most one bf16 ulp."""
     import torch
 
-    rng = np.random.RandomState(2)
-    feat_grid, rois_grid, mask_grid = grid_inputs(rng, 64)
-    ties = np.round(feat_grid * 1.5).astype(np.float32)     # a few values
-    train = train_shape_inputs(rng)
     worst = 0.0
-    for label, (feat, rois, mask), dtypes in (
-            ("grid", (feat_grid, rois_grid, mask_grid),
-             (torch.float32, torch.bfloat16)),
-            ("ties", (ties, rois_grid, mask_grid), (torch.bfloat16,)),
-            ("train", train, (torch.float32, torch.bfloat16))):
+    for label, (feat, rois, mask), dtypes, scale in cases:
         r = torch.from_numpy(rois).to(dev)
         m = torch.from_numpy(mask).to(dev)
         for dtype in dtypes:
             f = torch.from_numpy(feat).to(dev, dtype)
             g = (torch.rand(r.shape[:2] + (7, 7, f.shape[3]), device=dev)
                  + 0.05).to(dtype)
-            _, codes = rp.roi_pool_argmax(f, r, m, 0.125)
-            got = rp.roi_pool_backward(codes, r, m, g, 0.125,
+            _, codes = rp.roi_pool_argmax(f, r, m, scale)
+            got = rp.roi_pool_backward(codes, r, m, g, scale,
                                        tuple(f.shape[1:3])).float()
-            want = rp.roi_pool_backward_plain(f, r, m, g, 0.125).float()
+            want = rp.roi_pool_backward_plain(f, r, m, g, scale).float()
             torch.cuda.synchronize()
             if not torch.equal(got != 0, want != 0):
                 raise AssertionError(f"roi_pool_bwd routes differently from "
@@ -289,7 +366,7 @@ def phase_bwd_kernel(dev, rp):
             err = (got - want).abs()
             if dtype == torch.float32:
                 count = rp.roi_pool_backward_plain(
-                    f, r, m, torch.ones_like(g), 0.125)
+                    f, r, m, torch.ones_like(g), scale)
                 bound = count * 2.0 ** -23 * want.abs() + 1e-30
             else:
                 bound = 2.0 ** -7 * want.abs()
@@ -411,6 +488,139 @@ def phase_timing(dev, rp):
                 "library_ms": ms["bwd_library"]}}
 
 
+def phase_timing_c2048(dev, rp, inputs):
+    """#1, #1[argmax] and #2 at the R-50-C5 training shape (``inputs``:
+    feat [8, 80, 104, 2048] as bf16, stride 16, P = 2048, rois 16-720 px),
+    timed in turns (3 rounds of 10), with their byte bounds."""
+    import torch
+    from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound, stage_work
+    from odwscl_tpu_torch.utils.profiling import MEM_BYTES_PER_S, card_rate
+
+    name = torch.cuda.get_device_name(dev)
+    rate = card_rate(name, MEM_BYTES_PER_S)
+    f, r, m = (torch.from_numpy(a).to(dev) for a in inputs)
+    f = f.to(torch.bfloat16)
+    hw = tuple(f.shape[1:3])
+    _, codes = rp.roi_pool_argmax(f, r, m, 0.0625)
+    g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+    fns = {"fwd": lambda: rp.roi_pool(f, r, m, 0.0625),
+           "fwd_argmax": lambda: rp.roi_pool_argmax(f, r, m, 0.0625),
+           "bwd": lambda: rp.roi_pool_backward(codes, r, m, g, 0.0625, hw)}
+    times = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, iters=10))
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    fwd_ms, fwd_by, fwd_bytes, _ = stage_bound("roi_pool", f, r, m, 0.0625,
+                                               name)
+    arg_bytes = (stage_work("roi_pool", f, r, m, 0.0625)[0]
+                 + codes.numel() * codes.element_size())
+    bwd_ms, bwd_by, bwd_bytes = bwd_bound(f, r, m, g, name, 0.0625)
+    bounds = {"fwd": (fwd_ms, fwd_by, fwd_bytes),
+              "fwd_argmax": (arg_bytes / rate * 1e3, "bytes", arg_bytes),
+              "bwd": (bwd_ms, bwd_by, bwd_bytes)}
+    for k in fns:
+        print(f"[c2048] {k} feat {list(f.shape)} bf16 P={r.shape[1]}: "
+              f"{ms[k]:.4f} ms ({', '.join(f'{t:.4f}' for t in times[k])}),"
+              f" bound {bounds[k][0]:.4f} ms ({bounds[k][1]}, "
+              f"{bounds[k][2] / 1e9:.4f} GB)")
+    SUMMARY.append("c2048 ms " + ", ".join(f"{k} {ms[k]:.4f}" for k in fns))
+    return {k: {"ms": ms[k], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1]} for k in fns}
+
+
+def phase_check_c2048(dev, rp, inputs):
+    """#1, #1[argmax] and #2 against their plain versions at the R-50-C5
+    timed shape (``inputs``: feat [8, 80, 104, 2048], P = 2048), f32 and
+    bf16. The plain versions run per image on chunks of C2048_CHUNK rois
+    sorted by their larger side in cells, so that each chunk's padded
+    window stays close to its rois' (each roi is pooled on its own, so the
+    chunks change no value): both forward instantiations and the argmax
+    codes bit-exact against ``roi_pool_argmax_plain``; the backward kernel,
+    from the kernel's codes and a strictly positive g, against the f32
+    sums of ``roi_pool_backward_argmax_plain`` over the plain codes
+    (summed over the chunks, then cast), as ``phase_bwd_kernel`` holds it.
+    Returns the worst errors and the plain versions' bf16 times over all
+    chunks."""
+    import torch
+
+    scale = 0.0625
+    feat, rois, mask = inputs
+    r = torch.from_numpy(rois).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    b, p = r.shape[:2]
+    hw = feat.shape[1:3]
+    hs, he, ws, we = rp.roi_bin_edges(r, scale, 7, *hw)
+    side = torch.maximum(he[:, -1] - hs[:, 0], we[:, -1] - ws[:, 0])
+    chunks = [(i, idx) for i, order in enumerate(side.reshape(b, p).argsort(1))
+              for idx in order.split(C2048_CHUNK)]
+    worst = {"eval": 0.0, "argmax": 0.0, "bwd": 0.0}
+    plain_ms = {}
+
+    def timed_plain(key, fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        plain_ms[key] = plain_ms.get(key, 0.0) + start.elapsed_time(end)
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        plain_ms.clear()
+        f = torch.from_numpy(feat).to(dev, dtype)
+        got = rp.roi_pool(f, r, m, scale)
+        got_a, codes = rp.roi_pool_argmax(f, r, m, scale)
+        g = (torch.rand(codes.shape, device=dev) + 0.05).to(dtype)
+        d_got = rp.roi_pool_backward(codes, r, m, g, scale, hw).float()
+        want = torch.zeros(f.shape, dtype=torch.float32, device=dev)
+        count = torch.zeros_like(want) if dtype == torch.float32 else None
+        for i, idx in chunks:
+            ri, mi, gi = r[i:i + 1, idx], m[i:i + 1, idx], g[i:i + 1, idx]
+            w_out, w_codes = timed_plain("fwd_argmax", rp.roi_pool_argmax_plain,
+                                         f[i:i + 1], ri, mi, scale)
+            for name, out in (("eval", got), ("argmax", got_a)):
+                err = (out[i, idx].float() - w_out[0].float()).abs().max()
+                worst[name] = max(worst[name], err.item())
+                if not torch.equal(out[i, idx], w_out[0]):
+                    raise AssertionError(
+                        f"roi_pool kernel [{name}] != plain (c2048 timed "
+                        f"shape, {dtype}, image {i}): max |diff| {err}")
+            if not torch.equal(codes[i, idx], w_codes[0]):
+                raise AssertionError(f"roi_pool kernel argmax codes != plain "
+                                     f"(c2048 timed shape, {dtype}, image {i})")
+            want[i:i + 1] += timed_plain(
+                "bwd", rp.roi_pool_backward_argmax_plain, w_codes, ri, mi,
+                gi.float(), scale, hw)
+            if count is not None:
+                count[i:i + 1] += rp.roi_pool_backward_argmax_plain(
+                    w_codes, ri, mi, torch.ones_like(gi, dtype=torch.float32),
+                    scale, hw)
+        want = want.to(dtype).float()
+        if not torch.equal(d_got != 0, want != 0):
+            raise AssertionError(f"roi_pool_bwd routes differently from plain "
+                                 f"(c2048 timed shape, {dtype})")
+        err = (d_got - want).abs()
+        bound = (count * 2.0 ** -23 * want.abs() + 1e-30 if count is not None
+                 else 2.0 ** -7 * want.abs())
+        if (err > bound).any():
+            raise AssertionError(f"roi_pool_bwd != plain (c2048 timed shape, "
+                                 f"{dtype}): max |diff| {err.max().item()}")
+        worst["bwd"] = max(worst["bwd"], err.max().item())
+        print(f"[c2048] {str(dtype)[6:]} feat {list(f.shape)} P={p}: #1 and "
+              f"#1[argmax] bit-exact vs plain, argmax codes equal "
+              f"({int((codes != rp.NO_CELL).sum())} routed); #2 same cells "
+              f"as plain, max |diff| {err.max().item():.3e} (within the "
+              f"bound), {int((want != 0).sum())} cells routed; plain over "
+              f"{len(chunks)} chunks: argmax forward "
+              f"{plain_ms['fwd_argmax']:.1f} ms, backward from the argmax "
+              f"{plain_ms['bwd']:.1f} ms")
+        del f, got, got_a, codes, g, d_got, want, count, err, bound
+        torch.cuda.empty_cache()
+    return worst, dict(plain_ms)
+
+
 STAGE_REPLACES = {
     "write": "tools/profile_pool_stages.py:35 make_kernel[write]",
     "rows": "tools/profile_pool_stages.py:35 make_kernel[rows]",
@@ -502,14 +712,14 @@ def phase_stage_kernels(dev, rp, rs):
     return entries
 
 
-def phase_train_card_vs_cpu(dev):
+def phase_train_card_vs_cpu(dev, arch="VGG16-OICR"):
     """One f32 train step on the card and on the CPU: same weights, batch
     and draws; neck dropout 0 (its masks come from each device's own
     generator). One positive class per image, so stage B's chain compares
     no rows of other classes (it compares 1.0 with a self-similarity that
     rounds to either side of 1 with the summation order)."""
     import torch
-    from odwscl_tpu_torch.models import Batch, WSODDetector
+    from odwscl_tpu_torch.models import Batch
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -528,13 +738,11 @@ def phase_train_card_vs_cpu(dev):
     labels[0, 7] = labels[1, 15] = 1.0
     batch = Batch(*(torch.from_numpy(a) for a in (images, sizes, boxes, mask,
                                                   labels)))
-    model = WSODDetector(compute_dtype="float32", neck_dropout=0.0,
-                         cap_a=1024, cap_b=256)
-    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = _detector(arch, neck_dropout=0.0, cap_a=1024, cap_b=256)
     with torch.no_grad():
         for name, _ in model.pred.heads:
             if not name.startswith("bbox_pred"):
-                getattr(model.pred, name).weight.mul_(HEAD_SCALE)
+                getattr(model.pred, name).weight.mul_(HEAD_SCALE[arch])
     draws = {"dropblock": torch.from_numpy(rng.uniform(
                  size=(b * p, 7, 7)).astype(np.float32)),
              "sim_drop": torch.from_numpy(rng.uniform(
@@ -574,7 +782,8 @@ def phase_train_card_vs_cpu(dev):
                    for k in watch)
     if not all(math.isfinite(v) for v in l_gpu.values()):
         raise AssertionError(f"non-finite train losses on the card: {l_gpu}")
-    print(f"[train] f32 train step card vs CPU, B={b} {h}x{w} P={p}: mining "
+    print(f"[train] {arch} f32 train step card vs CPU, B={b} {h}x{w} "
+          f"P={p}: mining "
           f"decisions equal ({', '.join(f'{k} {m_cpu[k]:g}' for k in ints)});"
           f" max loss rel diff {loss_err:.3e} (tol {TRAIN_LOSS_RTOL}), max "
           f"grad diff {grad_err:.3e} of the largest (tol {TRAIN_GRAD_REL}, "
@@ -586,7 +795,9 @@ def phase_train_card_vs_cpu(dev):
         raise AssertionError("card and CPU train steps disagree")
 
 
-def write_data(tmp, cfg):
+def write_data(tmp, cfg, cfg_r50):
+    """The synthetic VOC splits, with their proposal files also under the
+    names the R-50 config reads."""
     from odwscl_tpu_torch.data.synthetic import write_synthetic_voc
 
     t0 = time.perf_counter()
@@ -595,112 +806,238 @@ def write_data(tmp, cfg):
                         test_proposal_file=cfg.PROPOSAL_FILES.TEST[0],
                         n_trainval=32,
                         train_proposal_file=cfg.PROPOSAL_FILES.TRAIN[0])
+    for split in ("TRAIN", "TEST"):
+        dst = os.path.join(tmp, cfg_r50.PROPOSAL_FILES[split][0])
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copy(os.path.join(tmp, cfg.PROPOSAL_FILES[split][0]), dst)
     print(f"[data] synthetic VOC: 32 trainval + 16 test images 375x500, "
           f"2048 proposals each, written in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_train(rp, tmp):
+def write_r50_weights(tmp):
+    """A Caffe2 detectron R-50 ``.pkl`` of random blobs at the catalog's
+    basename under ``<tmp>/weights``; returns its blobs."""
+    import pickle
+    from odwscl_tpu_torch.data.synthetic import detectron_resnet_blobs
+
+    blobs = detectron_resnet_blobs("R-50", 5, seed=0)
+    os.makedirs(os.path.join(tmp, "weights"), exist_ok=True)
+    with open(os.path.join(tmp, "weights", "R-50.pkl"), "wb") as f:
+        pickle.dump({"blobs": blobs}, f)
+    return blobs
+
+
+def phase_train(rp, tmp, config, steps, label, opts=()):
+    """``train_net`` with ``config`` for ``steps`` iterations; every step
+    must launch the training forward (with the argmax) and the backward
+    once and the eval forward never, and every loss must be finite.
+    Returns the launch counts (fwd[argmax], bwd) and the final
+    checkpoint."""
     import torch
     from odwscl_tpu_torch.tools import train_net
 
-    out = os.path.join(tmp, "train")
+    out = os.path.join(tmp, "train_" + label)
     timing = {}
     torch.cuda.reset_peak_memory_stats()
     rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
     rp.roi_pool_backward.launches = 0
     t0 = time.perf_counter()
-    train_net.main(["--config-file", CONFIG, "--data-root", tmp,
+    train_net.main(["--config-file", config, "--data-root", tmp,
                     "--device", "cuda", "--skip-test", "OUTPUT_DIR", out,
-                    "MODEL.WEIGHT", "", "SOLVER.MAX_ITER", str(TRAIN_STEPS),
-                    "SOLVER.CHECKPOINT_PERIOD", "10"], timing_out=timing)
+                    "SOLVER.MAX_ITER", str(steps),
+                    "SOLVER.CHECKPOINT_PERIOD", str(steps), *opts],
+                   timing_out=timing)
     wall = time.perf_counter() - t0
     launches = (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
                 rp.roi_pool_backward.launches)
-    steps = timing["train"]["steps"]
-    if len(steps) != TRAIN_STEPS:
-        raise AssertionError(f"{len(steps)} train steps, not {TRAIN_STEPS}")
-    for s in steps:
-        bad = [k for k, v in s.items() if not math.isfinite(v)]
+    steps_log = timing["train"]["steps"]
+    if len(steps_log) != steps:
+        raise AssertionError(f"{len(steps_log)} train steps, not {steps}")
+    for st in steps_log:
+        bad = [k for k, v in st.items() if not math.isfinite(v)]
         if bad:
-            raise AssertionError(f"iteration {s['iter']}: non-finite {bad}")
-    if launches != (0, TRAIN_STEPS, TRAIN_STEPS):
-        raise AssertionError(f"kernel launches (fwd, fwd[argmax], bwd) "
-                             f"{launches} for {TRAIN_STEPS} steps")
-    window = steps[4:]
-    med = statistics.median(s["step_s"] for s in window)
-    data_wait = sum(s["data_s"] for s in window)
+            raise AssertionError(f"{label} iteration {st['iter']}: "
+                                 f"non-finite {bad}")
+    if launches != (0, steps, steps):
+        raise AssertionError(f"{label}: kernel launches (fwd, fwd[argmax], "
+                             f"bwd) {launches} for {steps} steps")
+    window = steps_log[4:]
+    med = statistics.median(st["step_s"] for st in window)
+    data_wait = sum(st["data_s"] for st in window)
     t = timing["train"]
-    print(f"[train] {TRAIN_STEPS} steps, batch 8, bf16: median step "
-          f"{med * 1e3:.1f} ms over steps 5-{TRAIN_STEPS} = "
-          f"{8 / med:.2f} images/s; host data wait {data_wait:.2f} s of "
-          f"{sum(s['step_s'] for s in window):.2f} s; device idle share "
+    print(f"[train] {label}: {steps} steps, batch 8, bf16: median step "
+          f"{med * 1e3:.1f} ms over steps 5-{steps} = {8 / med:.2f} "
+          f"images/s; host data wait {data_wait:.2f} s of "
+          f"{sum(st['step_s'] for st in window):.2f} s; device idle share "
           f"{t['device_idle_share']:.3f} (busy {t['device_busy_s']:.2f} s of "
           f"{t['profile_wall_s']:.2f} s, traced); max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; CLI wall "
           f"{wall:.2f} s")
-    print("[train] losses step 1 -> 20: " + ", ".join(
-        f"{k} {steps[0][k]:.4f} -> {steps[-1][k]:.4f}"
+    SUMMARY.append(f"{label} train: median step {med * 1e3:.1f} ms = "
+                   f"{8 / med:.2f} images/s, idle "
+                   f"{t['device_idle_share']:.3f}, peak "
+                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"[train] {label} losses step 1 -> {steps}: " + ", ".join(
+        f"{k} {steps_log[0][k]:.4f} -> {steps_log[-1][k]:.4f}"
         for k in ("loss", "loss_img", "loss_sim", "loss_ref_cls0")))
-    print(f"[train] kernel launches: roi_pool_fwd[argmax] {launches[1]}, "
-          f"roi_pool_bwd {launches[2]} = steps {TRAIN_STEPS}; roi_pool_fwd "
-          f"{launches[0]}")
-    for name in ("model_0000010.pt", "model_0000020.pt", "model_final.pt"):
+    print(f"[train] {label} kernel launches: roi_pool_fwd[argmax] "
+          f"{launches[1]}, roi_pool_bwd {launches[2]} = steps {steps}; "
+          f"roi_pool_fwd {launches[0]}")
+    for name in (f"model_{steps:07d}.pt", "model_final.pt"):
         if not os.path.exists(os.path.join(out, name)):
             raise AssertionError(f"checkpoint {name} missing")
     return launches[1:], os.path.join(out, "model_final.pt")
 
 
-def phase_eval(rp, tmp, weights):
+def phase_resize(tmp, config):
+    """The device resize against the host path on the card, at every TTA
+    scale of ``config`` on the synthetic test split, through the
+    Inferencer's own two paths: ``_device_resize_batches`` from the f32
+    normalized originals (``TPU.EVAL_TRANSFER_BF16 False``) against
+    ``_prep_scale`` (PIL's uint8 resize, then the normalization, then the
+    collate). Per image, the valid region within RESIZE_MAX BGR-255 units
+    per pixel and RESIZE_MEAN on average; the targets and canvases equal;
+    zero beyond each target. Returns (worst pixel, worst image mean)."""
+    import torch
     from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.data.build import make_eval_loaders
+    from odwscl_tpu_torch.engine.inference import Inferencer, _tta_groups
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(config)
+    cfg.merge_from_list(["TPU.EVAL_TRANSFER_BF16", "False"])
+    (_, loader), = make_eval_loaders(cfg, tmp)
+    inf = Inferencer(torch.nn.Identity(), cfg, "cuda")
+    groups = _tta_groups(inf.tta.transforms())
+    worst_px = worst_mean = 0.0
+    n = 0
+    for _, samples, _ in loader:
+        for (tr, _), (dev_b, dev_wh) in zip(
+                groups, inf._device_resize_batches(groups, samples, None)):
+            host_b, host_wh = inf._prep_scale(tr, samples)
+            d_img, h_img = dev_b.images, host_b.images
+            if d_img.dtype != torch.float32 or not torch.equal(dev_wh,
+                                                               host_wh):
+                raise AssertionError(f"device resize at {tr.min_size}: "
+                                     f"{d_img.dtype}, targets (w, h) "
+                                     f"{dev_wh.tolist()} vs host "
+                                     f"{host_wh.tolist()}")
+            if d_img.shape != h_img.shape:
+                raise AssertionError(f"device resize at {tr.min_size}: canvas "
+                                     f"{list(d_img.shape)} vs host "
+                                     f"{list(h_img.shape)}")
+            for i, (w, h) in enumerate(host_wh.long().tolist()):
+                d = (d_img[i, :h, :w] - h_img[i, :h, :w]).abs()
+                worst_px = max(worst_px, d.max().item())
+                worst_mean = max(worst_mean, d.mean().item())
+                if d_img[i, h:].any() or d_img[i, :, w:].any():
+                    raise AssertionError(f"device resize at {tr.min_size}, "
+                                         f"image {i}: non-zero padding")
+                n += 1
+    print(f"[resize] device vs host resize, {n} (image, scale) pairs at "
+          f"scales {[tr.min_size for tr, _ in groups]}: max |d| "
+          f"{worst_px:.4f} BGR-255 units (bound {RESIZE_MAX}), worst image "
+          f"mean {worst_mean:.4f} (bound {RESIZE_MEAN}); padding zero")
+    if worst_px > RESIZE_MAX or worst_mean > RESIZE_MEAN:
+        raise AssertionError("device resize != host resize beyond the bound")
+    return worst_px, worst_mean
+
+
+def phase_eval(rp, tmp, config, weights, label, runs):
+    """``test_net`` (14-transform TTA, AVG) with ``config`` on
+    ``weights``, once per (task, device resize) of ``runs``. Every forward
+    must have gone through the forward kernel without the argmax, and
+    nothing else. The merged scores of the two resize modes (task det)
+    must agree within tests/test_torch_device_resize.py's bound (rtol
+    0.05, atol 5e-3), the merged boxes within MERGE_BOX_ATOL_PX. Returns
+    the forward kernel's launches."""
+    import torch
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.engine import inference
     from odwscl_tpu_torch.tools import test_net
 
     cfg = get_default_cfg()
-    cfg.merge_from_file(CONFIG)
-    n_images = 16
-    n_batches = math.ceil(n_images / cfg.TEST.IMS_PER_BATCH)
+    cfg.merge_from_file(config)
+    n_batches = math.ceil(16 / cfg.TEST.IMS_PER_BATCH)
     n_tta = 2 * (1 + len(cfg.TEST.BBOX_AUG.SCALES))
-    results = {}
+    merged = {}
+    finalize = inference.Inferencer._finalize
+
+    def capture(self, scores, boxes, mask):
+        merged.setdefault(self.device_resize, []).append(
+            (scores.float().cpu(), boxes.float().cpu()))
+        return finalize(self, scores, boxes, mask)
+
     rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
     rp.roi_pool_backward.launches = 0
-    for task in ("det", "corloc"):
-        timing = {}
-        t0 = time.perf_counter()
-        res = test_net.main(["--config-file", CONFIG, "--data-root", tmp,
-                             "--task", task, "--device", "cuda",
-                             "--weights", weights,
-                             "OUTPUT_DIR", os.path.join(tmp, task)],
-                            timing_out=timing)
-        wall = time.perf_counter() - t0
-        (t,) = timing.values()
-        (r,) = res.values()
-        results[task] = (r, t, wall)
+    total = 0
+    try:
+        for task, device_resize in runs:
+            inference.Inferencer._finalize = (capture if task == "det"
+                                              else finalize)
+            timing = {}
+            t0 = time.perf_counter()
+            res = test_net.main([
+                "--config-file", config, "--data-root", tmp, "--task", task,
+                "--device", "cuda", "--weights", weights,
+                "OUTPUT_DIR", os.path.join(tmp, f"{label}_{task}_"
+                                                f"{device_resize}"),
+                "TPU.EVAL_DEVICE_RESIZE", str(device_resize)],
+                timing_out=timing)
+            wall = time.perf_counter() - t0
+            (t,), (r,) = timing.values(), res.values()
+            metric = r["map"] if task == "det" else r["mean_corloc"]
+            if not math.isfinite(metric):
+                raise AssertionError(f"{label} {task}: non-finite {metric}")
+            if t["n_forwards"] != n_batches * n_tta:
+                raise AssertionError(f"{label} {task}: {t['n_forwards']} "
+                                     f"forwards, expected {n_batches} x "
+                                     f"{n_tta}")
+            total += t["n_forwards"]
+            mode = "device resize" if device_resize else "host resize"
+            print(f"[eval] {label} {task}, {mode}: "
+                  f"{'mAP' if task == 'det' else 'CorLoc'} {metric:.4f}; "
+                  f"{t['n_images']} images in {t['wall_s']:.2f} s = "
+                  f"{t['n_images'] / t['wall_s']:.2f} images/s; "
+                  f"{t['n_forwards']} forwards; stage s: load wait "
+                  f"{t['load_wait_s']:.2f}, prep_wait_s "
+                  f"{t['prep_wait_s']:.2f}, forward+merge "
+                  f"{t['forward_s']:.2f}, NMS+top-K+to-host "
+                  f"{t['finalize_s']:.2f}, eval {t['eval_s']:.3f}; CLI wall "
+                  f"{wall:.2f} s")
+            SUMMARY.append(f"{label} eval {task} {mode}: "
+                           f"{t['n_images'] / t['wall_s']:.2f} images/s, "
+                           f"prep_wait_s {t['prep_wait_s']:.2f}")
+    finally:
+        inference.Inferencer._finalize = finalize
     launches = rp.roi_pool.launches
-
-    for task, (r, t, wall) in results.items():
-        metric = r["map"] if task == "det" else r["mean_corloc"]
-        if not math.isfinite(metric):
-            raise AssertionError(f"{task}: non-finite result {metric}")
-        if t["n_forwards"] != n_batches * n_tta:
-            raise AssertionError(f"{task}: {t['n_forwards']} forwards, "
-                                 f"expected {n_batches} x {n_tta}")
-        print(f"[eval] {task}: {'mAP' if task == 'det' else 'CorLoc'} "
-              f"{metric:.4f} (the 20-step checkpoint); {t['n_images']} "
-              f"images in {t['wall_s']:.2f} s = "
-              f"{t['n_images'] / t['wall_s']:.2f} images/s; "
-              f"{t['n_forwards']} forwards; stage s: load wait "
-              f"{t['load_wait_s']:.2f}, host prep wait "
-              f"{t['prep_wait_s']:.2f}, forward+merge {t['forward_s']:.2f}, "
-              f"NMS+top-K+to-host {t['finalize_s']:.2f}, eval "
-              f"{t['eval_s']:.3f}; CLI wall {wall:.2f} s")
-    total = sum(t["n_forwards"] for _, t, _ in results.values())
     if (launches != total or rp.roi_pool_argmax.launches
             or rp.roi_pool_backward.launches):
-        raise AssertionError(f"roi_pool kernel launched {launches} times for "
-                             f"{total} forwards (argmax "
+        raise AssertionError(f"{label}: roi_pool kernel launched {launches} "
+                             f"times for {total} forwards (argmax "
                              f"{rp.roi_pool_argmax.launches}, backward "
                              f"{rp.roi_pool_backward.launches})")
-    print(f"[eval] roi_pool kernel launches {launches} = forwards {total} "
-          f"({n_tta} per batch); no argmax, no backward")
+    print(f"[eval] {label} roi_pool kernel launches {launches} = forwards "
+          f"{total} ({n_tta} per batch); no argmax, no backward")
+    if len(merged) == 2:
+        bounds = ((0.05, 5e-3), (1e-4, MERGE_BOX_ATOL_PX))
+        worst, excess = [0.0, 0.0], [-math.inf, -math.inf]
+        for (hs, hb), (ds, db) in zip(merged[False], merged[True]):
+            for i, (h, d) in enumerate(((hs, ds), (hb, db))):
+                excess[i] = max(excess[i], ((d - h).abs() - bounds[i][0]
+                                            * h.abs()).max().item())
+                worst[i] = max(worst[i], (d - h).abs().max().item())
+        print(f"[eval] {label} device-resize vs host-resize merged "
+              f"detections ({len(merged[True])} batches): max |d score| "
+              f"{worst[0]:.3e}, past rtol 0.05 {excess[0]:.3e} (atol 5e-3); "
+              f"max |d box| {worst[1]:.3e} px, past rtol 1e-4 "
+              f"{excess[1]:.3e} (atol {MERGE_BOX_ATOL_PX})")
+        for name, (rtol, atol), ex in zip(("scores", "boxes"), bounds, excess):
+            if ex > atol:
+                raise AssertionError(f"{label}: device-resize merge != host "
+                                     f"merge ({name}: |d| exceeds rtol {rtol} "
+                                     f"by {ex:.3e} > atol {atol})")
+    torch.cuda.synchronize()
     return launches
 
 
@@ -744,21 +1081,61 @@ def main():
         print(f"[phase] {label} {time.perf_counter() - t0:.1f} s")
         return out
 
-    fwd_err = timed("forward kernel checks", phase_kernel, dev, rp)
-    bwd_err = timed("backward kernel checks", phase_bwd_kernel, dev, rp)
+    rng = np.random.RandomState(0)
+    fwd_err = timed("forward kernel checks", phase_kernel, dev, rp, [
+        ("grid", grid_inputs(rng, 64), 0.125),
+        ("eval", main_path_inputs(rng), 0.125),
+        ("train", train_shape_inputs(rng), 0.125)])
+    bwd_err = timed("backward kernel checks", phase_bwd_kernel, dev, rp,
+                    bwd_cases(np.random.RandomState(2)))
     tm = timed("kernel timing", phase_timing, dev, rp)
+    r50_in = r50_check_inputs(np.random.RandomState(7))
+    fwd_err_c = timed("forward kernel checks, C=2048", phase_kernel, dev,
+                      rp, [("c2048", r50_in, 0.0625)])
+    bwd_err_c = timed("backward kernel checks, C=2048", phase_bwd_kernel,
+                      dev, rp, [("c2048", r50_in,
+                                 (torch.float32, torch.bfloat16), 0.0625)])
+    r50_timed = r50_train_inputs(np.random.RandomState(6))
+    tm_c = timed("kernel timing, C=2048", phase_timing_c2048, dev, rp,
+                 r50_timed)
+    err_c, plain_c = timed("kernel checks at the C=2048 timed shape",
+                           phase_check_c2048, dev, rp, r50_timed)
+    del r50_timed
     stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
-    timed("eval card vs CPU", phase_card_vs_cpu, dev)
-    timed("train card vs CPU", phase_train_card_vs_cpu, dev)
-    cfg = get_default_cfg()
+    for arch in ("VGG16-OICR", "R-18-C5"):
+        timed(f"eval card vs CPU {arch}", phase_card_vs_cpu, dev, arch)
+        timed(f"train card vs CPU {arch}", phase_train_card_vs_cpu, dev,
+              arch)
+    cfg, cfg_r50 = get_default_cfg(), get_default_cfg()
     cfg.merge_from_file(CONFIG)
+    cfg_r50.merge_from_file(CONFIG_R50)
     tmp = tempfile.mkdtemp(prefix="odwscl_smoke_")
     try:
-        write_data(tmp, cfg)
+        write_data(tmp, cfg, cfg_r50)
+        blobs = write_r50_weights(tmp)
+        timed("device resize vs host", phase_resize, tmp, CONFIG)
         rs.roi_pool_stage.launches = dict.fromkeys(rs.STAGES, 0)
-        (train_fwd, train_bwd), ckpt = timed("train main path", phase_train,
-                                             rp, tmp)
-        eval_fwd = timed("eval main path", phase_eval, rp, tmp, ckpt)
+        (train_fwd, train_bwd), ckpt = timed(
+            "train main path", phase_train, rp, tmp, CONFIG, TRAIN_STEPS,
+            "VGG16-OICR", ("MODEL.WEIGHT", ""))
+        eval_fwd = timed("eval main path", phase_eval, rp, tmp, CONFIG, ckpt,
+                         "VGG16-OICR", [("det", False), ("corloc", False),
+                                        ("det", True)])
+        (r50_fwd, r50_bwd), ckpt = timed(
+            "R-50-C5 train", phase_train, rp, tmp, CONFIG_R50, R50_STEPS,
+            "R-50-C5", ("MODEL.WEIGHT", cfg_r50.MODEL.WEIGHT))
+        sd = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+        for key, blob in (("stem_conv.weight", "conv1_w"),
+                          ("layer1_2.conv3.weight", "res2_2_branch2c_w"),
+                          ("layer4_2.bn3.scale", "res5_2_branch2c_bn_s")):
+            if not np.array_equal(sd["backbone." + key].numpy(), blobs[blob]):
+                raise AssertionError(f"R-50-C5 after training: {key} is not "
+                                     f"the .pkl's {blob}")
+        print(f"[train] R-50-C5 warm start from {cfg_r50.MODEL.WEIGHT} (a "
+              f".pkl of {len(blobs)} random blobs): the frozen stem, layer1 "
+              "and norms still hold its values exactly")
+        r50_eval = timed("R-50-C5 eval", phase_eval, rp, tmp, CONFIG_R50,
+                         ckpt, "R-50-C5", [("det", False), ("det", True)])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if any(rs.roi_pool_stage.launches.values()):
@@ -770,20 +1147,32 @@ def main():
               "installed")
     fwd_src = {"route": "cuda", "source": src + "roi_pool_fwd.cu",
                "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:245 _fwd_kernel"}
+
+    def c2048(k, err, launches):
+        """The R-50-C5 readings: the worst error over both C = 2048 checks,
+        the plain time over the timed shape's chunks (bf16)."""
+        return {"c2048": {**tm_c[k], "max_abs_err": err,
+                          "plain_ms": plain_c.get(k), "launches": launches}}
+
     kernels = [
         {"name": "roi_pool_fwd", **fwd_src, "launches": eval_fwd,
          "max_abs_err": fwd_err["eval"], **tm["fwd"], "library_ms": None,
-         "library_note": no_lib},
+         "library_note": no_lib,
+         **c2048("fwd", max(fwd_err_c["eval"], err_c["eval"]), r50_eval)},
         {"name": "roi_pool_fwd[argmax]", **fwd_src, "launches": train_fwd,
          "max_abs_err": fwd_err["argmax"], **tm["fwd_argmax"],
-         "library_ms": None, "library_note": no_lib},
+         "library_ms": None, "library_note": no_lib,
+         **c2048("fwd_argmax", max(fwd_err_c["argmax"], err_c["argmax"]),
+                 r50_fwd)},
         {"name": "roi_pool_bwd", "route": "cuda",
          "source": src + "roi_pool_bwd.cu",
          "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:292 _bwd_kernel",
          "launches": train_bwd, "max_abs_err": bwd_err, **tm["bwd"],
          "library_note": ("torch.zeros f32, one index_add_ of g at the cells "
                           "decoded from the stored argmax (indices built "
-                          "outside the timing), then .to(bf16)")}] + stages
+                          "outside the timing), then .to(bf16)"),
+         **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd)}] + stages
+    print("[summary] " + "; ".join(SUMMARY))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Write synthetic VOC-layout test and trainval splits and their proposal
-pickles.
+pickles, and synthetic Caffe2 detectron ResNet weights.
 
 The same layout and generator as ``tools/make_synthetic_voc.py``:
 ``<out>/voc/VOC2007/{JPEGImages,Annotations,ImageSets/Main}`` plus
@@ -12,6 +12,11 @@ small test sets and VOC-sized runs.
 
     python -m odwscl_tpu_torch.data.synthetic --out DIR [--n-test N]
         [--n-trainval N ...]
+
+``detectron_resnet_blobs`` makes the blobs of a detectron ImageNet ResNet
+``.pkl`` (the layout ``utils/weight_import.py:import_detectron_resnet``
+reads) with random values at trained-network scales, so that a warm start
+from them trains without overflowing.
 """
 
 from __future__ import annotations
@@ -119,6 +124,53 @@ def write_synthetic_voc(out: str, n_test: int = 4, seed: int = 0,
         os.makedirs(os.path.dirname(path), exist_ok=True)
         write_proposal_pickle(path, boxes, img_ids)
     return out
+
+
+def detectron_resnet_blobs(depth: str = "R-50", stages_out: int = 5,
+                           seed: int = 0) -> dict:
+    """{Caffe2 blob name: f32 array} for every conv and norm of the port's
+    ``ResNetBackbone(depth, stages_out)``: ``conv1_w``,
+    ``res_conv1_bn_{s,b}``, ``res{S}_{B}_branch{1,2a,2b,2c}_w`` and their
+    ``_bn_{s,b}``. Convs are Kaiming-normal (fan-out); norm biases are
+    uniform in [-0.1, 0.1), norm scales in [0.5, 1.5) except on each
+    block's residual branch's last norm, [0.05, 0.25), so that the
+    activations stay bounded through the blocks as a trained network's
+    do."""
+    import torch
+
+    from ..models.resnet import ResNetBackbone
+    from ..utils.weight_import import _BRANCHES
+
+    branch = {}
+    for br, (conv, bn) in _BRANCHES.items():
+        branch[conv], branch[bn] = br, br + "_bn"
+    with torch.device("meta"):
+        backbone = ResNetBackbone(depth, stages_out)
+    last = "branch2b_bn" if depth == "R-18" else "branch2c_bn"
+    rng = np.random.default_rng(seed)
+    blobs = {}
+    for key, t in backbone.state_dict().items():
+        mod, leaf = key.rsplit(".", 1)
+        if leaf in ("mean", "var"):
+            continue
+        if mod in ("stem_conv", "stem_bn"):
+            name = "conv1" if mod == "stem_conv" else "res_conv1_bn"
+        else:
+            layer, sub = mod.split(".")
+            stage, block = layer[len("layer"):].split("_")
+            name = f"res{int(stage) + 1}_{block}_{branch[sub]}"
+        shape = tuple(t.shape)
+        if leaf == "weight":
+            fan_out = shape[0] * shape[2] * shape[3]
+            v = rng.standard_normal(shape, np.float32) * (2.0 / fan_out) ** 0.5
+        elif leaf == "scale":
+            v = rng.uniform(*((0.05, 0.25) if name.endswith(last)
+                              else (0.5, 1.5)), shape)
+        else:
+            v = rng.uniform(-0.1, 0.1, shape)
+        blobs[name + {"weight": "_w", "scale": "_s", "bias": "_b"}[leaf]] = \
+            np.asarray(v, np.float32)
+    return blobs
 
 
 def main(argv=None):

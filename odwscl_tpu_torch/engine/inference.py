@@ -1,23 +1,31 @@
 """Inference engine: per-image detection with multi-transform TTA.
 
-Counterpart of ``odwscl_tpu/engine/inference.py``, host-resize path. Each
-TTA scale is resized on the host with PIL and collated; its h-flip twin is
-derived on the device (``_flip_batch``: mirroring the valid region of the
-normalized image commutes with the pixelwise normalization). Every
-(scale, flip) forward runs the same model; its boxes are unflipped and
-rescaled to the identity transform's frame, then merged by AVG (mean of
+Counterpart of ``odwscl_tpu/engine/inference.py``. Two ways to make each
+TTA scale:
+- the host path (default): each scale is resized on the host with PIL and
+  collated, and a worker thread prepares the next scale while the device
+  runs the current one;
+- ``TPU.EVAL_DEVICE_RESIZE True``: the normalized original images are
+  uploaded once per batch (as bf16 when ``TPU.EVAL_TRANSFER_BF16`` and the
+  model computes in bf16) and every scale is resized on the device
+  (``ops/device_resize.py``); a worker thread prepares the next batch's
+  upload.
+Either way each scale's h-flip twin is derived on the device
+(``_flip_batch``: mirroring the valid region of the normalized image
+commutes with the pixelwise normalization). Every (scale, flip) forward
+runs the same model; its boxes are unflipped and rescaled to the identity
+transform's frame, then merged in the transforms' order by AVG (mean of
 scores and boxes, the shipped default) or UNION (concatenation). One
-per-class NMS pass finishes each batch. A worker thread prepares the next
-scale while the device runs the current one.
+per-class NMS pass finishes each batch.
 
-Not ported here: the int8 calibration, the device-resize serving path
-(``TPU.EVAL_DEVICE_RESIZE``) and the multi-process gather.
+Not ported here: the int8 calibration and the multi-process gather.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as futures
 import logging
+import math
 import os
 import pickle
 import time
@@ -27,9 +35,11 @@ import numpy as np
 import torch
 
 from ..data.collate import collator_from_cfg
-from ..data.transforms import EvalTransform, Sample, get_resize_size
+from ..data.transforms import (EvalTransform, Sample, get_resize_size,
+                               normalize, to_array)
 from ..evaluation.voc_eval import do_corloc_evaluation, do_voc_evaluation
 from ..models.detector import Batch
+from ..ops.device_resize import resize_image_batch, scale_boxes_batch
 from ..utils.device import resolve_device
 from .postprocess import (detections_to_host, finalize_detections_device,
                           resize_detections)
@@ -136,8 +146,9 @@ class Inferencer:
     """Runs eval forwards (with TTA) and post-processing for one model.
 
     ``timings`` accumulates wall seconds per stage: ``prep_wait_s`` (the
-    device loop waiting on host resize + collate + upload), ``forward_s``
-    (forwards, flips and the merge, synchronized per batch) and
+    device loop waiting on host resize + collate + upload, or with
+    ``TPU.EVAL_DEVICE_RESIZE`` on the base upload), ``forward_s``
+    (resizes, forwards, flips and the merge, synchronized per batch) and
     ``finalize_s`` (per-class NMS, top-K and the transfer to the host).
     """
 
@@ -149,6 +160,12 @@ class Inferencer:
         self.score_thresh = cfg.MODEL.ROI_HEADS.SCORE_THRESH
         self.det_per_img = cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
         self.collator = collator_from_cfg(cfg)
+        self.device_resize = bool(cfg.TPU.EVAL_DEVICE_RESIZE)
+        self._pad_multiple = cfg.TPU.IMAGE_PAD_MULTIPLE
+        # exact: the backbone casts the images to bf16 at its first conv
+        self._base_dtype = (torch.bfloat16 if cfg.TPU.EVAL_TRANSFER_BF16
+                            and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+                            else torch.float32)
         self.timings = {"prep_wait_s": 0.0, "forward_s": 0.0,
                         "finalize_s": 0.0}
         self.n_forwards = 0
@@ -179,10 +196,50 @@ class Inferencer:
                 self.timings["prep_wait_s"] += time.perf_counter() - t0
                 yield item
 
-    def predict_samples(self, samples: List[Sample]
+    def prep_base(self, samples):
+        """The device-resize path's one upload per batch: the normalized
+        original images collated (zero padded), with the original rois, and
+        their (h, w) sizes."""
+        base = self.collator([normalize(to_array(s), self.tta.pixel_mean,
+                                        self.tta.pixel_std,
+                                        self.tta.to_bgr255)
+                              for s in samples])
+        base = base.replace(images=base.images.to(self._base_dtype))
+        in_hw = torch.tensor([[s.size[1], s.size[0]] for s in samples],
+                             dtype=torch.float32)
+        return base.to(self.device), in_hw.to(self.device)
+
+    def _scale_targets(self, tr, samples):
+        """Each image's (h, w) target at one TTA scale, and the padded
+        canvas by the collator's rounding."""
+        tgt = torch.tensor([get_resize_size(s.size, tr.min_size, tr.max_size)
+                            for s in samples], dtype=torch.float32)
+        m = self._pad_multiple
+        canvas = (int(math.ceil(tgt[:, 0].max().item() / m) * m),
+                  int(math.ceil(tgt[:, 1].max().item() / m) * m))
+        return tgt.to(self.device), canvas
+
+    def _device_resize_batches(self, groups, samples, prepped):
+        """(batch, sizes (w, h)) per TTA group, each scale resized on the
+        device from the one base upload."""
+        t0 = time.perf_counter()
+        base, in_hw = (self.prep_base(samples) if prepped is None
+                       else prepped.result())
+        self.timings["prep_wait_s"] += time.perf_counter() - t0
+        for tr, _ in groups:
+            tgt, canvas = self._scale_targets(tr, samples)
+            batch = base.replace(
+                images=resize_image_batch(base.images, in_hw, tgt, canvas),
+                boxes=scale_boxes_batch(base.boxes, in_hw, tgt),
+                image_sizes=tgt)
+            yield batch, tgt.flip(1)
+
+    def predict_samples(self, samples: List[Sample],
+                        prepped: Optional[futures.Future] = None
                         ) -> List[Dict[str, np.ndarray]]:
         """samples: untransformed Samples with rois -> final per-image
-        detections in the first (identity) transform's frame."""
+        detections in the first (identity) transform's frame. ``prepped``:
+        a future of ``prep_base(samples)`` for the device-resize path."""
         if not self.tta.enabled:
             return self.predict_batch(self.collator(samples).to(self.device))
         transforms = self.tta.transforms()
@@ -193,8 +250,10 @@ class Inferencer:
         t_i = 0
         t0 = time.perf_counter()
         wait0 = self.timings["prep_wait_s"]
-        for (tr, has_flip), (batch, sizes) in zip(
-                groups, self._host_prep_batches(groups, samples)):
+        batches = (self._device_resize_batches(groups, samples, prepped)
+                   if self.device_resize
+                   else self._host_prep_batches(groups, samples))
+        for (tr, has_flip), (batch, sizes) in zip(groups, batches):
             per_group = [(self.forward_batch(batch), tr.flip)]
             if has_flip:
                 per_group.append((self.forward_batch(_flip_batch(batch)),
@@ -249,6 +308,20 @@ class Inferencer:
         return dets
 
 
+def _lookahead(items, pool, prep):
+    """Each (batch, samples, idxs) with a future of ``prep(samples)``,
+    submitted one item ahead so that the next batch's preparation overlaps
+    this one's device work."""
+    prev = None
+    for item in items:
+        fut = pool.submit(prep, item[1])
+        if prev is not None:
+            yield prev
+        prev = (*item, fut)
+    if prev is not None:
+        yield prev
+
+
 def inference(model, cfg, eval_loader, dataset, output_folder=None,
               task: str = "det", use_cached: bool = True, device="cuda",
               timing_out: Optional[dict] = None):
@@ -270,33 +343,44 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
     else:
         inferencer = Inferencer(model, cfg, device)
         tr0 = inferencer.tta.transforms()[0]
+        prefetch = cfg.TEST.BBOX_AUG.ENABLED and inferencer.device_resize
         predictions = {}
         n_images, load_wait = 0, 0.0
+
+        def loader_items():
+            nonlocal load_wait
+            it = iter(eval_loader)
+            while True:
+                tl = time.perf_counter()
+                item = next(it, None)
+                load_wait += time.perf_counter() - tl
+                if item is None:
+                    return
+                yield item
+
         t0 = time.perf_counter()
-        it = iter(eval_loader)
-        while True:
-            tl = time.perf_counter()
-            item = next(it, None)
-            load_wait += time.perf_counter() - tl
-            if item is None:
-                break
-            batch, samples, idxs = item
-            if cfg.TEST.BBOX_AUG.ENABLED:
-                dets = inferencer.predict_samples(samples)
-            else:
-                dets = inferencer.predict_batch(batch.to(inferencer.device))
-            for d, s, idx in zip(dets, samples, idxs):
+        with futures.ThreadPoolExecutor(1) as pool:
+            items = (_lookahead(loader_items(), pool, inferencer.prep_base)
+                     if prefetch else ((*item, None)
+                                       for item in loader_items()))
+            for batch, samples, idxs, prepped in items:
                 if cfg.TEST.BBOX_AUG.ENABLED:
-                    # identity frame -> original frame (the resize rule)
-                    oh, ow = get_resize_size(s.size, tr0.min_size,
-                                             tr0.max_size)
-                    from_wh = (ow, oh)
+                    dets = inferencer.predict_samples(samples, prepped)
                 else:
-                    from_wh = s.size
-                info = dataset.get_img_info(int(idx))
-                predictions[int(idx)] = resize_detections(
-                    d, from_wh, (info["width"], info["height"]))
-            n_images += len(samples)
+                    dets = inferencer.predict_batch(
+                        batch.to(inferencer.device))
+                for d, s, idx in zip(dets, samples, idxs):
+                    if cfg.TEST.BBOX_AUG.ENABLED:
+                        # identity frame -> original frame (the resize rule)
+                        oh, ow = get_resize_size(s.size, tr0.min_size,
+                                                 tr0.max_size)
+                        from_wh = (ow, oh)
+                    else:
+                        from_wh = s.size
+                    info = dataset.get_img_info(int(idx))
+                    predictions[int(idx)] = resize_detections(
+                        d, from_wh, (info["width"], info["height"]))
+                n_images += len(samples)
         wall = time.perf_counter() - t0
         logger.info("Inference: %d images in %.1fs (%.4f s/img)", n_images,
                     wall, wall / max(n_images, 1))

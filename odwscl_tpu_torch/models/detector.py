@@ -4,7 +4,9 @@ Counterpart of ``odwscl_tpu/models/detector.py`` (``Batch``,
 ``WSODDetector.pool`` / ``eval_forward`` / ``train_forward``,
 ``detector_from_cfg``). ``train_forward`` covers the main configuration:
 MIST heads, DropBlock view, contrastive mining (``SOLVER.CONTRA``) with
-SupCon and ``od_layer`` pseudo-labels.
+SupCon and ``od_layer`` pseudo-labels. Backbones: VGG16 (``VGG16-OICR``,
+stride 8) and ResNet (``R-{18,50,101}-C{4,5}``, stride 16, with the
+``ResNetRoINeck`` 7*7*C -> 2048 -> ``mlp_dim``).
 
 Static padded layout as in the JAX package: images [B, H, W, 3] NHWC,
 proposals [B, P, 4] with a [B, P] mask.
@@ -26,8 +28,9 @@ from ..ops.dropblock import dropblock_2d, noise_augment
 from ..ops.roi_pool import RoIPoolFunction
 from ..structures.boxes import clip_to_image, decode_boxes
 from .predictors import MISTPredictor
+from .resnet import ResNetBackbone, ResNetRoINeck
 from .sim_net import SimNet
-from .vgg16 import FREEZE_CONV_COUNTS, VGGBackbone, VGGRoINeck
+from .vgg16 import VGGBackbone, VGGRoINeck
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -72,11 +75,11 @@ class WSODDetector(nn.Module):
                  temperature: float = 0.2, loss_type: str = "supconv2",
                  fg_iou: float = 0.5, cap_a: int = 768, cap_b: int = 256,
                  gt_cap: int = 128, neck_dropout: float = 0.5,
-                 freeze_convs: int = 4):
+                 freeze_at: int = 2):
+        """``freeze_at`` is ``FREEZE_CONV_BODY_AT``; each backbone reads it
+        (VGG: the first ``FREEZE_CONV_COUNTS[at - 1]`` convolutions;
+        ResNet: the stem and layer1 when it is > 0)."""
         super().__init__()
-        if not backbone_arch.startswith("VGG16"):
-            raise NotImplementedError(f"backbone {backbone_arch!r} is not "
-                                      "ported yet (VGG16 only)")
         if predictor != "MISTPredictor":
             raise NotImplementedError(f"predictor {predictor!r} is not "
                                       "ported yet (MISTPredictor only)")
@@ -100,9 +103,19 @@ class WSODDetector(nn.Module):
         self.cap_a, self.cap_b, self.gt_cap = cap_a, cap_b, gt_cap
         dtype = _DTYPES[compute_dtype]
         self.compute_dtype = dtype
-        self.backbone = VGGBackbone(backbone_arch, dtype, freeze_convs)
-        self.neck = VGGRoINeck(512 * pooler_resolution ** 2, mlp_dim, dtype,
-                               neck_dropout)
+        if backbone_arch.startswith("VGG16"):
+            self.backbone = VGGBackbone(backbone_arch, dtype, freeze_at)
+            self.neck = VGGRoINeck(512 * pooler_resolution ** 2, mlp_dim,
+                                   dtype, neck_dropout)
+        elif backbone_arch.startswith("R-"):
+            depth = "-".join(backbone_arch.split("-")[:2])
+            stages_out = 5 if backbone_arch.endswith("C5") else 4
+            self.backbone = ResNetBackbone(depth, stages_out, dtype, freeze_at)
+            self.neck = ResNetRoINeck(
+                self.backbone.out_channels * pooler_resolution ** 2, 2048,
+                mlp_dim, dtype, neck_dropout)
+        else:
+            raise ValueError(f"unknown backbone {backbone_arch!r}")
         self.sim_net = SimNet(mlp_dim, compute_dtype=dtype)
         self.pred = MISTPredictor(mlp_dim, num_classes, num_refs,
                                   cls_agnostic_bbox_reg, dtype)
@@ -280,14 +293,6 @@ class WSODDetector(nn.Module):
         return losses, metrics
 
 
-def _freeze_count(cfg) -> int:
-    """FREEZE_CONV_BODY_AT -> the number of frozen convolutions."""
-    at = cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT
-    if at <= 0 or not cfg.MODEL.BACKBONE.CONV_BODY.startswith("VGG"):
-        return 0
-    return FREEZE_CONV_COUNTS[at - 1]
-
-
 def detector_from_cfg(cfg) -> WSODDetector:
     """Build the detector from a CfgNode. As in the JAX package, ``gt_cap``
     (128), ``neck_dropout`` (0.5) and ``db_prob`` (0.3) have no config key
@@ -320,5 +325,5 @@ def detector_from_cfg(cfg) -> WSODDetector:
         fg_iou=cfg.MODEL.ROI_HEADS.FG_IOU_THRESHOLD,
         cap_a=cfg.TPU.BANK_CAPACITY,
         cap_b=max(cfg.TPU.BANK_CAPACITY // 4, 64),
-        freeze_convs=_freeze_count(cfg),
+        freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
     )

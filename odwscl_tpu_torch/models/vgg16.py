@@ -4,7 +4,8 @@ Counterpart of ``odwscl_tpu/models/vgg16.py``. The OICR variant drops pool4
 and dilates conv5 by 2 (pad 2), so the output stride is 8 with 512
 channels, and the final ReLU is stripped.
 
-Training: the first ``freeze_convs`` convolutions are frozen with
+Training: ``freeze_at`` (``FREEZE_CONV_BODY_AT``) > 0 freezes the first
+``FREEZE_CONV_COUNTS[freeze_at - 1]`` convolutions with
 ``requires_grad_(False)``, so autograd never reaches them (the JAX
 package's ``stop_gradient`` at the freeze boundary). The neck's dropout
 takes explicit keep masks, one row per RoI, so that a recompute of some
@@ -49,7 +50,7 @@ class VGGBackbone(nn.Module):
 
     def __init__(self, arch: str = "VGG16-OICR",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 freeze_convs: int = 0):
+                 freeze_at: int = 0):
         super().__init__()
         self.arch = arch
         self.compute_dtype = compute_dtype
@@ -67,7 +68,8 @@ class VGGBackbone(nn.Module):
             self._layers.append((i, 2 if dilated else 1))
             cin, i = ch, i + 1
         self.num_convs = i
-        for k in range(freeze_convs):
+        for k in range(FREEZE_CONV_COUNTS[freeze_at - 1] if freeze_at > 0
+                       else 0):
             getattr(self, f"conv{k}").requires_grad_(False)
 
     @torch.no_grad()
@@ -99,26 +101,28 @@ class VGGBackbone(nn.Module):
 
 class VGGRoINeck(nn.Module):
     """fc6/fc7 over pooled rois flattened in (h, w, c) order: [N, 7, 7, C]
-    -> [N, hidden]. Dropout applies only where keep masks are given."""
+    -> [N, hidden]. Dropout applies only where keep masks are given.
+    ``mid_dim`` (default ``hidden_dim``) is fc6's width."""
 
     def __init__(self, in_dim: int = 512 * 7 * 7, hidden_dim: int = 4096,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, mid_dim: Optional[int] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.dropout_rate = dropout_rate
-        self.fc6 = nn.Linear(in_dim, hidden_dim)
-        self.fc7 = nn.Linear(hidden_dim, hidden_dim)
+        mid_dim = mid_dim or hidden_dim
+        self.fc6 = nn.Linear(in_dim, mid_dim)
+        self.fc7 = nn.Linear(mid_dim, hidden_dim)
 
     def draw_keep(self, n: int, generator: torch.Generator, device
                   ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-        """Train-mode keep masks of fc6 and fc7 for n rows ([n, hidden]
-        bool each), or None when the dropout rate is 0."""
+        """Train-mode keep masks of fc6 and fc7 for n rows ([n, width of
+        the layer] bool each), or None when the dropout rate is 0."""
         if self.dropout_rate == 0.0:
             return None
-        shape = (n, self.fc7.out_features)
-        return tuple(torch.rand(shape, generator=generator, device=device)
-                     >= self.dropout_rate for _ in range(2))
+        return tuple(torch.rand((n, fc.out_features), generator=generator,
+                                device=device) >= self.dropout_rate
+                     for fc in (self.fc6, self.fc7))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -1,13 +1,15 @@
 """Evaluation CLI of the port, with ``tools/test_net.py``'s surface.
 
     python -m odwscl_tpu_torch.tools.test_net --config-file CFG \
-        [--weights W.pt|W.npz] [--task det|corloc] [--data-root DIR] \
-        [--device cuda|cpu] [KEY VALUE ...]
+        [--weights W.pt|W.npz|W.pth] [--task det|corloc] \
+        [--data-root DIR] [--device cuda|cpu] [KEY VALUE ...]
 
 ``--weights`` takes a port ``.pt`` (a state_dict or a training checkpoint
-of ``tools/train_net.py``) or an ``.npz`` of the JAX package's flax params (``/``-joined keys; utils/from_jax.py). Without
-weights the model is a seeded random init (``cfg.SEED``) and a warning is
-logged. Results go to ``OUTPUT_DIR/inference/<dataset>/``. Needs Pillow.
+of ``tools/train_net.py``), an ``.npz`` of the JAX package's flax params
+(``/``-joined keys; utils/from_jax.py) or a trained reference OD-WSCL
+``.pth`` (``import_reference_checkpoint``, VGG16). Without weights the
+model is a seeded random init (``cfg.SEED``) and a warning is logged.
+Results go to ``OUTPUT_DIR/inference/<dataset>/``. Needs Pillow.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ def build_parser() -> argparse.ArgumentParser:
                                      "(PyTorch port)")
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--weights", default=None,
-                        help="port .pt (state_dict or training checkpoint) "
-                             "or flax-params .npz")
+                        help="port .pt (state_dict or training checkpoint), "
+                             "flax-params .npz or reference .pth")
     parser.add_argument("--task", default="det", choices=["det", "corloc"])
     parser.add_argument("--data-root", default="datasets")
     parser.add_argument("--device", default="cuda")
@@ -39,6 +41,8 @@ def load_model(cfg, weights=None):
     from odwscl_tpu_torch.models.detector import detector_from_cfg
     from odwscl_tpu_torch.utils.checkpoint import load_model_weights
     from odwscl_tpu_torch.utils.from_jax import state_dict_from_jax
+    from odwscl_tpu_torch.utils.weight_import import \
+        import_reference_checkpoint
 
     model = detector_from_cfg(cfg)
     if weights is None:
@@ -47,6 +51,10 @@ def load_model(cfg, weights=None):
         model.reset_parameters(torch.Generator().manual_seed(cfg.SEED))
     elif weights.endswith(".npz"):
         model.load_state_dict(state_dict_from_jax(weights))
+    elif weights.endswith(".pth"):
+        model.reset_parameters(torch.Generator().manual_seed(cfg.SEED))
+        model.load_state_dict(import_reference_checkpoint(
+            model.state_dict(), weights))
     else:
         model.load_state_dict(load_model_weights(weights))
     return model

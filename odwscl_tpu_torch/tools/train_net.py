@@ -7,10 +7,14 @@
 The paper's flags (``--nms``, ``--lmda``, ``--iou``, ``--temp``,
 ``--thres``, ``--loss``, ...) set the config keys of the same lowercase
 names. Training resumes from ``OUTPUT_DIR/last_checkpoint`` when there is
-one; otherwise ``MODEL.WEIGHT`` names the warm start (a port ``.pt``; it
-raises if the file is missing, and importing the reference's ImageNet
-``.pkl``/``.pth`` weights is not ported yet), and ``MODEL.WEIGHT ""``
-starts from a random init seeded by ``cfg.SEED``. Checkpoints go to
+one; otherwise ``MODEL.WEIGHT`` names the warm start, on top of the
+random init seeded by ``cfg.SEED``: a ``catalog://`` name resolves to
+``<data-root>/weights/<basename of its URL>``; it raises if the file is
+missing. A port ``.pt`` loads as it is; a Caffe2 ``.pkl`` goes to
+``import_detectron_resnet``, a ``.pth`` whose basename lacks "model" to
+``import_vgg16_imagenet`` and any other ``.pth`` to
+``import_reference_checkpoint`` (utils/weight_import.py). ``MODEL.WEIGHT
+""`` keeps the random init. Checkpoints go to
 ``OUTPUT_DIR``; unless ``--skip-test`` the trained model is then evaluated
 as ``tools/test_net.py`` does.
 """
@@ -52,18 +56,30 @@ def update_iters(cfg) -> None:
         cfg.SOLVER.CHECKPOINT_PERIOD *= k
 
 
-def warm_start(cfg, model, data_root: str) -> None:
-    """Load ``cfg.MODEL.WEIGHT`` into the model, or raise."""
+def warm_start(cfg, model, data_root: str) -> str:
+    """Load ``cfg.MODEL.WEIGHT`` into the model, or raise; returns the
+    resolved path. The JAX CLI sends a ``.pkl`` to the reference-checkpoint
+    importer, which cannot read it; here it goes to the Caffe2 importer."""
     from odwscl_tpu_torch.config.catalog import ModelCatalog
+    from odwscl_tpu_torch.utils import weight_import as wi
     from odwscl_tpu_torch.utils.checkpoint import load_model_weights
 
     path = ModelCatalog.resolve_or_fail(cfg.MODEL.WEIGHT,
                                         os.path.join(data_root, "weights"))
-    if not path.endswith(".pt"):
-        raise NotImplementedError(f"MODEL.WEIGHT {path}: importing the "
-                                  "reference's .pkl/.pth weights is not "
-                                  "ported yet (a port .pt is)")
-    model.load_state_dict(load_model_weights(path))
+    if path.endswith(".pt"):
+        model.load_state_dict(load_model_weights(path))
+        return path
+    if path.endswith(".pkl"):
+        importer = wi.import_detectron_resnet
+    elif path.endswith(".pth") and "model" not in os.path.basename(path):
+        importer = wi.import_vgg16_imagenet
+    elif path.endswith(".pth"):
+        importer = wi.import_reference_checkpoint
+    else:
+        raise ValueError(f"MODEL.WEIGHT {path}: expected a .pt, .pkl or "
+                         ".pth file")
+    model.load_state_dict(importer(model.state_dict(), path))
+    return path
 
 
 def main(argv=None, timing_out=None):
@@ -111,8 +127,8 @@ def main(argv=None, timing_out=None):
         start_iter = ckpt.load(model, optimizer, generator)
         logger.info("Resumed at iteration %d", start_iter)
     elif cfg.MODEL.WEIGHT:
-        warm_start(cfg, model, args.data_root)
-        logger.info("Warm-started from %s", cfg.MODEL.WEIGHT)
+        logger.info("Warm-started from %s",
+                    warm_start(cfg, model, args.data_root))
     else:
         logger.warning("MODEL.WEIGHT is empty: training from a random init "
                        "(seed %d)", cfg.SEED)

@@ -2,9 +2,12 @@
 
 The flax tree of ``odwscl_tpu.models.WSODDetector`` is
 ``{backbone: {conv{i}: {kernel, bias}}, neck: {fc6, fc7},
-sim_net: {mlp0, mlp1}, pred: {<head>: {linear: {kernel, bias}}}}``. It is
-taken as nested dicts of numpy arrays (with or without the outer
-``params`` level) or as an ``.npz`` whose keys are the ``/``-joined paths.
+sim_net: {mlp0, mlp1}, pred: {<head>: {linear: {kernel, bias}}}}``; a
+ResNet backbone holds ``stem_conv``, ``stem_bn`` and ``layer{s}_{b}``
+blocks of bias-free convs and ``FrozenBatchNorm`` leaves ``scale``,
+``bias``, ``mean`` and ``var``, which keep their names. It is taken as
+nested dicts of numpy arrays (with or without the outer ``params`` level)
+or as an ``.npz`` whose keys are the ``/``-joined paths.
 
 - conv kernels go from HWIO to OIHW;
 - Dense kernels go from (in, out) to (out, in);
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 _MODULES = ("backbone", "neck", "sim_net", "pred")
+_LEAVES = ("kernel", "bias", "scale", "mean", "var")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -60,7 +64,7 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
         parts = key.split("/")
         if parts[0] == "params":
             parts = parts[1:]
-        if parts[0] not in _MODULES or parts[-1] not in ("kernel", "bias"):
+        if parts[0] not in _MODULES or parts[-1] not in _LEAVES:
             raise KeyError(f"no port parameter for flax leaf {key!r}")
         if parts[0] == "pred":
             if len(parts) != 4 or parts[2] != "linear":

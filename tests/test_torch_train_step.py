@@ -175,7 +175,9 @@ def setup():
 
 
 def _port_model(params, freeze):
-    model = WSODDetector(**KW, freeze_convs=freeze)
+    """``freeze``: the JAX model's frozen-conv count (0 or 4, i.e.
+    FREEZE_CONV_BODY_AT 0 or 2)."""
+    model = WSODDetector(**KW, freeze_at={0: 0, 4: 2}[freeze])
     model.load_state_dict(state_dict_from_jax(params))
     return model
 
