@@ -26,7 +26,9 @@ Phases (any failure ends the run with a non-zero exit code):
    checked as in 2 and 3 on a 1200-scale image, feat [2, 75, 100, 2048],
    P = 256, rois 16-720 px, f32 and bf16; then checked again, f32 and
    bf16, and timed in turns (bf16) at a padded 1200-scale batch, feat
-   [8, 80, 104, 2048], P = 2048, with their byte bounds. At that shape
+   [8, 80, 104, 2048], P = 2048, with their byte bounds and #2's
+   ``index_add_`` yardstick (indices from the stored argmax, int32, built
+   one image at a time), routed as #2. At that shape
    the plain versions run per image on chunks of rois sorted by size
    (they are per roi, so the chunks are exact): both forward
    instantiations and their argmax codes bit-exact against
@@ -48,7 +50,11 @@ Phases (any failure ends the run with a non-zero exit code):
    f32 (TF32 off) on the card and on the CPU with the same seeded weights
    and inputs, then one f32 train step on a small input with the same
    DropBlock and noise draws; compare the outputs, the mining decisions,
-   the losses and the gradients.
+   the losses and the gradients. Then the same train step for each
+   training variant of ``VARIANT_STEPS`` (WSDDN; OICR and MIST OICR_P 0.15
+   without contrastive mining; OICR with it; Concrete DropBlock; CAM
+   proposals), VGG16 at full width; the Concrete DropBlock's step runs
+   again on the card with cuDNN's TF32, and its gap is printed.
 7. Drive the training path: ``odwscl_tpu_torch.tools.train_net`` with
    configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml (VGG16-OICR, bf16, batch
    8, scales 480-1200, random init) for 20 iterations on a synthetic VOC
@@ -74,8 +80,15 @@ Phases (any failure ends the run with a non-zero exit code):
    Caffe2 detectron ``.pkl`` of random blobs where ``MODEL.WEIGHT``'s
    catalog name resolves, train 10 iterations from it as in 7 (the frozen
    stem, layer1 and norms must still hold the file's values), then
-   evaluate the checkpoint in both resize modes as in 8. No path launches
-   a stage kernel.
+   evaluate the checkpoint in both resize modes as in 8.
+10. Drive the main config's training variants at full width, 10 steps
+   each as in 7 (``VARIANTS``): (a) ``DB.METHOD concrete``, whose last
+   update of the Concrete DropBlock must be the ascent +DB.WEIGHT * lr *
+   buf; (b) ``SOLVER.CONTRA False``, ``OICR_P 0.15`` (the MIST layer);
+   (c) ``MODEL.FASTER_RCNN True`` (CAM proposals, the OICR layer), each
+   image given 1 to ``TPU.RPN_POST_NMS`` proposals; (d) OICR and (e)
+   WSDDN heads without regression or mining, each then evaluated with
+   the device-resize TTA as in 8. No path launches a stage kernel.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -383,24 +396,30 @@ def phase_bwd_kernel(dev, rp, cases):
     return worst
 
 
-def argmax_cells(rp, codes, rois, mask, g, hw):
-    """The index_add_ yardstick's inputs, built from the stored argmax:
-    the flat d feat index of every routed cotangent, and the cotangents in
-    f32."""
+def argmax_cells(rp, codes, rois, mask, g, hw, scale=0.125,
+                 index_dtype=None):
+    """The index_add_ yardstick's inputs, built from the stored argmax one
+    image at a time: the flat d feat index of every routed cotangent (in
+    ``index_dtype``, int64 by default), and the cotangents in f32."""
     import torch
 
     b, p, _, _, c = codes.shape
     h, w = hw
-    hs, _, ws, we = rp.roi_bin_edges(rois, 0.125, 7, h, w)
-    off = rp.decode_cells(codes).reshape(b * p, 7, 7, c).long()
-    live = (off != 0xFFFF) & mask.reshape(-1)[:, None, None, None]
-    bw = (we - ws).clamp(min=1)[:, None, :, None]
-    y = hs[:, :, None, None] + off // bw
-    x = ws[:, None, :, None] + off % bw
-    img = torch.arange(b, device=codes.device).repeat_interleave(p)
-    cell = (((img[:, None, None, None] * h + y) * w + x) * c
-            + torch.arange(c, device=codes.device))
-    return cell[live], g.reshape(b * p, 7, 7, c)[live].float()
+    hs, _, ws, we = rp.roi_bin_edges(rois, scale, 7, h, w)
+    chans = torch.arange(c, device=codes.device)
+    cells, vals = [], []
+    for i in range(b):
+        rows = slice(i * p, (i + 1) * p)
+        off = rp.decode_cells(codes[i]).reshape(p, 7, 7, c).long()
+        live = (off != 0xFFFF) & mask[i][:, None, None, None]
+        bw = (we[rows] - ws[rows]).clamp(min=1)[:, None, :, None]
+        y = hs[rows][:, :, None, None] + off // bw
+        x = ws[rows][:, None, :, None] + off % bw
+        cell = ((i * h + y) * w + x) * c + chans
+        cells.append(cell[live].to(index_dtype or torch.long))
+        vals.append(g[i][live].float())
+        del off, live, y, x, cell
+    return torch.cat(cells), torch.cat(vals)
 
 
 def phase_timing(dev, rp):
@@ -491,7 +510,8 @@ def phase_timing(dev, rp):
 def phase_timing_c2048(dev, rp, inputs):
     """#1, #1[argmax] and #2 at the R-50-C5 training shape (``inputs``:
     feat [8, 80, 104, 2048] as bf16, stride 16, P = 2048, rois 16-720 px),
-    timed in turns (3 rounds of 10), with their byte bounds."""
+    and #2's index_add_ yardstick (routed as #2, checked), timed in turns
+    (3 rounds of 10), with their byte bounds."""
     import torch
     from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound, stage_work
     from odwscl_tpu_torch.utils.profiling import MEM_BYTES_PER_S, card_rate
@@ -503,9 +523,25 @@ def phase_timing_c2048(dev, rp, inputs):
     hw = tuple(f.shape[1:3])
     _, codes = rp.roi_pool_argmax(f, r, m, 0.0625)
     g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+    # the d feat map (136M cells) fits int32 indices
+    cells, vals = argmax_cells(rp, codes, r, m, g, hw, 0.0625, torch.int32)
+    n_dfeat = f.numel()
+
+    def yardstick():
+        d = torch.zeros(n_dfeat, dtype=torch.float32, device=dev)
+        d.index_add_(0, cells, vals)
+        return d.to(torch.bfloat16)
+
+    lib_out = yardstick().reshape(f.shape)
+    got = rp.roi_pool_backward(codes, r, m, g, 0.0625, hw)
+    if not torch.equal(got != 0, lib_out != 0):
+        raise AssertionError("roi_pool_bwd and its index_add_ yardstick "
+                             "route differently (c2048)")
+    del lib_out, got
     fns = {"fwd": lambda: rp.roi_pool(f, r, m, 0.0625),
            "fwd_argmax": lambda: rp.roi_pool_argmax(f, r, m, 0.0625),
-           "bwd": lambda: rp.roi_pool_backward(codes, r, m, g, 0.0625, hw)}
+           "bwd": lambda: rp.roi_pool_backward(codes, r, m, g, 0.0625, hw),
+           "bwd_library": yardstick}
     times = {k: [] for k in fns}
     for _ in range(3):
         for k, fn in fns.items():
@@ -519,14 +555,19 @@ def phase_timing_c2048(dev, rp, inputs):
     bounds = {"fwd": (fwd_ms, fwd_by, fwd_bytes),
               "fwd_argmax": (arg_bytes / rate * 1e3, "bytes", arg_bytes),
               "bwd": (bwd_ms, bwd_by, bwd_bytes)}
-    for k in fns:
+    for k in bounds:
         print(f"[c2048] {k} feat {list(f.shape)} bf16 P={r.shape[1]}: "
               f"{ms[k]:.4f} ms ({', '.join(f'{t:.4f}' for t in times[k])}),"
               f" bound {bounds[k][0]:.4f} ms ({bounds[k][1]}, "
               f"{bounds[k][2] / 1e9:.4f} GB)")
+    print(f"[c2048] bwd's index_add_ yardstick: {ms['bwd_library']:.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in times['bwd_library'])}; "
+          f"{cells.numel()} routed cotangents, int32 indices)")
     SUMMARY.append("c2048 ms " + ", ".join(f"{k} {ms[k]:.4f}" for k in fns))
-    return {k: {"ms": ms[k], "bound_ms": bounds[k][0],
-                "bound_by": bounds[k][1]} for k in fns}
+    out = {k: {"ms": ms[k], "bound_ms": bounds[k][0],
+               "bound_by": bounds[k][1]} for k in bounds}
+    out["bwd"]["library_ms"] = ms["bwd_library"]
+    return out
 
 
 def phase_check_c2048(dev, rp, inputs):
@@ -536,7 +577,8 @@ def phase_check_c2048(dev, rp, inputs):
     sorted by their larger side in cells, so that each chunk's padded
     window stays close to its rois' (each roi is pooled on its own, so the
     chunks change no value): both forward instantiations and the argmax
-    codes bit-exact against ``roi_pool_argmax_plain``; the backward kernel,
+    codes bit-exact against ``roi_pool_argmax_plain`` (and, in bf16, #1
+    against ``roi_pool_plain``, which is timed); the backward kernel,
     from the kernel's codes and a strictly positive g, against the f32
     sums of ``roi_pool_backward_argmax_plain`` over the plain codes
     (summed over the chunks, then cast), as ``phase_bwd_kernel`` holds it.
@@ -580,6 +622,12 @@ def phase_check_c2048(dev, rp, inputs):
             ri, mi, gi = r[i:i + 1, idx], m[i:i + 1, idx], g[i:i + 1, idx]
             w_out, w_codes = timed_plain("fwd_argmax", rp.roi_pool_argmax_plain,
                                          f[i:i + 1], ri, mi, scale)
+            if dtype == torch.bfloat16:
+                w_eval = timed_plain("fwd", rp.roi_pool_plain, f[i:i + 1],
+                                     ri, mi, scale)
+                if not torch.equal(got[i, idx], w_eval[0]):
+                    raise AssertionError(f"roi_pool kernel != roi_pool_plain "
+                                         f"(c2048 timed shape, image {i})")
             for name, out in (("eval", got), ("argmax", got_a)):
                 err = (out[i, idx].float() - w_out[0].float()).abs().max()
                 worst[name] = max(worst[name], err.item())
@@ -615,7 +663,9 @@ def phase_check_c2048(dev, rp, inputs):
               f"bound), {int((want != 0).sum())} cells routed; plain over "
               f"{len(chunks)} chunks: argmax forward "
               f"{plain_ms['fwd_argmax']:.1f} ms, backward from the argmax "
-              f"{plain_ms['bwd']:.1f} ms")
+              f"{plain_ms['bwd']:.1f} ms"
+              + (f", eval forward (roi_pool_plain, held equal to #1) "
+                 f"{plain_ms['fwd']:.1f} ms" if "fwd" in plain_ms else ""))
         del f, got, got_a, codes, g, d_got, want, count, err, bound
         torch.cuda.empty_cache()
     return worst, dict(plain_ms)
@@ -712,15 +762,36 @@ def phase_stage_kernels(dev, rp, rs):
     return entries
 
 
-def phase_train_card_vs_cpu(dev, arch="VGG16-OICR"):
+# the new paths' f32 card-vs-CPU steps: (label, WSODDetector keywords)
+VARIANT_STEPS = [
+    ("WSDDN", dict(predictor="WSDDNPredictor", contra=False,
+                   regress_on=False)),
+    ("OICR", dict(predictor="OICRPredictor", contra=False, regress_on=False)),
+    ("MIST OICR_P 0.15", dict(contra=False, oicr_p=0.15)),
+    ("OICR contra", dict(predictor="OICRPredictor", regress_on=False)),
+    ("DB concrete", dict(db_method="concrete")),
+    ("FASTER_RCNN", dict(faster_rcnn=True, contra=False, db_method="none",
+                         rpn_post_nms=128)),
+]
+
+
+def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None, **kw):
     """One f32 train step on the card and on the CPU: same weights, batch
     and draws; neck dropout 0 (its masks come from each device's own
     generator). One positive class per image, so stage B's chain compares
     no rows of other classes (it compares 1.0 with a self-similarity that
-    rounds to either side of 1 with the summation order)."""
+    rounds to either side of 1 with the summation order). ``kw`` selects a
+    training variant (``VARIANT_STEPS``); the watched gradients are the
+    tensors that variant trains. With ``DB.METHOD concrete`` the card's
+    step is then repeated with cuDNN's TF32 (PyTorch's default, which the
+    port keeps for the CDB's convolutions) and its gap to the CPU and the
+    drop decisions that moved are printed. Returns the f32 loss gap."""
     import torch
     from odwscl_tpu_torch.models import Batch
+    from odwscl_tpu_torch.models import cdb as tcdb
+    from odwscl_tpu_torch.models import detector as tdet
 
+    label = label or arch
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -738,7 +809,7 @@ def phase_train_card_vs_cpu(dev, arch="VGG16-OICR"):
     labels[0, 7] = labels[1, 15] = 1.0
     batch = Batch(*(torch.from_numpy(a) for a in (images, sizes, boxes, mask,
                                                   labels)))
-    model = _detector(arch, neck_dropout=0.0, cap_a=1024, cap_b=256)
+    model = _detector(arch, neck_dropout=0.0, cap_a=1024, cap_b=256, **kw)
     with torch.no_grad():
         for name, _ in model.pred.heads:
             if not name.startswith("bbox_pred"):
@@ -748,51 +819,115 @@ def phase_train_card_vs_cpu(dev, arch="VGG16-OICR"):
              "sim_drop": torch.from_numpy(rng.uniform(
                  size=(1024, 7, 7)).astype(np.float32)),
              "noise": torch.from_numpy(rng.randn(1024, 7, 7, 512).astype(
-                 np.float32))}
-    watch = ("neck.fc7.weight", "pred.ref1.weight", "pred.bbox_pred1.weight",
-             "pred.cls_score.weight", "sim_net.mlp1.weight")
+                 np.float32)),
+             "cdb_gumbel": torch.from_numpy(rng.uniform(
+                 size=(b * p, 7, 7, 2)).astype(np.float32))}
+    heads = [n for n, _ in model.pred.heads]
+    watch = ["neck.fc7.weight", "pred.cls_score.weight"]
+    watch += [f"pred.{n}.weight" for n in ("ref1", "bbox_pred1")
+              if n in heads and (n == "ref1" or model.regress_on)]
+    watch += ["sim_net.mlp1.weight"] if model.contra else []
+    watch += ["cam.cam_conv.weight"] if model.cam is not None else []
+    # the CDB's gradient sums exp(-|d| / tau) over its few unsaturated
+    # gumbel cells: a drift in d moves it by a factor exp(drift / tau),
+    # 100x the drift at tau 0.01, so it is printed, not bounded
+    cdb_watch = ["cdb.conv1.weight"] if model.cdb is not None else []
+    seen = {}
+
+    def record_drops(*args, **kwargs):
+        out = gumbel(*args, **kwargs)
+        seen["drop"] = out[..., 0].detach().cpu()
+        return out
+
+    def record_props(*args, **kwargs):
+        out = cam_props(*args, **kwargs)
+        seen["props"] = (out[0].cpu(), out[1].cpu())
+        return out
+
+    gumbel, cam_props = tcdb.gumbel_softmax, tdet.cam_to_proposals
 
     def step(device):
         model.to(device).zero_grad(set_to_none=True)
         t0 = time.perf_counter()
-        losses, metrics = model.train_forward(
-            batch.to(device), draws={k: v.to(device) for k, v in
-                                     draws.items()})
+        tcdb.gumbel_softmax, tdet.cam_to_proposals = (record_drops,
+                                                      record_props)
+        try:
+            losses, metrics = model.train_forward(
+                batch.to(device), draws={k: v.to(device) for k, v in
+                                         draws.items()})
+        finally:
+            tcdb.gumbel_softmax, tdet.cam_to_proposals = gumbel, cam_props
         torch.stack(list(losses.values())).sum().backward()
         grads = {k: model.get_parameter(k).grad.detach().cpu().clone()
-                 for k in watch}
+                 for k in watch + cdb_watch}
         if not all(torch.isfinite(g).all() for g in grads.values()):
             raise AssertionError(f"non-finite gradients on {device}")
         return ({k: float(v.detach()) for k, v in losses.items()},
                 {k: float(v) for k, v in metrics.items()}, grads,
-                time.perf_counter() - t0)
+                time.perf_counter() - t0, dict(seen))
 
-    l_cpu, m_cpu, g_cpu, t_cpu = step("cpu")
-    l_gpu, m_gpu, g_gpu, t_gpu = step(dev)
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    def grad_gap(g_a, keys):
+        return max([((g_a[k] - g_cpu[k]).abs().max()
+                     / g_cpu[k].abs().max().clamp(min=1e-12)).item()
+                    for k in keys] or [0.0])
+
+    def gaps(l_a, g_a):
+        loss_err = max(abs(l_a[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
+                       for k in l_cpu)
+        return loss_err, grad_gap(g_a, watch)
+
+    try:
+        l_cpu, m_cpu, g_cpu, t_cpu, s_cpu = step("cpu")
+        l_gpu, m_gpu, g_gpu, t_gpu, s_gpu = step(dev)
+        if model.cdb is not None:
+            torch.backends.cudnn.allow_tf32 = True
+            l_tf, _, g_tf, _, s_tf = step(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
     ints = [k for k in m_cpu if k.startswith(("n_", "bank_", "pgt_"))]
     bad = [k for k in ints if m_cpu[k] != m_gpu[k]]
     if bad:
-        raise AssertionError(f"mining decisions differ card vs CPU: "
+        raise AssertionError(f"{label}: mining decisions differ card vs CPU: "
                              f"{[(k, m_cpu[k], m_gpu[k]) for k in bad]}")
-    loss_err = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
-                   for k in l_cpu)
-    grad_err = max(((g_gpu[k] - g_cpu[k]).abs().max()
-                    / g_cpu[k].abs().max().clamp(min=1e-12)).item()
-                   for k in watch)
+    loss_err, grad_err = gaps(l_gpu, g_gpu)
     if not all(math.isfinite(v) for v in l_gpu.values()):
         raise AssertionError(f"non-finite train losses on the card: {l_gpu}")
-    print(f"[train] {arch} f32 train step card vs CPU, B={b} {h}x{w} "
-          f"P={p}: mining "
-          f"decisions equal ({', '.join(f'{k} {m_cpu[k]:g}' for k in ints)});"
-          f" max loss rel diff {loss_err:.3e} (tol {TRAIN_LOSS_RTOL}), max "
-          f"grad diff {grad_err:.3e} of the largest (tol {TRAIN_GRAD_REL}, "
-          f"{len(watch)} tensors); CPU {t_cpu:.2f} s, card {t_gpu:.2f} s "
-          "(first call)")
-    if m_cpu["n_bank"] == 0 or m_cpu["n_mined"] == 0:
+    extra = ""
+    if cdb_watch:
+        moved = int(((s_gpu["drop"] > 0.5) != (s_cpu["drop"] > 0.5)).sum())
+        extra = (f"; drop decisions that moved {moved} of "
+                 f"{s_cpu['drop'].numel()}; CDB conv1 grad diff "
+                 f"{grad_gap(g_gpu, cdb_watch):.3e} of the largest "
+                 "(unbounded)")
+    if "props" in s_cpu:
+        (bc, mc), (bg, mg) = s_cpu["props"], s_gpu["props"]
+        same = int(((bc == bg).all(-1) & mc & mg).sum())
+        extra = (f"; CAM proposals {int(mc.sum())} (CPU) / {int(mg.sum())} "
+                 f"(card), {same} identical in place")
+    print(f"[train] {label} f32 train step card vs CPU, B={b} {h}x{w} "
+          f"P={p}: integer decisions equal ("
+          f"{', '.join(f'{k} {m_cpu[k]:g}' for k in ints)}); losses "
+          f"{sorted(l_cpu)}; max loss rel diff {loss_err:.3e} (tol "
+          f"{TRAIN_LOSS_RTOL}), max grad diff {grad_err:.3e} of the largest "
+          f"(tol {TRAIN_GRAD_REL}, {len(watch)} tensors){extra}; CPU "
+          f"{t_cpu:.2f} s, card {t_gpu:.2f} s (first call)")
+    if model.contra and (m_cpu["n_bank"] == 0 or m_cpu["n_mined"] == 0):
         raise AssertionError("the mining found nothing to compare")
     if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_REL:
-        raise AssertionError("card and CPU train steps disagree")
+        raise AssertionError(f"{label}: card and CPU train steps disagree")
+    if model.cdb is not None:
+        moved = int(((s_tf["drop"] > 0.5) != (s_cpu["drop"] > 0.5)).sum())
+        tf_loss, tf_grad = gaps(l_tf, g_tf)
+        print(f"[train] {label} with cuDNN TF32 (the CDB's convolutions as "
+              f"the port runs them) vs the CPU's f32: max loss rel diff "
+              f"{tf_loss:.3e}, max grad diff {tf_grad:.3e}, CDB conv1 grad "
+              f"diff {grad_gap(g_tf, cdb_watch):.3e}; drop decisions "
+              f"that moved {moved} of {s_cpu['drop'].numel()} cells "
+              f"({int((s_cpu['drop'] > 0.5).sum())} dropped on the CPU)")
+        SUMMARY.append(f"CDB TF32 gap: loss {tf_loss:.2e}, {moved} drop "
+                       "cells moved")
+    return loss_err
 
 
 def write_data(tmp, cfg, cfg_r50):
@@ -827,16 +962,17 @@ def write_r50_weights(tmp):
     return blobs
 
 
-def phase_train(rp, tmp, config, steps, label, opts=()):
-    """``train_net`` with ``config`` for ``steps`` iterations; every step
-    must launch the training forward (with the argmax) and the backward
-    once and the eval forward never, and every loss must be finite.
-    Returns the launch counts (fwd[argmax], bwd) and the final
-    checkpoint."""
+def phase_train(rp, tmp, config, steps, label, opts=(), period=None):
+    """``train_net`` with ``config`` for ``steps`` iterations, a checkpoint
+    every ``period`` (default ``steps``) and at the end; every step must
+    launch the training forward (with the argmax) and the backward once
+    and the eval forward never, and every loss must be finite. Returns the
+    launch counts (fwd[argmax], bwd) and the final checkpoint."""
     import torch
     from odwscl_tpu_torch.tools import train_net
 
-    out = os.path.join(tmp, "train_" + label)
+    out = os.path.join(tmp, "train_" + label.replace(" ", "_"))
+    period = period or steps
     timing = {}
     torch.cuda.reset_peak_memory_stats()
     rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
@@ -845,7 +981,7 @@ def phase_train(rp, tmp, config, steps, label, opts=()):
     train_net.main(["--config-file", config, "--data-root", tmp,
                     "--device", "cuda", "--skip-test", "OUTPUT_DIR", out,
                     "SOLVER.MAX_ITER", str(steps),
-                    "SOLVER.CHECKPOINT_PERIOD", str(steps), *opts],
+                    "SOLVER.CHECKPOINT_PERIOD", str(period), *opts],
                    timing_out=timing)
     wall = time.perf_counter() - t0
     launches = (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
@@ -879,14 +1015,151 @@ def phase_train(rp, tmp, config, steps, label, opts=()):
                    f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"[train] {label} losses step 1 -> {steps}: " + ", ".join(
         f"{k} {steps_log[0][k]:.4f} -> {steps_log[-1][k]:.4f}"
-        for k in ("loss", "loss_img", "loss_sim", "loss_ref_cls0")))
+        for k in ("loss", "loss_cam", "loss_img", "loss_sim",
+                  "loss_ref_cls0") if k in steps_log[0]))
     print(f"[train] {label} kernel launches: roi_pool_fwd[argmax] "
           f"{launches[1]}, roi_pool_bwd {launches[2]} = steps {steps}; "
           f"roi_pool_fwd {launches[0]}")
-    for name in (f"model_{steps:07d}.pt", "model_final.pt"):
+    for name in (f"model_{period:07d}.pt", "model_final.pt"):
         if not os.path.exists(os.path.join(out, name)):
             raise AssertionError(f"checkpoint {name} missing")
     return launches[1:], os.path.join(out, "model_final.pt")
+
+
+# the main config's training variants at full width: (label, config
+# overrides, evaluate the checkpoint with the device-resize TTA)
+VARIANTS = [
+    ("concrete", ["DB.METHOD", "concrete"], False),
+    ("mist_p0.15", ["SOLVER.CONTRA", "False",
+                    "MODEL.ROI_WEAK_HEAD.OICR_P", "0.15"], False),
+    ("cam", ["MODEL.FASTER_RCNN", "True", "SOLVER.CONTRA", "False",
+             "DB.METHOD", "none"], False),
+    ("oicr", ["MODEL.ROI_WEAK_HEAD.PREDICTOR", "OICRPredictor",
+              "MODEL.ROI_WEAK_HEAD.REGRESS_ON", "False",
+              "SOLVER.CONTRA", "False"], True),
+    ("wsddn", ["MODEL.ROI_WEAK_HEAD.PREDICTOR", "WSDDNPredictor",
+               "MODEL.ROI_WEAK_HEAD.REGRESS_ON", "False",
+               "SOLVER.CONTRA", "False"], True),
+]
+VARIANT_STEPS_N = 10
+
+
+def check_cdb_ascent(out, steps, cfg):
+    """The last update of the Concrete DropBlock's parameters, between the
+    checkpoints of iterations ``steps - 1`` and ``steps``, against the
+    ascent it must be: +DB.WEIGHT * lr_cdb * lr_factor * buf, with the
+    momentum buffer ``buf`` (weight decay inside) and the count from the
+    final checkpoint's optimizer state, lr_cdb from SOLVER_CDB's schedule.
+    Every element within an ulp of the parameter (plus 1e-5 of the
+    update); returns (elements whose update exceeds 4 ulps, so that a
+    descent would fail them, all elements, largest |update|)."""
+    import torch
+    from odwscl_tpu_torch.solver import warmup_multistep_schedule
+
+    def load(name):
+        return torch.load(os.path.join(out, name), map_location="cpu",
+                          weights_only=True)
+
+    prev, last = load(f"model_{steps - 1:07d}.pt"), load("model_final.pt")
+    opt = last["optimizer"]
+    groups = [g for g in opt["param_groups"] if g["schedule"] == 1]
+    names = [k for k in last["model"] if k.startswith("cdb.")]
+    split = ([n for n in names if n.rsplit(".", 1)[1] not in ("scale",
+                                                             "bias")],
+             [n for n in names if n.rsplit(".", 1)[1] in ("scale", "bias")])
+    sc = cfg.SOLVER_CDB
+    lr = warmup_multistep_schedule(sc.BASE_LR, sc.STEPS, sc.GAMMA,
+                                   sc.WARMUP_FACTOR, sc.WARMUP_ITERS,
+                                   sc.WARMUP_METHOD)(groups[0]["count"])
+    visible = total = 0
+    largest = 0.0
+    for g, gnames in zip(groups, split):
+        if len(g["params"]) != len(gnames) or g["count"] != steps:
+            raise AssertionError(f"CDB group {gnames}: {len(g['params'])} "
+                                 f"params, count {g['count']}")
+        if g["scale"] != -cfg.DB.WEIGHT:
+            raise AssertionError(f"CDB group scale {g['scale']}")
+        for idx, n in zip(g["params"], gnames):
+            buf = opt["state"][idx]["momentum_buffer"].double()
+            want = cfg.DB.WEIGHT * lr * g["lr_factor"] * buf
+            p1 = last["model"][n]
+            moved = p1.double() - prev["model"][n].double()
+            ulp = torch.from_numpy(np.spacing(np.maximum(
+                p1.abs().numpy(), prev["model"][n].abs().numpy()))).double()
+            if ((moved - want).abs() > ulp + 1e-5 * want.abs()).any():
+                err = (moved - want).abs().max().item()
+                raise AssertionError(f"{n}: the last CDB update is not "
+                                     f"+DB.WEIGHT * lr * buf (max |diff| "
+                                     f"{err:.3e})")
+            visible += int((want.abs() > 4 * ulp).sum())
+            total += want.numel()
+            largest = max(largest, want.abs().max().item())
+    if not visible:
+        raise AssertionError("no CDB update exceeds 4 ulps: the ascent "
+                             "check would pass a descent")
+    return visible, total, largest, lr
+
+
+def phase_variants(rp, tmp, cfg):
+    """Train each of ``VARIANTS`` ``VARIANT_STEPS_N`` steps at full width
+    (``phase_train``'s checks: finite losses, #1[argmax] and #2 once per
+    step), the concrete one with a checkpoint one step before the end so
+    that its last CDB update is checked as an ascent; the CAM one with
+    each image's proposal count recorded (between 1 and RPN_POST_NMS);
+    then evaluate the OICR and WSDDN checkpoints with the device-resize
+    TTA (``phase_eval``). Returns {label: {"train": (fwd[argmax], bwd),
+    "eval": fwd launches}}."""
+    import torch
+    from odwscl_tpu_torch.models import detector as tdet
+
+    launches = {}
+    steps = VARIANT_STEPS_N
+    for label, opts, evaluate in VARIANTS:
+        opts = ["MODEL.WEIGHT", "", *opts]
+        counts = []
+        cam_props = tdet.cam_to_proposals
+
+        def record(*args, **kwargs):
+            out = cam_props(*args, **kwargs)
+            counts.append(out[1].sum(-1))
+            return out
+
+        concrete = label == "concrete"
+        tdet.cam_to_proposals = record
+        try:
+            train, ckpt = phase_train(rp, tmp, CONFIG, steps, "VGG16 " + label,
+                                      opts, steps - 1 if concrete else None)
+        finally:
+            tdet.cam_to_proposals = cam_props
+        launches[label] = {"train": train}
+        if concrete:
+            visible, total, largest, lr = check_cdb_ascent(
+                os.path.dirname(ckpt), steps, cfg)
+            print(f"[train] VGG16 concrete: the last CDB update equals "
+                  f"+DB.WEIGHT {cfg.DB.WEIGHT} * lr_cdb {lr:.4e} * "
+                  f"lr_factor * buf on all {total} elements (within an ulp);"
+                  f" {visible} move by more than 4 ulps, largest "
+                  f"{largest:.3e}, so a descent would have failed them")
+            SUMMARY.append(f"CDB ascent: {visible}/{total} elements past "
+                           "4 ulps")
+        if label == "cam":
+            n = torch.stack(counts).cpu()
+            if len(counts) != steps or n.min() < 1 or n.max() > \
+                    cfg.TPU.RPN_POST_NMS:
+                raise AssertionError(f"CAM proposals per image out of [1, "
+                                     f"{cfg.TPU.RPN_POST_NMS}]: {n.tolist()}")
+            print(f"[train] VGG16 cam: CAM proposals per image over "
+                  f"{steps} steps x {n.shape[1]} images: min {int(n.min())},"
+                  f" median {int(n.median())}, max {int(n.max())} (cap "
+                  f"{cfg.TPU.RPN_POST_NMS})")
+            SUMMARY.append(f"CAM proposals per image {int(n.min())}-"
+                           f"{int(n.max())}")
+        if evaluate:
+            launches[label]["eval"] = phase_eval(
+                rp, tmp, CONFIG, ckpt, "VGG16_" + label, [("det", True)],
+                opts)
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    return launches
 
 
 def phase_resize(tmp, config):
@@ -943,7 +1216,7 @@ def phase_resize(tmp, config):
     return worst_px, worst_mean
 
 
-def phase_eval(rp, tmp, config, weights, label, runs):
+def phase_eval(rp, tmp, config, weights, label, runs, opts=()):
     """``test_net`` (14-transform TTA, AVG) with ``config`` on
     ``weights``, once per (task, device resize) of ``runs``. Every forward
     must have gone through the forward kernel without the argmax, and
@@ -958,6 +1231,7 @@ def phase_eval(rp, tmp, config, weights, label, runs):
 
     cfg = get_default_cfg()
     cfg.merge_from_file(config)
+    cfg.merge_from_list(list(opts))
     n_batches = math.ceil(16 / cfg.TEST.IMS_PER_BATCH)
     n_tta = 2 * (1 + len(cfg.TEST.BBOX_AUG.SCALES))
     merged = {}
@@ -982,7 +1256,7 @@ def phase_eval(rp, tmp, config, weights, label, runs):
                 "--device", "cuda", "--weights", weights,
                 "OUTPUT_DIR", os.path.join(tmp, f"{label}_{task}_"
                                                 f"{device_resize}"),
-                "TPU.EVAL_DEVICE_RESIZE", str(device_resize)],
+                "TPU.EVAL_DEVICE_RESIZE", str(device_resize), *opts],
                 timing_out=timing)
             wall = time.perf_counter() - t0
             (t,), (r,) = timing.values(), res.values()
@@ -1070,6 +1344,7 @@ def main():
     from odwscl_tpu_torch.ops import roi_pool_stages as rs
     from odwscl_tpu_torch.utils.profiling import card_name_and_limit
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     print(card_name_and_limit())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1106,6 +1381,12 @@ def main():
         timed(f"eval card vs CPU {arch}", phase_card_vs_cpu, dev, arch)
         timed(f"train card vs CPU {arch}", phase_train_card_vs_cpu, dev,
               arch)
+    variant_gaps = {label: timed(
+        f"train card vs CPU {label}",
+        lambda lb=label, kw=kw: phase_train_card_vs_cpu(dev, label=lb, **kw))
+        for label, kw in VARIANT_STEPS}
+    SUMMARY.append("variants f32 card vs CPU loss gaps " + ", ".join(
+        f"{k} {v:.1e}" for k, v in variant_gaps.items()))
     cfg, cfg_r50 = get_default_cfg(), get_default_cfg()
     cfg.merge_from_file(CONFIG)
     cfg_r50.merge_from_file(CONFIG_R50)
@@ -1136,11 +1417,21 @@ def main():
               "and norms still hold its values exactly")
         r50_eval = timed("R-50-C5 eval", phase_eval, rp, tmp, CONFIG_R50,
                          ckpt, "R-50-C5", [("det", False), ("det", True)])
+        variants = timed("training variants", phase_variants, rp, tmp, cfg)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if any(rs.roi_pool_stage.launches.values()):
         raise AssertionError(f"the train and eval paths launched stage "
                              f"kernels: {rs.roi_pool_stage.launches}")
+    # each path's launches, read right after it ran
+    by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
+                       **{f"{k} eval": v["eval"] for k, v in variants.items()
+                          if "eval" in v}},
+               "fwd_argmax": {"VGG16-OICR": train_fwd, "R-50-C5": r50_fwd,
+                              **{k: v["train"][0]
+                                 for k, v in variants.items()}},
+               "bwd": {"VGG16-OICR": train_bwd, "R-50-C5": r50_bwd,
+                       **{k: v["train"][1] for k, v in variants.items()}}}
 
     src = "odwscl_tpu_torch/csrc/"
     no_lib = ("no single PyTorch call computes ROIPool; torchvision is not "
@@ -1151,15 +1442,17 @@ def main():
     def c2048(k, err, launches):
         """The R-50-C5 readings: the worst error over both C = 2048 checks,
         the plain time over the timed shape's chunks (bf16)."""
-        return {"c2048": {**tm_c[k], "max_abs_err": err,
+        return {"c2048": {"library_ms": None, **tm_c[k], "max_abs_err": err,
                           "plain_ms": plain_c.get(k), "launches": launches}}
 
     kernels = [
         {"name": "roi_pool_fwd", **fwd_src, "launches": eval_fwd,
+         "launches_by_path": by_path["fwd"],
          "max_abs_err": fwd_err["eval"], **tm["fwd"], "library_ms": None,
          "library_note": no_lib,
          **c2048("fwd", max(fwd_err_c["eval"], err_c["eval"]), r50_eval)},
         {"name": "roi_pool_fwd[argmax]", **fwd_src, "launches": train_fwd,
+         "launches_by_path": by_path["fwd_argmax"],
          "max_abs_err": fwd_err["argmax"], **tm["fwd_argmax"],
          "library_ms": None, "library_note": no_lib,
          **c2048("fwd_argmax", max(fwd_err_c["argmax"], err_c["argmax"]),
@@ -1167,11 +1460,13 @@ def main():
         {"name": "roi_pool_bwd", "route": "cuda",
          "source": src + "roi_pool_bwd.cu",
          "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:292 _bwd_kernel",
-         "launches": train_bwd, "max_abs_err": bwd_err, **tm["bwd"],
+         "launches": train_bwd, "launches_by_path": by_path["bwd"],
+         "max_abs_err": bwd_err, **tm["bwd"],
          "library_note": ("torch.zeros f32, one index_add_ of g at the cells "
                           "decoded from the stored argmax (indices built "
                           "outside the timing), then .to(bf16)"),
          **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd)}] + stages
+    SUMMARY.append(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     print("[summary] " + "; ".join(SUMMARY))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
-"""The OD pseudo-label layer, batched.
+"""The OD, OICR and MIST pseudo-label layers, batched.
 
-Counterpart of ``odwscl_tpu/losses/pseudo_labels.py`` (``od_layer`` with
-``_sequential_gt_scan`` and ``_assign``): build a pseudo-GT set per positive
-class (the contrastive miner's set, or the top proposal when that set is
-empty), assign each proposal to its best pseudo-GT by IoU (+1 convention,
-first maximum), background at IoU <= fg_iou, weight = the assigned
-pseudo-GT's score, regression targets by the box coder.
+Counterpart of ``odwscl_tpu/losses/pseudo_labels.py`` (``od_layer``,
+``oicr_layer`` and ``mist_layer`` on ``_sequential_gt_scan`` and
+``_assign``): build a pseudo-GT set per positive class (od: the
+contrastive miner's set, or the top proposal when that set is empty; oicr:
+the top proposal; mist: a diverse subset of the top ``portion`` of the
+proposals), assign each proposal to its best pseudo-GT by IoU (+1
+convention, first maximum), background at IoU <= fg_iou (mist: < fg_iou),
+weight = the assigned pseudo-GT's score, regression targets by the box
+coder.
 
 Kept as in the reference: the per-class row zeroing leaks into later
 classes; the argmaxes take the first maximum; pseudo-GTs are ordered by
 (class asc, score desc, proposal asc) before the IoU argmax, so its ties
-resolve as the reference's concatenation order does.
+resolve as the reference's concatenation order does; MIST's top-k puts
+the lower proposal index first among equal scores, as ``jax.lax.top_k``
+does.
 """
 
 from __future__ import annotations
@@ -112,4 +117,58 @@ def od_layer(boxes: torch.Tensor, box_mask: torch.Tensor,
                                             pgt_instance)
     return _assign(boxes, box_mask, gt_mask, gt_score, fg_iou,
                    bg_strict_less=False, gt_cap=gt_cap,
+                   reg_weights=reg_weights)
+
+
+def oicr_layer(boxes: torch.Tensor, box_mask: torch.Tensor,
+               fg_scores: torch.Tensor, labels_fg: torch.Tensor,
+               fg_iou: float = 0.5, gt_cap: int = 32,
+               reg_weights=(10.0, 10.0, 5.0, 5.0)) -> PseudoLabels:
+    """OICR: the top proposal of each positive class is its pseudo-GT;
+    background where the max IoU <= fg_iou."""
+    gt_mask, gt_score = _sequential_gt_scan(fg_scores, box_mask, labels_fg,
+                                            None)
+    return _assign(boxes, box_mask, gt_mask, gt_score, fg_iou,
+                   bg_strict_less=False, gt_cap=gt_cap,
+                   reg_weights=reg_weights)
+
+
+def mist_layer(boxes: torch.Tensor, box_mask: torch.Tensor,
+               fg_scores: torch.Tensor, labels_fg: torch.Tensor,
+               portion: float = 0.15, iou_div: float = 0.2,
+               fg_iou: float = 0.5, gt_cap: int = 512,
+               reg_weights=(10.0, 10.0, 5.0, 5.0)) -> PseudoLabels:
+    """MIST: per positive class take the top ``portion`` of the image's
+    real proposals and keep each whose IoU to every higher-ranked one is
+    below ``iou_div``; background where the max IoU < fg_iou (strict)."""
+    b, p, c1 = fg_scores.shape
+    k = max(int(p * portion), 1)
+    masked = torch.where(box_mask[:, :, None], fg_scores, float("-inf"))
+    # the per-image k, floor(real proposals * portion): an f32 product (a
+    # Python scalar multiplies an f32 tensor in f32), as the JAX package
+    # takes it
+    num_real = box_mask.sum(dim=-1).to(torch.float32)
+    k_real = torch.floor(num_real * portion).long()
+    # top-k by a stable descending sort: ties keep the lower index first
+    topv, topi = torch.sort(masked.transpose(1, 2), dim=-1, descending=True,
+                            stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]                # [B, C-1, k]
+    ranks = torch.arange(k, device=boxes.device)
+    valid_top = ((ranks < k_real[:, None, None]) & (topv > float("-inf"))
+                 & labels_fg[:, :, None])
+    top_boxes = torch.gather(boxes[:, None].expand(b, c1, p, 4), 2,
+                             topi[..., None].expand(b, c1, k, 4))
+    iou_kk = box_iou(top_boxes, top_boxes)                   # [B,C-1,k,k]
+    lower = torch.ones(k, k, dtype=torch.bool,
+                       device=boxes.device).tril(-1)
+    max_prev = torch.where(lower, iou_kk, -1.0).amax(dim=-1)
+    keep_k = ((max_prev < iou_div) | (ranks == 0)) & valid_top
+    # topi is unique within a class, so a scatter of the ranks is exact
+    gt_mask = torch.zeros((b, c1, p), dtype=torch.bool,
+                          device=boxes.device).scatter_(2, topi, keep_k)
+    gt_score = torch.zeros((b, c1, p), dtype=torch.float32,
+                           device=boxes.device).scatter_(
+        2, topi, torch.where(keep_k, topv.to(torch.float32), 0.0))
+    return _assign(boxes, box_mask, gt_mask, gt_score, fg_iou,
+                   bg_strict_less=True, gt_cap=gt_cap,
                    reg_weights=reg_weights)

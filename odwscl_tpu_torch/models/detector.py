@@ -2,11 +2,16 @@
 
 Counterpart of ``odwscl_tpu/models/detector.py`` (``Batch``,
 ``WSODDetector.pool`` / ``eval_forward`` / ``train_forward``,
-``detector_from_cfg``). ``train_forward`` covers the main configuration:
-MIST heads, DropBlock view, contrastive mining (``SOLVER.CONTRA``) with
-SupCon and ``od_layer`` pseudo-labels. Backbones: VGG16 (``VGG16-OICR``,
-stride 8) and ResNet (``R-{18,50,101}-C{4,5}``, stride 16, with the
-``ResNetRoINeck`` 7*7*C -> 2048 -> ``mlp_dim``).
+``detector_from_cfg``). Predictors: WSDDN, OICR and MIST
+(``MODEL.ROI_WEAK_HEAD.PREDICTOR``). ``train_forward`` covers every WSOD
+recipe but partial labels: the augmented view by DropBlock, Concrete
+DropBlock or none (``DB.METHOD``); contrastive mining with SupCon and
+``od_layer`` pseudo-labels (``SOLVER.CONTRA``), or else the ``oicr_layer``
+(``OICR_P`` 0) or the ``mist_layer`` (``OICR_P`` > 0); WSDDN alone trains
+the MIL loss only; ``MODEL.FASTER_RCNN`` replaces the proposals by CAM
+attention proposals and adds the CAM loss. Backbones: VGG16
+(``VGG16-OICR``, stride 8) and ResNet (``R-{18,50,101}-C{4,5}``, stride
+16, with the ``ResNetRoINeck`` 7*7*C -> 2048 -> ``mlp_dim``).
 
 Static padded layout as in the JAX package: images [B, H, W, 3] NHWC,
 proposals [B, P, 4] with a [B, P] mask.
@@ -20,14 +25,17 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..losses import (assemble_bank, avg_image_accuracy, mil_loss, od_layer,
-                      refinement_cls_loss, refinement_reg_loss, stage_a,
-                      stage_b, supcon_loss, supcon_v2_loss,
-                      wsddn_final_score)
+from ..losses import (assemble_bank, avg_image_accuracy, mil_loss,
+                      mist_layer, od_layer, oicr_layer, refinement_cls_loss,
+                      refinement_reg_loss, stage_a, stage_b, supcon_loss,
+                      supcon_v2_loss, wsddn_final_score)
 from ..ops.dropblock import dropblock_2d, noise_augment
 from ..ops.roi_pool import RoIPoolFunction
 from ..structures.boxes import clip_to_image, decode_boxes
-from .predictors import MISTPredictor
+from .cam import CAMModule
+from .cam_proposals import cam_to_proposals
+from .cdb import ConvConcreteDB
+from .predictors import PREDICTORS
 from .resnet import ResNetBackbone, ResNetRoINeck
 from .sim_net import SimNet
 from .vgg16 import VGGBackbone, VGGRoINeck
@@ -69,8 +77,10 @@ class WSODDetector(nn.Module):
                  compute_dtype: str = "bfloat16",
                  db_method: str = "dropblock", db_size: int = 3,
                  db_prob: float = 0.3, contra: bool = True,
+                 oicr_p: float = 0.0,
                  partial_labels: str = "none",
-                 faster_rcnn: bool = False, p_thres: float = 0.5,
+                 faster_rcnn: bool = False, rpn_post_nms: int = 512,
+                 p_thres: float = 0.5,
                  mining_nms: float = 0.1, lmda: float = 0.1,
                  temperature: float = 0.2, loss_type: str = "supconv2",
                  fg_iou: float = 0.5, cap_a: int = 768, cap_b: int = 256,
@@ -80,14 +90,17 @@ class WSODDetector(nn.Module):
         (VGG: the first ``FREEZE_CONV_COUNTS[at - 1]`` convolutions;
         ResNet: the stem and layer1 when it is > 0)."""
         super().__init__()
-        if predictor != "MISTPredictor":
-            raise NotImplementedError(f"predictor {predictor!r} is not "
-                                      "ported yet (MISTPredictor only)")
+        if predictor not in PREDICTORS:
+            raise ValueError(f"unknown PREDICTOR {predictor!r}")
+        if db_method not in ("none", "dropblock", "concrete"):
+            raise ValueError(f"unknown DB.METHOD {db_method!r} (none, "
+                             "dropblock, concrete)")
         if pooler_method != "ROIPool" or pooler_resolution != 7:
             raise NotImplementedError("only the 7x7 ROIPool pooler is ported")
         if regress_heur not in ("WSDDN", "CLS-AVG", "UNION", "AVG"):
             raise ValueError(f"unknown REGRESS_HEUR {regress_heur!r}")
         self.num_classes = num_classes
+        self.predictor = predictor
         self.pooler_scale = pooler_scale
         self.cls_agnostic_bbox_reg = cls_agnostic_bbox_reg
         self.regress_on = regress_on
@@ -95,8 +108,9 @@ class WSODDetector(nn.Module):
         self.reg_weights = tuple(reg_weights)
         self.num_refs = num_refs
         self.db_method, self.db_size, self.db_prob = db_method, db_size, db_prob
-        self.contra = contra
+        self.contra, self.oicr_p = contra, oicr_p
         self.partial_labels, self.faster_rcnn = partial_labels, faster_rcnn
+        self.rpn_post_nms = rpn_post_nms
         self.p_thres, self.mining_nms = p_thres, mining_nms
         self.lmda, self.temperature = lmda, temperature
         self.loss_type, self.fg_iou = loss_type, fg_iou
@@ -105,26 +119,37 @@ class WSODDetector(nn.Module):
         self.compute_dtype = dtype
         if backbone_arch.startswith("VGG16"):
             self.backbone = VGGBackbone(backbone_arch, dtype, freeze_at)
-            self.neck = VGGRoINeck(512 * pooler_resolution ** 2, mlp_dim,
-                                   dtype, neck_dropout)
+            channels = 512
+            self.neck = VGGRoINeck(channels * pooler_resolution ** 2,
+                                   mlp_dim, dtype, neck_dropout)
         elif backbone_arch.startswith("R-"):
             depth = "-".join(backbone_arch.split("-")[:2])
             stages_out = 5 if backbone_arch.endswith("C5") else 4
             self.backbone = ResNetBackbone(depth, stages_out, dtype, freeze_at)
-            self.neck = ResNetRoINeck(
-                self.backbone.out_channels * pooler_resolution ** 2, 2048,
-                mlp_dim, dtype, neck_dropout)
+            channels = self.backbone.out_channels
+            self.neck = ResNetRoINeck(channels * pooler_resolution ** 2, 2048,
+                                      mlp_dim, dtype, neck_dropout)
         else:
             raise ValueError(f"unknown backbone {backbone_arch!r}")
         self.sim_net = SimNet(mlp_dim, compute_dtype=dtype)
-        self.pred = MISTPredictor(mlp_dim, num_classes, num_refs,
-                                  cls_agnostic_bbox_reg, dtype)
+        kwargs = dict(compute_dtype=dtype)
+        if predictor != "WSDDNPredictor":
+            kwargs["num_refs"] = num_refs
+        if predictor == "MISTPredictor":
+            kwargs["cls_agnostic_bbox_reg"] = cls_agnostic_bbox_reg
+        self.pred = PREDICTORS[predictor](mlp_dim, num_classes, **kwargs)
+        self.cam = (CAMModule(channels, num_classes, dtype) if faster_rcnn
+                    else None)
+        self.cdb = (ConvConcreteDB(channels, db_size)
+                    if db_method == "concrete" else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded random init with the JAX package's distributions."""
-        for m in (self.backbone, self.neck, self.sim_net, self.pred):
-            m.reset_parameters(generator)
+        for m in (self.backbone, self.neck, self.sim_net, self.pred,
+                  self.cam, self.cdb):
+            if m is not None:
+                m.reset_parameters(generator)
 
     def pool(self, feats: torch.Tensor, boxes: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
@@ -138,17 +163,24 @@ class WSODDetector(nn.Module):
         """(scores [B,P,C], boxes) per REGRESS_HEUR: AVG gives decoded
         per-class boxes [B,P,4C] clipped to the image; UNION gives one copy
         per refinement branch ([B,R*P,C], [B,R*P,4C]); WSDDN and CLS-AVG
-        give the raw proposals [B,P,4]."""
+        give the raw proposals [B,P,4]. A WSDDN predictor takes the WSDDN
+        branch whatever REGRESS_HEUR says. Without box deltas (OICR) AVG
+        and UNION raise, unless REGRESS_ON is False (CLS-AVG)."""
         feats = self.backbone(batch.images)
         pooled = self.pool(feats, batch.boxes, batch.box_mask)
         b, p = pooled.shape[:2]
         clean = self.neck(pooled.reshape(b * p, -1)).reshape(b, p, -1)
         cls, det, refs, bbox = self.pred(clean, batch.box_mask)
 
-        if self.regress_heur == "WSDDN":
+        if self.predictor == "WSDDNPredictor" or self.regress_heur == "WSDDN":
             return cls * det, batch.boxes
         if self.regress_heur == "CLS-AVG" or not self.regress_on:
             return torch.stack(refs).mean(dim=0), batch.boxes
+        if bbox is None:
+            raise ValueError(f"REGRESS_HEUR {self.regress_heur} with "
+                             f"REGRESS_ON True needs box deltas, which "
+                             f"{self.predictor} has not: set "
+                             "MODEL.ROI_WEAK_HEAD.REGRESS_ON False")
         if self.regress_heur == "UNION":
             scores = torch.cat(refs, dim=1)                   # [B, RP, C]
             deltas = torch.cat(bbox, dim=1).to(torch.float32)
@@ -177,108 +209,131 @@ class WSODDetector(nn.Module):
         """(losses, metrics) of one training batch, as scalar tensors.
 
         ``generator`` (on the batch's device) draws the dropout masks, the
-        DropBlock centers and the noise. ``draws`` may hand in the
-        DropBlock uniforms ``dropblock`` [B*P, 7, 7] and ``sim_drop``
-        [capA, 7, 7] and the ``noise`` normals [capA, 7, 7, C] instead.
-        ``trace(stage)`` is called as each stage has been enqueued.
+        DropBlock centers, the Concrete DropBlock's gumbel noise and the
+        noise view. ``draws`` may hand in the DropBlock uniforms
+        ``dropblock`` [B*P, 7, 7] and ``sim_drop`` [capA, 7, 7], the
+        Concrete DropBlock's uniforms ``cdb_gumbel`` [B*P, 7, 7, 2] and the
+        ``noise`` normals [capA, 7, 7, C] instead. ``trace(stage)`` is
+        called as each stage has been enqueued.
 
-        The all-RoI clean pass is the mining view only and runs without
-        gradient; the loss reaches the clean neck through the mined bank
-        rows alone, recomputed with gradient and with the same rows'
-        dropout masks.
+        Under ``contra`` the all-RoI clean pass is the mining view only and
+        runs without gradient; the loss reaches the clean neck through the
+        mined bank rows alone, recomputed with gradient and with the same
+        rows' dropout masks.
         """
-        if self.db_method not in ("none", "dropblock"):
-            raise NotImplementedError(f"DB.METHOD={self.db_method!r} is not "
-                                      "ported yet (none, dropblock)")
-        if not self.contra:
-            raise NotImplementedError("training without SOLVER.CONTRA (the "
-                                      "oicr/mist pseudo-label layers) is not "
-                                      "ported yet")
-        if self.partial_labels != "none" or self.faster_rcnn:
-            raise NotImplementedError("partial labels and CAM proposals are "
-                                      "not ported yet")
+        if self.partial_labels != "none":
+            raise NotImplementedError("partial labels are not ported yet")
         draws = draws or {}
         trace = trace or (lambda stage: None)
         boxes, mask, labels = batch.boxes, batch.box_mask, batch.labels
         dev = boxes.device
+        losses: Dict[str, torch.Tensor] = {}
+        metrics: Dict[str, torch.Tensor] = {}
         feats = self.backbone(batch.images)
         trace("backbone")
+        if self.faster_rcnn:
+            cam_maps, losses["loss_cam"] = self.cam(feats, labels)
+            # the mean attention logit over the foreground classes
+            with torch.no_grad():
+                atten = cam_maps.to(torch.float32)[..., 1:].mean(dim=-1)
+                boxes, mask, _ = cam_to_proposals(
+                    atten, batch.image_sizes, round(1 / self.pooler_scale),
+                    out_p=self.rpn_post_nms)
+            trace("cam_proposals")
         pooled = self.pool(feats, boxes, mask)                    # [B,P,7,7,C]
         trace("roi_pool")
         b, p = pooled.shape[:2]
         flat_pooled = pooled.reshape(b * p, *pooled.shape[2:])
 
-        clean_keep = self.neck.draw_keep(b * p, generator, dev)
-        with torch.no_grad():
-            z_clean = self.sim_net(self.neck(flat_pooled, clean_keep)
-                                   ).reshape(b, p, -1)
-        trace("clean_pass")
+        if self.contra:
+            clean_keep = self.neck.draw_keep(b * p, generator, dev)
+            with torch.no_grad():
+                z_clean = self.sim_net(self.neck(flat_pooled, clean_keep)
+                                       ).reshape(b, p, -1)
+            trace("clean_pass")
 
         if self.db_method == "dropblock":
             aug_pooled = dropblock_2d(flat_pooled, self.db_prob, self.db_size,
                                       valid=mask.reshape(-1),
                                       generator=generator,
                                       uniform=draws.get("dropblock"))
+        elif self.db_method == "concrete":
+            aug_pooled = self.cdb(flat_pooled, mask.reshape(-1), generator,
+                                  draws.get("cdb_gumbel"))
         else:
             aug_pooled = flat_pooled
         aug = self.neck(aug_pooled, self.neck.draw_keep(b * p, generator, dev))
         cls, det, refs, bbox = self.pred(aug.reshape(b, p, -1), mask,
                                          train=True)
         final = wsddn_final_score(cls, det, mask)                 # [B,P,C] f32
-        losses: Dict[str, torch.Tensor] = {"loss_img": mil_loss(final, labels)}
-        metrics: Dict[str, torch.Tensor] = {"acc_img": avg_image_accuracy(
-            labels.clamp(0, 1), final.sum(dim=1).clamp(1e-8, 1 - 1e-8))}
+        losses["loss_img"] = mil_loss(final, labels)
+        metrics["acc_img"] = avg_image_accuracy(
+            labels.clamp(0, 1), final.sum(dim=1).clamp(1e-8, 1 - 1e-8))
+        trace("aug_pass_heads")
+        if refs is None:
+            # WSDDN alone: the MIL loss, no refinement and no mining
+            return losses, metrics
         ref_softmax = torch.stack([torch.softmax(r.to(torch.float32), dim=-1)
                                    for r in refs])
         labels_fg = labels[:, 1:] > 0
         final_ng, ref_ng = final.detach(), ref_softmax.detach()
-        trace("aug_pass_heads")
 
-        a = stage_a(boxes, mask, labels_fg, final_ng, ref_ng, self.p_thres,
-                    self.cap_a)
-        slot_pooled = pooled[a.slot_b.clamp(min=0), a.slot_p]    # [capA,...]
-        dropped = dropblock_2d(slot_pooled, 0.3, 1, valid=a.slot_valid,
-                               generator=generator,
-                               uniform=draws.get("sim_drop"))
-        z_drop = self.sim_net(self.neck(dropped, self.neck.draw_keep(
-            self.cap_a, generator, dev)))
-        noised = noise_augment(slot_pooled, generator, draws.get("noise"))
-        z_noise = self.sim_net(self.neck(noised, self.neck.draw_keep(
-            self.cap_a, generator, dev)))
-        trace("stage_a_views")
+        if self.contra:
+            a = stage_a(boxes, mask, labels_fg, final_ng, ref_ng,
+                        self.p_thres, self.cap_a)
+            slot_pooled = pooled[a.slot_b.clamp(min=0), a.slot_p]
+            dropped = dropblock_2d(slot_pooled, 0.3, 1, valid=a.slot_valid,
+                                   generator=generator,
+                                   uniform=draws.get("sim_drop"))
+            z_drop = self.sim_net(self.neck(dropped, self.neck.draw_keep(
+                self.cap_a, generator, dev)))
+            noised = noise_augment(slot_pooled, generator, draws.get("noise"))
+            z_noise = self.sim_net(self.neck(noised, self.neck.draw_keep(
+                self.cap_a, generator, dev)))
+            trace("stage_a_views")
 
-        sb = stage_b(boxes, mask, labels_fg, final_ng, ref_ng, z_clean,
-                     z_drop.detach(), z_noise.detach(), a, self.mining_nms,
-                     self.cap_b)
-        trace("stage_b")
-        rows = torch.cat([a.slot_b.clamp(min=0) * p + a.slot_p,
-                          sb.slot_b.clamp(min=0) * p + sb.slot_p])
-        bank_keep = (None if clean_keep is None
-                     else tuple(k[rows] for k in clean_keep))
-        z_bank = self.sim_net(self.neck(flat_pooled[rows], bank_keep))
-        feats_e, labels_e, hard_e, valid_e = assemble_bank(
-            a, sb, z_clean, z_drop, z_noise, z_a_clean=z_bank[:self.cap_a],
-            z_b_clean=z_bank[self.cap_a:])
-        if self.loss_type == "supconv2":
-            sim = supcon_v2_loss(feats_e, labels_e, hard_e, valid_e,
-                                 self.temperature)
-        else:
-            sim = supcon_loss(feats_e, labels_e, valid_e, self.temperature)
-        losses["loss_sim"] = self.lmda * sim
-        metrics["bank_overflow"] = (a.overflow + sb.overflow).float()
-        metrics["n_bank"] = valid_e.sum().float()
-        metrics["n_mined"] = sb.pgt_instance.sum().float()
-        trace("bank_supcon")
+            sb = stage_b(boxes, mask, labels_fg, final_ng, ref_ng, z_clean,
+                         z_drop.detach(), z_noise.detach(), a,
+                         self.mining_nms, self.cap_b)
+            trace("stage_b")
+            rows = torch.cat([a.slot_b.clamp(min=0) * p + a.slot_p,
+                              sb.slot_b.clamp(min=0) * p + sb.slot_p])
+            bank_keep = (None if clean_keep is None
+                         else tuple(k[rows] for k in clean_keep))
+            z_bank = self.sim_net(self.neck(flat_pooled[rows], bank_keep))
+            feats_e, labels_e, hard_e, valid_e = assemble_bank(
+                a, sb, z_clean, z_drop, z_noise,
+                z_a_clean=z_bank[:self.cap_a], z_b_clean=z_bank[self.cap_a:])
+            if self.loss_type == "supconv2":
+                sim = supcon_v2_loss(feats_e, labels_e, hard_e, valid_e,
+                                     self.temperature)
+            else:
+                sim = supcon_loss(feats_e, labels_e, valid_e,
+                                  self.temperature)
+            losses["loss_sim"] = self.lmda * sim
+            metrics["bank_overflow"] = (a.overflow + sb.overflow).float()
+            metrics["n_bank"] = valid_e.sum().float()
+            metrics["n_mined"] = sb.pgt_instance.sum().float()
+            pgt_instance = sb.pgt_instance
+            trace("bank_supcon")
 
         for i in range(self.num_refs):
             src = final_ng if i == 0 else ref_ng[i - 1]
-            pl = od_layer(boxes, mask, src[..., 1:], labels_fg,
-                          sb.pgt_instance[i], self.fg_iou, self.gt_cap,
-                          self.reg_weights)
+            if self.contra:
+                pl = od_layer(boxes, mask, src[..., 1:], labels_fg,
+                              pgt_instance[i], self.fg_iou, self.gt_cap,
+                              self.reg_weights)
+            elif self.oicr_p == 0.0:
+                pl = oicr_layer(boxes, mask, src[..., 1:], labels_fg,
+                                self.fg_iou, reg_weights=self.reg_weights)
+            else:
+                pl = mist_layer(boxes, mask, src[..., 1:], labels_fg,
+                                portion=self.oicr_p, fg_iou=self.fg_iou,
+                                reg_weights=self.reg_weights)
             lam = 3.0 if i == 0 else 1.0
             losses[f"loss_ref_cls{i}"] = lam * refinement_cls_loss(
                 refs[i], pl.labels, pl.weights, mask)
-            if self.regress_on:
+            if self.regress_on and bbox is not None:
                 losses[f"loss_ref_reg{i}"] = lam * refinement_reg_loss(
                     bbox[i], pl.labels, pl.weights, pl.reg_targets, mask,
                     self.cls_agnostic_bbox_reg)
@@ -292,12 +347,12 @@ class WSODDetector(nn.Module):
         trace("refinement")
         return losses, metrics
 
-
 def detector_from_cfg(cfg) -> WSODDetector:
     """Build the detector from a CfgNode. As in the JAX package, ``gt_cap``
-    (128), ``neck_dropout`` (0.5) and ``db_prob`` (0.3) have no config key
-    and keep their defaults; ``cap_b`` is a quarter of the bank capacity,
-    at least 64."""
+    (128), ``neck_dropout`` (0.5), ``db_prob`` (0.3) and the Concrete
+    DropBlock's drop probability and temperature (models/cdb.py; not
+    ``DB.TAU``) have no config key; ``cap_b`` is a quarter of the bank
+    capacity, at least 64."""
     return WSODDetector(
         num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
         backbone_arch=cfg.MODEL.BACKBONE.CONV_BODY,
@@ -315,8 +370,10 @@ def detector_from_cfg(cfg) -> WSODDetector:
         db_method=cfg.DB.METHOD,
         db_size=cfg.DB.SIZE,
         contra=cfg.SOLVER.CONTRA,
+        oicr_p=cfg.MODEL.ROI_WEAK_HEAD.OICR_P,
         partial_labels=cfg.MODEL.ROI_WEAK_HEAD.PARTIAL_LABELS,
         faster_rcnn=cfg.MODEL.FASTER_RCNN,
+        rpn_post_nms=cfg.TPU.RPN_POST_NMS,
         p_thres=cfg.thres,
         mining_nms=cfg.nms,
         lmda=cfg.lmda,

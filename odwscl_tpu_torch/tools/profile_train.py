@@ -1,6 +1,7 @@
 """Where the time of a train step goes on the card.
 
-    python -m odwscl_tpu_torch.tools.profile_train [--scale 1200] [--iters 5]
+    python -m odwscl_tpu_torch.tools.profile_train [--scale 1200] [--iters 5] \
+        [KEY VALUE ...]
 
 One bf16 train step of configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml at
 full width (VGG16-OICR, batch 8, 2048 proposals per image, random init) on
@@ -20,9 +21,15 @@ the collator pads):
 3. the backward and the optimizer step, timed the same way; the backbone's
    backward and the two ROIPool kernels (the training forward with its
    argmax, then the backward from it) also timed alone at the step's
-   shapes, so the neck and heads' backward is the remainder.
+   shapes, so the neck and heads' backward is the remainder;
+4. with ``DB.METHOD concrete``: the Concrete DropBlock alone on the
+   step's pooled rois (forward and the backward to its parameters) with
+   cuDNN's TF32 on and off, and its largest device kernels.
 
-Prints one JSON line per part with the card's name and power limit.
+``KEY VALUE`` pairs override the config, as for ``train_net``: the
+training variants (``DB.METHOD concrete``, ``SOLVER.CONTRA False``,
+``MODEL.FASTER_RCNN True``, ...). Prints one JSON line per part with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -124,6 +131,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=1200)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = ap.parse_args(argv)
 
     from torch.profiler import ProfilerActivity, profile
@@ -142,17 +150,21 @@ def main(argv=None):
     card = card_name_and_limit()
     cfg = get_default_cfg()
     cfg.merge_from_file(CONFIG)
-    cfg.merge_from_list(["MODEL.WEIGHT", ""])
+    cfg.merge_from_list(["MODEL.WEIGHT", "", *(args.opts or [])])
     cfg.freeze()
     model = detector_from_cfg(cfg)
     model.reset_parameters(torch.Generator().manual_seed(cfg.SEED))
     model.to(dev).train()
-    optimizer, _ = make_optimizer(cfg.SOLVER, model)
+    optimizer, _ = make_optimizer(
+        cfg.SOLVER, model,
+        cfg.SOLVER_CDB if cfg.DB.METHOD == "concrete" else None,
+        cfg.DB.WEIGHT)
     gen = torch.Generator(device=dev).manual_seed(cfg.SEED)
     batch = synthetic_batch(cfg, args.scale, np.random.RandomState(0), dev)
     b, hp, wp, _ = batch.images.shape
     shape = {"batch": b, "padded_hw": [hp, wp], "proposals": 2048,
-             "scale": args.scale, "dtype": "bfloat16"}
+             "scale": args.scale, "dtype": "bfloat16",
+             "opts": args.opts or []}
 
     for _ in range(2):                                   # warm-up
         train_step(model, optimizer, batch, gen)
@@ -212,6 +224,41 @@ def main(argv=None):
                                 "roi_pool_pair": pool_ms + pool_bwd_ms},
                       "neck_heads_backward": ms["backward"] - bb_bwd_ms
                       - pool_bwd_ms}))
+    if model.cdb is not None:
+        print(json.dumps({"part": "cdb", "card": card, **shape,
+                          **cdb_alone(model, pooled.detach(), batch)}))
+
+
+def cdb_alone(model, pooled, batch):
+    """The Concrete DropBlock on ``pooled`` [B, P, 7, 7, C]: forward and
+    backward ms with cuDNN's TF32 on and off, and the largest device
+    kernels of one forward and backward (TF32 as PyTorch sets it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = pooled.reshape(-1, *pooled.shape[2:])
+    valid = batch.box_mask.reshape(-1)
+    g = torch.randn_like(x)
+
+    def fwd_bwd():
+        (model.cdb(x, valid) * g).sum().backward()
+
+    out = {}
+    flag = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            out[f"fwd_bwd_ms_tf32_{tf32}"], _ = _events_ms(fwd_bwd)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    out["allow_tf32"] = flag
+    out["top_kernels_ms"] = {e.key[:90]: e.device_time_total / 1e3
+                             for e in top[:8]}
+    model.zero_grad(set_to_none=True)
+    return out
 
 
 if __name__ == "__main__":

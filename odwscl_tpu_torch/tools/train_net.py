@@ -14,7 +14,9 @@ missing. A port ``.pt`` loads as it is; a Caffe2 ``.pkl`` goes to
 ``import_detectron_resnet``, a ``.pth`` whose basename lacks "model" to
 ``import_vgg16_imagenet`` and any other ``.pth`` to
 ``import_reference_checkpoint`` (utils/weight_import.py). ``MODEL.WEIGHT
-""`` keeps the random init. Checkpoints go to
+""`` keeps the random init. With ``DB.METHOD concrete`` the Concrete
+DropBlock trains adversarially on ``SOLVER_CDB``, scaled by ``DB.WEIGHT``
+(solver/build.py). Checkpoints go to
 ``OUTPUT_DIR``; unless ``--skip-test`` the trained model is then evaluated
 as ``tools/test_net.py`` does.
 """
@@ -47,12 +49,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def update_iters(cfg) -> None:
-    """SOLVER.ITER_SIZE stretches the schedule by that factor."""
+    """SOLVER.ITER_SIZE = k makes a run k times as many iterations
+    (MAX_ITER, CHECKPOINT_PERIOD). STEPS and WARMUP_ITERS are left as they
+    are: the schedule counts updates, one per k iterations, so its
+    milestones already fall at k * STEPS iterations. (The JAX CLI scales
+    them too, which puts them at k^2 * STEPS.)"""
     k = cfg.SOLVER.ITER_SIZE
     if k > 1:
         cfg.SOLVER.MAX_ITER *= k
-        cfg.SOLVER.STEPS = tuple(s * k for s in cfg.SOLVER.STEPS)
-        cfg.SOLVER.WARMUP_ITERS *= k
         cfg.SOLVER.CHECKPOINT_PERIOD *= k
 
 
@@ -119,7 +123,10 @@ def main(argv=None, timing_out=None):
     model = detector_from_cfg(cfg)
     model.reset_parameters(torch.Generator().manual_seed(cfg.SEED))
     model.to(device)
-    optimizer, _ = make_optimizer(cfg.SOLVER, model)
+    optimizer, _ = make_optimizer(
+        cfg.SOLVER, model,
+        cfg.SOLVER_CDB if cfg.DB.METHOD == "concrete" else None,
+        cfg.DB.WEIGHT)
     generator = torch.Generator(device=device).manual_seed(cfg.SEED)
     ckpt = Checkpointer(cfg.OUTPUT_DIR)
     start_iter = 0

@@ -5,16 +5,23 @@ The flax tree of ``odwscl_tpu.models.WSODDetector`` is
 sim_net: {mlp0, mlp1}, pred: {<head>: {linear: {kernel, bias}}}}``; a
 ResNet backbone holds ``stem_conv``, ``stem_bn`` and ``layer{s}_{b}``
 blocks of bias-free convs and ``FrozenBatchNorm`` leaves ``scale``,
-``bias``, ``mean`` and ``var``, which keep their names. It is taken as
-nested dicts of numpy arrays (with or without the outer ``params`` level)
-or as an ``.npz`` whose keys are the ``/``-joined paths.
+``bias``, ``mean`` and ``var``, which keep their names. With
+``DB.METHOD concrete`` it also holds ``cdb: {conv1, conv2, downsample:
+{kernel}, bn1, bn2: {scale, bias}}``, and with ``MODEL.FASTER_RCNN``
+``cam: {cam_conv_kernel, cam_conv_bias}``. It is taken as nested dicts of
+numpy arrays (with or without the outer ``params`` level) or as an
+``.npz`` whose keys are the ``/``-joined paths.
 
 - conv kernels go from HWIO to OIHW;
 - Dense kernels go from (in, out) to (out, in);
 - fc6 needs no permutation: the port flattens the pooled NHWC tensor in
   the same (h, w, c) order as the JAX neck;
-- the MIST heads drop the ``linear`` level: ``pred/cls_score/linear/kernel``
-  becomes ``pred.cls_score.weight``.
+- the heads of every predictor (WSDDN, OICR, MIST) drop the ``linear``
+  level: ``pred/cls_score/linear/kernel`` becomes ``pred.cls_score.weight``;
+- the CAM's (in, classes) kernel is the weight of ``cam.cam_conv``, a
+  Linear over the NHWC features: ``cam/cam_conv_kernel`` becomes
+  ``cam.cam_conv.weight`` (transposed), ``cam/cam_conv_bias``
+  ``cam.cam_conv.bias``.
 """
 
 from __future__ import annotations
@@ -24,8 +31,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_MODULES = ("backbone", "neck", "sim_net", "pred")
-_LEAVES = ("kernel", "bias", "scale", "mean", "var")
+_MODULES = ("backbone", "neck", "sim_net", "pred", "cdb", "cam")
+_LEAVES = ("kernel", "bias", "scale", "mean", "var", "cam_conv_kernel",
+           "cam_conv_bias")
+_CDB_CHILDREN = ("conv1", "conv2", "downsample", "bn1", "bn2")
+_CAM_LEAVES = {"cam_conv_kernel": ["cam_conv", "kernel"],
+               "cam_conv_bias": ["cam_conv", "bias"]}
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -68,8 +79,17 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
             raise KeyError(f"no port parameter for flax leaf {key!r}")
         if parts[0] == "pred":
             if len(parts) != 4 or parts[2] != "linear":
-                raise KeyError(f"unexpected MIST head leaf {key!r}")
+                raise KeyError(f"unexpected predictor head leaf {key!r}")
             parts = [parts[0], parts[1], parts[3]]
+        elif parts[0] == "cdb":
+            if len(parts) != 3 or parts[1] not in _CDB_CHILDREN:
+                raise KeyError(f"unexpected Concrete DropBlock leaf {key!r}")
+        elif parts[0] == "cam":
+            if len(parts) != 2 or parts[1] not in _CAM_LEAVES:
+                raise KeyError(f"unexpected CAM leaf {key!r}")
+            parts = ["cam", *_CAM_LEAVES[parts[1]]]
+        elif parts[-1] in _CAM_LEAVES:
+            raise KeyError(f"no port parameter for flax leaf {key!r}")
         v = np.asarray(v, np.float32)
         if parts[-1] == "kernel":
             if v.ndim == 4:
@@ -95,6 +115,8 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
             parts[-1] = "kernel"
         if parts[0] == "pred":
             parts = [parts[0], parts[1], "linear", parts[2]]
+        elif parts[0] == "cam":
+            parts = ["cam", f"cam_conv_{parts[2]}"]
         flat["/".join(parts)] = np.ascontiguousarray(v)
     return unflatten_tree(flat)
 

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
-Every module of ``odwscl_tpu_torch`` (the training, ResNet, weight-import
-and device-resize modules named below among them) and ``chip_smoke.py``
+Every module of ``odwscl_tpu_torch`` (the training, ResNet, weight-import,
+device-resize, Concrete DropBlock and CAM modules named below among them)
+and ``chip_smoke.py``
 is imported in a subprocess where ``jax``, ``flax``, ``optax`` and
 ``odwscl_tpu`` are blocked
 (``sys.modules[name] = None`` makes their import fail); afterwards no
@@ -32,7 +33,8 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "losses.pseudo_labels", "solver.build", "engine.trainer",
                  "utils.checkpoint", "tools.train_net", "tools.profile_train",
                  "ops.roi_pool_stages", "tools.profile_pool_stages",
-                 "models.resnet", "utils.weight_import", "ops.device_resize"):
+                 "models.resnet", "utils.weight_import", "ops.device_resize",
+                 "models.cdb", "models.cam", "models.cam_proposals"):
     assert "odwscl_tpu_torch." + required in names, required
 assert len(names) >= 48, names
 """

@@ -8,6 +8,11 @@
   against the JAX ``make_optimizer`` (+ ``optax.MultiSteps``) over a
   warmup and a milestone, on the same gradients: 1e-6 relative (f32
   updates; the port's LR factors are products in f64 before the cast).
+- ITER_SIZE 2 through ``train_net.update_iters`` and the optimizer,
+  stepped once per iteration: MAX_ITER and CHECKPOINT_PERIOD double, the
+  full LR first applies at iteration 2 * WARMUP_ITERS and each milestone
+  at iteration 2 * STEPS (the JAX CLI, which also scales STEPS and
+  WARMUP_ITERS, puts them at 4 * STEPS). Exact iterations.
 - ``tools/train_net.py`` on the CPU: 4 iterations straight and 2 + a
   resume for 2 more from the checkpoint give the same parameters: the data
   are seeded by the absolute iteration and the dropout draws by the
@@ -153,6 +158,37 @@ def test_solver_matches_jax(iter_size):
     assert torch.equal(model.backbone.conv0.weight,
                        torch.from_numpy(arrays["backbone.conv0.weight"]))
     assert lr_changes >= 3      # warmup steps and milestones: corrections
+
+
+def test_iter_size_milestones_at_k_times_steps():
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(["SOLVER.ITER_SIZE", "2", "SOLVER.STEPS", "(4, 6)",
+                         "SOLVER.WARMUP_ITERS", "2", "SOLVER.MAX_ITER", "8",
+                         "SOLVER.CHECKPOINT_PERIOD", "3", "SOLVER.BASE_LR",
+                         "0.5", "SOLVER.MOMENTUM", "0.0",
+                         "SOLVER.WEIGHT_DECAY", "0.0"])
+    train_net.update_iters(cfg)
+    assert cfg.SOLVER.MAX_ITER == 16 and cfg.SOLVER.CHECKPOINT_PERIOD == 6
+    assert tuple(cfg.SOLVER.STEPS) == (4, 6)
+    assert cfg.SOLVER.WARMUP_ITERS == 2
+    model = _Params({"neck.fc6.weight": np.zeros((2,), np.float32)})
+    opt, _ = make_optimizer(cfg.SOLVER, model)
+    w = model.neck.fc6.weight
+    lrs = {}                     # iteration (1-based) -> the LR it applied
+    for it in range(1, cfg.SOLVER.MAX_ITER + 1):
+        w.grad = torch.ones_like(w)
+        before = w.detach().clone()
+        if opt.step():
+            lrs[it] = float((before - w.detach())[0])
+    assert sorted(lrs) == list(range(2, 17, 2))
+
+    def first(lr):
+        return min(it for it, v in lrs.items() if v == pytest.approx(lr))
+
+    assert lrs[2] < 0.5                                       # warmup
+    assert first(0.5) == 2 * cfg.SOLVER.WARMUP_ITERS
+    assert [first(0.05), first(0.005)] == [2 * s for s in cfg.SOLVER.STEPS]
 
 
 def _train(data, out, max_iter):
