@@ -5,9 +5,9 @@
 
 Phases (any failure ends the run with a non-zero exit code):
 1. Print the card's name and power limit; build the ROIPool forward
-   kernel, with the stage profiler's instantiations, and the backward
-   kernel (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd}.cu) with nvcc for
-   sm_90a, both at once.
+   kernel, with the stage profiler's instantiations, the backward kernel
+   (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd}.cu) and the int8 conv kernel
+   (csrc/conv_int8.cu) with nvcc for sm_90a, all at once.
 2. Hold both instantiations of the forward kernel against their plain
    PyTorch versions on the card, bit-exactly (atol 0) in f32 and bf16: the
    output against ``roi_pool_plain`` and the training forward's int16
@@ -89,6 +89,26 @@ Phases (any failure ends the run with a non-zero exit code):
    image given 1 to ``TPU.RPN_POST_NMS`` proposals; (d) OICR and (e)
    WSDDN heads without regression or mining, each then evaluated with
    the device-resize TTA as in 8. No path launches a stage kernel.
+11. (Run after 5.) Hold the int8 conv kernel
+   (odwscl_tpu_torch/csrc/conv_int8.cu, built in 1) against its plain versions bit for bit: its
+   int32 ``ACC`` instantiation against ``conv2d_int8_acc_plain`` (a float64
+   convolution of the codes) and its fused dequantize against
+   ``dequantize_plain`` (values: -0.0 equals 0.0), at the 11 VGG16 int8
+   layer shapes of the 480 scale (B = 8) and at 37x53 (B = 1, 2; both
+   dilations; bf16 and f32), each in the three activation-scale modes.
+   Then time it at the 11 shapes of the 1200 scale (B = 8, 1280x1664) in
+   turns beside its bound, the int8 im2col + ``torch._int_mm`` route,
+   cuDNN's bf16 conv and the quantize pass, and the plain version once;
+   and the neck's ``torch._int_mm`` (fc6, fc7 at 16,384 rows) beside
+   ``F.linear`` in bf16.
+12. (Run after 8.) Serve the checkpoint of 7 in static int8 (``TPU.INT8_EVAL``,
+   ``INT8_EVAL_CONVS``, ``INT8_STATIC``; device-resize TTA; det), after a
+   bf16 run of the same: the first int8 run calibrates (2 batches x 14
+   transforms) and writes ``int8_scales.npz``, the second loads a copy and
+   must give identical predictions. The int8 conv kernel launches 11 times
+   a forward and never while calibrating; the backbone features of a
+   1200-scale batch stay within 0.25 of bf16's largest (the JAX package's
+   bound); the merged detections' gap to bf16 is printed.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -1315,11 +1335,354 @@ def phase_eval(rp, tmp, config, weights, label, runs, opts=()):
     return launches
 
 
-def build(rp):
-    """Build the two kernel sources, one nvcc each, started together."""
+
+# the neck's int8 GEMMs at 8 images x 2048 rois: (name, K, N)
+INT8_DENSE = [("fc6", 25088, 4096), ("fc7", 4096, 4096)]
+INT8_DENSE_ROWS = 16384
+# the JAX package's own int8 bound on backbone features
+# (tests/test_int8_eval.py): 0.25 of the bf16 features' largest magnitude
+INT8_FEAT_REL = 0.25
+
+
+def int8_act_scale(mode, x):
+    """The three activation-scale modes: None (dynamic), a calibrated
+    scalar (90% of the batch's abs-max: the top codes saturate), the
+    per-channel abs-maxes at 90% with channel 0 calibrated dead (0)."""
+    if mode == "dynamic":
+        return None
+    if mode == "scalar":
+        return x.abs().amax().float() * 0.9
+    amax = x.abs().amax(dim=(0, 1, 2)).float() * 0.9
+    amax[0] = 0.0
+    return amax
+
+
+def phase_int8_kernel(dev, q):
+    """The int8 conv kernel against its plain versions, bit for bit: the
+    int32 ``ACC`` instantiation against ``conv2d_int8_acc_plain`` (a
+    float64 convolution of the codes, exact) and the fused dequantize
+    (bf16, and f32 on the awkward shapes) against ``dequantize_plain`` of
+    that accumulator, compared as values (-0.0 equals 0.0). Every VGG16
+    int8 layer shape at the 480 scale (B = 8) and awkward sizes (37x53,
+    B = 1 and 2, both dilations), each in the three activation-scale modes
+    (quantized on the card by ``quantize_conv_input``). Returns the largest
+    absolute difference (0)."""
+    import torch
+    from odwscl_tpu_torch.tools.tune_conv_int8 import (CANVAS, INT8_LAYERS,
+                                                       conv_inputs)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hc, wc = CANVAS[480]
+    cases = [(f"conv{i}@480", 8, hc // s, wc // s, cin, cout, d, i < 12,
+              (torch.bfloat16,))
+             for i, s, cin, cout, d in INT8_LAYERS]
+    cases += [("37x53 B=1", 1, 37, 53, 64, 128, 1, True,
+               (torch.bfloat16, torch.float32)),
+              ("37x53 B=1 dil 2", 1, 37, 53, 512, 512, 2, False,
+               (torch.bfloat16, torch.float32)),
+              ("37x53 B=2 dil 2", 2, 37, 53, 128, 256, 2, True,
+               (torch.float32,))]
+    worst = 0.0
+    n = 0
+    for label, b, h, w, cin, cout, d, relu, dtypes in cases:
+        x, wt, bias = conv_inputs(dev, gen, b, h, w, cin, cout)
+        for mode in ("dynamic", "scalar", "channel"):
+            xq, kq, scale = q.quantize_conv_input(x, wt,
+                                                  int8_act_scale(mode, x))
+            acc = q.conv_int8_acc(xq, kq, d, d)
+            ref = q.conv2d_int8_acc_plain(xq, kq, d, d)
+            torch.cuda.synchronize()
+            if not torch.equal(acc, ref):
+                bad = int((acc != ref).sum())
+                raise AssertionError(f"int8 conv {label} {mode}: ACC differs "
+                                     f"from the plain accumulator at {bad} "
+                                     "values")
+            for dt in dtypes:
+                y = q.conv_int8_nhwc(xq, kq, scale, bias, d, d, dt, relu)
+                want = q.dequantize_plain(ref, scale, bias, dt, relu)
+                torch.cuda.synchronize()
+                diff = (y.float() - want.float()).abs().max().item()
+                worst = max(worst, diff)
+                if not bool((y == want).all()):
+                    raise AssertionError(f"int8 conv {label} {mode} {dt}: "
+                                         f"max |d| {diff} against the plain "
+                                         "dequantize")
+                n += 1
+            del acc, ref
+    print(f"[int8] conv kernel bit-exact against the plain versions: {n} "
+          f"(shape, mode, dtype) cases, the 11 VGG16 int8 layers at 480 "
+          f"(B=8, {hc}x{wc} canvas) and 37x53 B=1/2 at dilations 1 and 2; "
+          "ACC = float64 conv of the codes, fused output = plain dequantize "
+          f"(max |d| {worst})")
+    return worst
+
+
+def im2col_int_mm(xq, kq, scale, bias, d, relu):
+    """The one PyTorch route to the same int32 result: an int8 im2col (pad,
+    the 9 shifted slices concatenated on the channel axis, tap-major as the
+    packed weights) and ``torch._int_mm``, then the same dequantize."""
+    import torch
+    import torch.nn.functional as F
+    from odwscl_tpu_torch.ops.quant import dequantize_plain
+
+    b, h, w, c = xq.shape
+    xp = F.pad(xq, (0, 0, d, d, d, d))
+    cols = torch.cat([xp[:, ty * d:ty * d + h, tx * d:tx * d + w]
+                      for ty in range(3) for tx in range(3)], dim=-1)
+    acc = torch._int_mm(cols.reshape(-1, 9 * c), kq.reshape(kq.shape[0], -1).t())
+    return dequantize_plain(acc, scale, bias, torch.bfloat16,
+                            relu).reshape(b, h, w, -1)
+
+
+def phase_int8_timing(dev, q):
+    """Row 5 at each int8 layer shape of the 1200 scale (B = 8, padded
+    1280x1664), in turns (3 readings of 5): the kernel (codes in, bf16 out),
+    its library route (``im2col_int_mm``, checked equal to the kernel),
+    cuDNN's bf16 conv of the same shape (channels_last) and the quantize
+    pass before the kernel (dynamic: abs-max, divide, round, clip, cast);
+    the plain version (float64) once. Bound: max(ops / int8 peak, bytes /
+    memory rate), bytes = int8 input + int8 weights + bf16 output. Then the
+    neck's ``torch._int_mm`` at N = 16,384 rows beside ``F.linear`` in bf16.
+    Returns (per-layer dicts, the sums, the dense dicts)."""
+    import torch
+    import torch.nn.functional as F
+    from odwscl_tpu_torch.tools.tune_conv_int8 import (CANVAS, INT8_LAYERS,
+                                                       conv_inputs)
+    from odwscl_tpu_torch.utils.profiling import (INT8_OPS_PER_S,
+                                                  MEM_BYTES_PER_S, card_rate)
+
+    name = torch.cuda.get_device_name(dev)
+    ops_rate, mem_rate = (card_rate(name, INT8_OPS_PER_S),
+                          card_rate(name, MEM_BYTES_PER_S))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hc, wc = CANVAS[1200]
+    layers = []
+    for i, s, cin, cout, d in INT8_LAYERS:
+        h, w = hc // s, wc // s
+        relu = i < 12
+        x, wt, bias = conv_inputs(dev, gen, 8, h, w, cin, cout)
+        xq, kq, scale = q.quantize_conv_input(x, wt)
+        got = q.conv_int8_nhwc(xq, kq, scale, bias, d, d, torch.bfloat16, relu)
+        if not bool((im2col_int_mm(xq, kq, scale, bias, d, relu) == got).all()):
+            raise AssertionError(f"conv{i}: im2col + _int_mm != the kernel")
+        del got
+        xc = x.permute(0, 3, 1, 2)                 # channels_last NCHW view
+        wb, bb = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
+        fns = {"ms": lambda: q.conv_int8_nhwc(xq, kq, scale, bias, d, d,
+                                              torch.bfloat16, relu),
+               "library_ms": lambda: im2col_int_mm(xq, kq, scale, bias, d,
+                                                   relu),
+               "cudnn_bf16_ms": lambda: F.conv2d(xc, wb, bb, padding=d,
+                                                 dilation=d),
+               "quantize_ms": lambda: q.quantize_conv_input(x, wt)}
+        reads = {k: [] for k in fns}
+        for _ in range(3):
+            for k, fn in fns.items():
+                reads[k].append(cuda_ms(fn, iters=5))
+        row = {k: statistics.mean(v) for k, v in reads.items()}
+        row["plain_ms"] = cuda_ms(lambda: q.dequantize_plain(
+            q.conv2d_int8_acc_plain(xq, kq, d, d), scale, bias,
+            torch.bfloat16, relu), iters=1, warmup=1)
+        m = 8 * h * w
+        ops = 2.0 * m * cout * 9 * cin
+        nbytes = xq.numel() + kq.numel() + m * cout * 2
+        row.update(layer=f"conv{i}", shape=[8, h, w, cin, cout, d],
+                   ops=ops, bytes=nbytes,
+                   bound_ms=max(ops / ops_rate, nbytes / mem_rate) * 1e3,
+                   bound_by="operations" if ops / ops_rate > nbytes / mem_rate
+                   else "bytes",
+                   tops=ops / row["ms"] / 1e9)
+        layers.append(row)
+        print(f"[int8] conv{i} [8,{h},{w},{cin}]->{cout} dil {d}: kernel "
+              f"{row['ms']:.4f} ms ({row['tops']:.1f} TOP/s; readings "
+              f"{', '.join(f'{t:.4f}' for t in reads['ms'])}), bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}), im2col+_int_mm "
+              f"{row['library_ms']:.4f}, cuDNN bf16 "
+              f"{row['cudnn_bf16_ms']:.4f}, quantize "
+              f"{row['quantize_ms']:.4f}, plain f64 {row['plain_ms']:.3f}")
+        del x, xq, xc, fns
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in layers)
+             for k in ("ms", "library_ms", "cudnn_bf16_ms", "quantize_ms",
+                       "plain_ms", "bound_ms", "ops")}
+    print(f"[int8] the 11 int8 convs of one 1200-scale batch: kernel "
+          f"{total['ms']:.3f} ms ({total['ops'] / total['ms'] / 1e9:.1f} "
+          f"TOP/s) + quantize {total['quantize_ms']:.3f}; bound "
+          f"{total['bound_ms']:.3f}; im2col+_int_mm {total['library_ms']:.3f};"
+          f" cuDNN bf16 {total['cudnn_bf16_ms']:.3f}; plain "
+          f"{total['plain_ms']:.1f}")
+    dense = []
+    for label, k, n in INT8_DENSE:
+        a = torch.randint(-127, 128, (INT8_DENSE_ROWS, k), generator=gen,
+                          device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        if not torch.equal(q.int_mm(a[:64], wq.t()),
+                           q.int_mm_plain(a[:64], wq.t())):
+            raise AssertionError(f"{label}: torch._int_mm != int_mm_plain")
+        ab, wb = a.to(torch.bfloat16), wq.to(torch.bfloat16)
+        fns = {"int_mm_ms": lambda: torch._int_mm(a, wq.t()),
+               "bf16_linear_ms": lambda: F.linear(ab, wb)}
+        reads = {kk: [] for kk in fns}
+        for _ in range(3):
+            for kk, fn in fns.items():
+                reads[kk].append(cuda_ms(fn, iters=5))
+        ops = 2.0 * INT8_DENSE_ROWS * k * n
+        row = {kk: statistics.mean(v) for kk, v in reads.items()}
+        row.update(layer=label, shape=[INT8_DENSE_ROWS, k, n],
+                   bound_ms=max(ops / ops_rate,
+                                (a.numel() + wq.numel()
+                                 + INT8_DENSE_ROWS * n * 4) / mem_rate) * 1e3)
+        dense.append(row)
+        print(f"[int8] {label} [{INT8_DENSE_ROWS},{k}]x[{k},{n}]: "
+              f"torch._int_mm {row['int_mm_ms']:.4f} ms "
+              f"({ops / row['int_mm_ms'] / 1e9:.1f} TOP/s), bound "
+              f"{row['bound_ms']:.4f}; F.linear bf16 "
+              f"{row['bf16_linear_ms']:.4f}")
+        del a, wq, ab, wb, fns
+    torch.cuda.empty_cache()
+    return layers, total, dense
+
+
+def phase_int8_eval(rp, q, tmp, config, weights):
+    """Static int8 serving of the main path's checkpoint: ``test_net`` det
+    with the device-resize TTA, in bf16 and then twice with
+    ``TPU.INT8_EVAL``, ``INT8_EVAL_CONVS`` and ``INT8_STATIC``. The first
+    int8 run calibrates (``TPU.INT8_CALIB_BATCHES`` x 14 host-path forwards)
+    and writes ``int8_scales.npz``; the second starts from a copy of that
+    file, calibrates nothing and must give identical predictions. Every
+    forward launches the int8 conv kernel 11 times and #1 once; a
+    calibration forward launches #1 and no int8 conv. The merged
+    detections' gap to bf16 is printed; the backbone features of one
+    1200-scale batch must stay within INT8_FEAT_REL of bf16's largest
+    magnitude. Returns {run: (int8 conv launches, roi_pool launches)}."""
+    import pickle
+
+    import torch
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.data.build import make_eval_loaders
+    from odwscl_tpu_torch.engine import inference
+    from odwscl_tpu_torch.engine.inference import (Inferencer,
+                                                   load_int8_scales)
+    from odwscl_tpu_torch.tools import test_net
+
+    int8_opts = ["TPU.INT8_EVAL", "True", "TPU.INT8_EVAL_CONVS", "True",
+                 "TPU.INT8_STATIC", "True"]
+    finalize = inference.Inferencer._finalize
+    merged = {}
+    stats = {}
+
+    def run(label, opts, scales=None):
+        out = os.path.join(tmp, "int8_" + label)
+        if scales:
+            os.makedirs(out)
+            shutil.copy(scales, out)
+
+        def capture(self, scores, boxes, mask):
+            merged.setdefault(label, []).append(
+                (scores.float().cpu(), boxes.float().cpu()))
+            return finalize(self, scores, boxes, mask)
+
+        rp.roi_pool.launches = q.conv_int8_nhwc.launches = 0
+        inference.Inferencer._finalize = capture
+        timing = {}
+        try:
+            res = test_net.main([
+                "--config-file", config, "--data-root", tmp, "--task", "det",
+                "--device", "cuda", "--weights", weights, "OUTPUT_DIR", out,
+                "TPU.EVAL_DEVICE_RESIZE", "True", *opts], timing_out=timing)
+        finally:
+            inference.Inferencer._finalize = finalize
+        (t,), (r,) = timing.values(), res.values()
+        conv, pool = q.conv_int8_nhwc.launches, rp.roi_pool.launches
+        per_fwd = 11 if opts else 0
+        if (conv != per_fwd * t["n_forwards"]
+                or pool != t["n_forwards"] + t["n_calib_forwards"]):
+            raise AssertionError(
+                f"int8 eval {label}: int8 conv launches {conv}, roi_pool "
+                f"{pool} for {t['n_forwards']} forwards and "
+                f"{t['n_calib_forwards']} calibration forwards")
+        if not math.isfinite(r["map"]):
+            raise AssertionError(f"int8 eval {label}: mAP {r['map']}")
+        with open(os.path.join(out, "inference", "voc_2007_test",
+                               "predictions.pkl"), "rb") as f:
+            preds = pickle.load(f)   # written by the run above
+        stats[label] = dict(t, conv=conv, pool=pool, map=r["map"], out=out,
+                            preds=preds)
+        print(f"[int8] eval {label}: mAP {r['map']:.4f}; {t['n_images']} "
+              f"images in {t['wall_s']:.2f} s = "
+              f"{t['n_images'] / t['wall_s']:.2f} images/s; forward+merge "
+              f"{t['forward_s']:.2f} s, NMS+top-K {t['finalize_s']:.2f} s, "
+              f"calibration {t['calib_s']:.2f} s ({t['n_calib_forwards']} "
+              f"forwards, outside the loop); {t['n_forwards']} forwards: "
+              f"int8 conv launches {conv}, roi_pool {pool}")
+        SUMMARY.append(f"int8 eval {label}: "
+                       f"{t['n_images'] / t['wall_s']:.2f} images/s, "
+                       f"calibration {t['calib_s']:.2f} s")
+
+    run("bf16", [])
+    run("calibrate", int8_opts)
+    scales = os.path.join(stats["calibrate"]["out"], "int8_scales.npz")
+    if not os.path.exists(scales):
+        raise AssertionError("the calibrating run wrote no int8_scales.npz")
+    run("from_file", int8_opts, scales)
+    first, second = stats["calibrate"], stats["from_file"]
+    if first["n_calib_forwards"] != 2 * 14 or second["n_calib_forwards"]:
+        raise AssertionError(f"calibration forwards {first['n_calib_forwards']}"
+                             f" then {second['n_calib_forwards']}, expected "
+                             "28 then 0")
+    for a, b in zip(first["preds"], second["preds"]):
+        for key in ("boxes", "scores", "labels"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError("int8 eval from the scales file differs "
+                                     f"from the calibrating run ({key})")
+    ds = max((a[0] - b[0]).abs().max().item()
+             for a, b in zip(merged["bf16"], merged["calibrate"]))
+    db = max((a[1] - b[1]).abs().max().item()
+             for a, b in zip(merged["bf16"], merged["calibrate"]))
+    print(f"[int8] the run from int8_scales.npz gave predictions identical "
+          f"to the calibrating run; merged detections int8 vs bf16: max "
+          f"|d score| {ds:.3e}, max |d box| {db:.3f} px (printed only: random "
+          f"weights)")
+
+    # the backbone features of one batch at the largest scale, int8 static
+    # vs bf16
+    cfg = get_default_cfg()
+    cfg.merge_from_file(config)
+    cfg.merge_from_list(int8_opts)
+    model = test_net.load_model(cfg, weights)
+    inf = Inferencer(model, cfg, "cuda")
+    model.backbone.act_amax = {i: a.cuda()
+                               for i, a in load_int8_scales(scales).items()}
+    (_, loader), = make_eval_loaders(cfg, tmp)
+    _, samples, _ = next(iter(loader))
+    tr = max(inf.tta.transforms(), key=lambda t: t.min_size)   # 1200
+    batch, _ = inf._prep_scale(tr, samples)
+    with torch.no_grad():
+        f16 = model.backbone(batch.images).float()
+        f8 = model.backbone(batch.images, fast_eval=True).float()
+        model.backbone.int8_static = False
+        f8d = model.backbone(batch.images, fast_eval=True).float()
+    top = f16.abs().max().item()
+    gap, gap_d = ((f8 - f16).abs().max().item() / top,
+                  (f8d - f16).abs().max().item() / top)
+    print(f"[int8] backbone features of a {tr.min_size}-scale batch "
+          f"{list(batch.images.shape)}: int8 static vs bf16 max |d| "
+          f"{gap:.4f} of the largest (bound {INT8_FEAT_REL}); dynamic "
+          f"{gap_d:.4f}")
+    if not gap < INT8_FEAT_REL:
+        raise AssertionError(f"int8 static features off bf16 by {gap:.4f}")
+    SUMMARY.append(f"int8 features vs bf16 {gap:.4f} (static), {gap_d:.4f} "
+                   "(dynamic)")
+    torch.cuda.synchronize()
+    return {k: (stats[k]["conv"], stats[k]["pool"]) for k in stats}
+
+
+def build(rp, q):
+    """Build the three kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = (rp.KERNEL, rp.BWD_KERNEL)
+    libs = (rp.KERNEL, rp.BWD_KERNEL, q.CONV_KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(k.get) for k in libs]:
@@ -1340,6 +1703,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.ops import quant as q
     from odwscl_tpu_torch.ops import roi_pool as rp
     from odwscl_tpu_torch.ops import roi_pool_stages as rs
     from odwscl_tpu_torch.utils.profiling import card_name_and_limit
@@ -1348,7 +1712,7 @@ def main():
     dev = torch.device("cuda", 0)
     print(card_name_and_limit())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    build(rp)
+    build(rp, q)
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -1377,6 +1741,9 @@ def main():
                            phase_check_c2048, dev, rp, r50_timed)
     del r50_timed
     stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
+    int8_err = timed("int8 conv kernel checks", phase_int8_kernel, dev, q)
+    int8_layers, int8_total, int8_dense = timed(
+        "int8 conv timing", phase_int8_timing, dev, q)
     for arch in ("VGG16-OICR", "R-18-C5"):
         timed(f"eval card vs CPU {arch}", phase_card_vs_cpu, dev, arch)
         timed(f"train card vs CPU {arch}", phase_train_card_vs_cpu, dev,
@@ -1402,6 +1769,8 @@ def main():
         eval_fwd = timed("eval main path", phase_eval, rp, tmp, CONFIG, ckpt,
                          "VGG16-OICR", [("det", False), ("corloc", False),
                                         ("det", True)])
+        int8_eval = timed("int8 eval main path", phase_int8_eval, rp, q, tmp,
+                          CONFIG, ckpt)
         (r50_fwd, r50_bwd), ckpt = timed(
             "R-50-C5 train", phase_train, rp, tmp, CONFIG_R50, R50_STEPS,
             "R-50-C5", ("MODEL.WEIGHT", cfg_r50.MODEL.WEIGHT))
@@ -1425,6 +1794,8 @@ def main():
                              f"kernels: {rs.roi_pool_stage.launches}")
     # each path's launches, read right after it ran
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
+                       **{f"VGG16-OICR int8 eval {k}": v[1]
+                          for k, v in int8_eval.items()},
                        **{f"{k} eval": v["eval"] for k, v in variants.items()
                           if "eval" in v}},
                "fwd_argmax": {"VGG16-OICR": train_fwd, "R-50-C5": r50_fwd,
@@ -1466,6 +1837,30 @@ def main():
                           "decoded from the stored argmax (indices built "
                           "outside the timing), then .to(bf16)"),
          **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd)}] + stages
+    kernels.append({
+        "name": "conv_int8", "route": "cuda", "source": src + "conv_int8.cu",
+        "replaces": ("odwscl_tpu/ops/quant.py:58 conv2d_int8 (XLA "
+                     "conv_general_dilated int8 -> int32 at :109; no Pallas "
+                     "kernel)"),
+        "launches": sum(v[0] for v in int8_eval.values()),
+        "launches_by_path": {f"VGG16-OICR int8 eval {k}": v[0]
+                             for k, v in int8_eval.items()},
+        "max_abs_err": int8_err,
+        **{k: int8_total[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "cudnn_bf16_ms",
+                                      "quantize_ms")},
+        # the kind that bounds most of the summed bound
+        "bound_by": max(("operations", "bytes"), key=lambda kind: sum(
+            r["bound_ms"] for r in int8_layers if r["bound_by"] == kind)),
+        "timed": "sum over the 11 int8 convs of one 1200-scale batch (B=8, "
+                 "1280x1664)",
+        "library_note": "int8 im2col (pad, 9 shifted slices) + "
+                        "torch._int_mm, same dequantize",
+        "by_layer": [{k: r[k] for k in ("layer", "shape", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "cudnn_bf16_ms", "quantize_ms")}
+                     for r in int8_layers],
+        "int_mm": int8_dense})
     SUMMARY.append(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     print("[summary] " + "; ".join(SUMMARY))
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
-"""Loader assembly, VOC, single process.
+"""Loader assembly, VOC.
 
 Counterpart of ``odwscl_tpu/data/build.py``: dataset + sampler + transform
-+ collator. The train loader yields CPU ``Batch``es; the eval loader yields
-``(batch, samples, indices)``. A thread pool prepares the next batch while
-the current one runs.
++ collator. The train loader yields CPU ``Batch``es (one process); the
+eval loader yields ``(batch, samples, indices)``, sharded by process when
+several run. A thread pool prepares the next batch while the current one
+runs.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from ..config.catalog import DatasetCatalog
+from ..utils.dist import process_count_and_index
 from .collate import BatchCollator, collator_from_cfg
 from .samplers import (InferenceSampler, IterationBatchSampler,
                        aspect_ratio_groups)
@@ -110,11 +112,13 @@ class EvalLoader:
 
     def __init__(self, dataset, transform: Optional[EvalTransform],
                  collator: BatchCollator, batch_size: int,
-                 num_workers: int = 4):
+                 num_workers: int = 4, process_count: int = 1,
+                 process_index: int = 0):
         self.dataset = dataset
         self.transform = transform
         self.collator = collator
-        self.sampler = InferenceSampler(len(dataset), batch_size)
+        self.sampler = InferenceSampler(len(dataset), batch_size,
+                                        process_count, process_index)
         self.num_workers = max(num_workers, 1)
 
     def __len__(self):
@@ -141,8 +145,13 @@ class EvalLoader:
                 yield collate(samples), samples, pending_idx
 
 
-def make_eval_loaders(cfg, data_root: str = "datasets"):
-    """[(dataset name, EvalLoader)] for ``cfg.DATASETS.TEST``."""
+def make_eval_loaders(cfg, data_root: str = "datasets",
+                      process_count: Optional[int] = None,
+                      process_index: Optional[int] = None):
+    """[(dataset name, EvalLoader)] for ``cfg.DATASETS.TEST``, each sharded
+    ``process_index::process_count`` (by default ``torch.distributed``'s
+    rank and world size when it is initialized, else unsharded)."""
+    pc, pi = process_count_and_index(process_count, process_index)
     names = cfg.DATASETS.TEST
     pfiles = cfg.PROPOSAL_FILES.TEST or (None,) * len(names)
     loaders = []
@@ -154,5 +163,5 @@ def make_eval_loaders(cfg, data_root: str = "datasets"):
             cfg.INPUT.TO_BGR255))
         loaders.append((n, EvalLoader(ds, transform, collator_from_cfg(cfg),
                                       cfg.TEST.IMS_PER_BATCH,
-                                      cfg.DATALOADER.NUM_WORKERS)))
+                                      cfg.DATALOADER.NUM_WORKERS, pc, pi)))
     return loaders

@@ -18,7 +18,15 @@ transform's frame, then merged in the transforms' order by AVG (mean of
 scores and boxes, the shipped default) or UNION (concatenation). One
 per-class NMS pass finishes each batch.
 
-Not ported here: the int8 calibration and the multi-process gather.
+int8 serving (``models/vgg16.py``): with ``TPU.INT8_STATIC`` and
+``TPU.INT8_EVAL_CONVS`` the conv scales are calibrated before serving,
+over the first ``TPU.INT8_CALIB_BATCHES`` batches and every TTA transform
+(host resize), or loaded from ``OUTPUT_DIR/int8_scales.npz``, a file the JAX
+package reads and writes too (``save_int8_scales``, ``load_int8_scales``).
+
+Several processes (``torch.distributed`` initialized, one eval shard a
+rank): each rank writes its predictions to a shard file in the output
+folder and rank 0 merges them (``gather_predictions``) and evaluates.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ..evaluation.voc_eval import do_corloc_evaluation, do_voc_evaluation
 from ..models.detector import Batch
 from ..ops.device_resize import resize_image_batch, scale_boxes_batch
 from ..utils.device import resolve_device
+from ..utils.dist import process_count_and_index
 from .postprocess import (detections_to_host, finalize_detections_device,
                           resize_detections)
 
@@ -142,6 +151,78 @@ def _match_mask(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return mask.repeat(1, k) if k > 1 else mask
 
 
+def gather_predictions(predictions: Dict[int, dict], dataset_len: int,
+                       output_folder: Optional[str],
+                       process_count: Optional[int] = None,
+                       process_index: Optional[int] = None,
+                       timeout_s: float = 600.0):
+    """Merge the per-process prediction shards {image index: detections}
+    into one list in image order, on process 0; other processes return
+    None. ``process_count`` and ``process_index`` default to
+    ``torch.distributed``'s world size and rank when it is initialized.
+
+    One process returns its sorted list and writes nothing. Otherwise each
+    process writes ``predictions_shard_{i}.pkl`` in ``output_folder``
+    atomically (a temporary file, then a rename); process 0 polls for the
+    others' shards until ``timeout_s`` (then ``TimeoutError``), raises on
+    image indices that two shards share and on a merged count other than
+    ``dataset_len``."""
+    pc, pi = process_count_and_index(process_count, process_index)
+    if pc <= 1:
+        return [predictions[i] for i in sorted(predictions)]
+    if not output_folder:
+        raise ValueError("multi-process eval needs a shared output_folder "
+                         "to gather prediction shards")
+    shard = os.path.join(output_folder, f"predictions_shard_{pi}.pkl")
+    with open(shard + ".tmp", "wb") as f:
+        pickle.dump(predictions, f)
+    os.replace(shard + ".tmp", shard)
+    if pi != 0:
+        return None
+    merged = dict(predictions)
+    deadline = time.time() + timeout_s
+    for other in range(1, pc):
+        path = os.path.join(output_folder, f"predictions_shard_{other}.pkl")
+        while not os.path.exists(path):
+            if time.time() > deadline:
+                raise TimeoutError(f"eval shard {other} never appeared at "
+                                   f"{path}")
+            time.sleep(0.2)
+        with open(path, "rb") as f:   # written by another rank, above
+            part = pickle.load(f)
+        overlap = set(merged) & set(part)
+        if overlap:
+            raise RuntimeError(f"prediction shards overlap on image ids "
+                               f"{sorted(overlap)[:5]}...")
+        merged.update(part)
+    if len(merged) != dataset_len:
+        raise RuntimeError(f"gathered {len(merged)} predictions for a "
+                           f"{dataset_len}-image dataset (missing shards?)")
+    return [merged[i] for i in sorted(merged)]
+
+
+def save_int8_scales(path: str, model) -> None:
+    """The backbone's calibrated activation scales as an ``.npz`` with the
+    keys of the JAX package's "quant" collection (``backbone/conv<i>_act``)."""
+    np.savez(path, **{f"backbone/conv{i}_act": a.detach().cpu().numpy()
+                      for i, a in sorted(model.backbone.act_amax.items())})
+
+
+def load_int8_scales(path: str) -> Dict[int, torch.Tensor]:
+    """{conv index: abs-max tensor} from an ``.npz`` of either package: a
+    [Cin] vector each, or a 0-d scalar from an older file."""
+    out = {}
+    with np.load(path) as z:
+        for key in z.files:
+            head, _, name = key.rpartition("/")
+            if head != "backbone" or not (name.startswith("conv")
+                                          and name.endswith("_act")):
+                raise ValueError(f"{path}: unexpected int8 scale {key!r}")
+            out[int(name[4:-4])] = torch.from_numpy(
+                np.asarray(z[key], np.float32))
+    return out
+
+
 class Inferencer:
     """Runs eval forwards (with TTA) and post-processing for one model.
 
@@ -149,7 +230,13 @@ class Inferencer:
     device loop waiting on host resize + collate + upload, or with
     ``TPU.EVAL_DEVICE_RESIZE`` on the base upload), ``forward_s``
     (resizes, forwards, flips and the merge, synchronized per batch) and
-    ``finalize_s`` (per-class NMS, top-K and the transfer to the host).
+    ``finalize_s`` (per-class NMS, top-K and the transfer to the host)
+    and ``calib_s`` (the int8 calibration forwards, synchronized).
+
+    With ``TPU.INT8_STATIC`` and ``TPU.INT8_EVAL_CONVS`` on (the model's
+    backbone's ``int8_static`` and ``int8_eval``) and no scales yet,
+    ``calibrate`` sweeps a loader first; ``forward_batch`` calibrates on
+    its own batch when nobody did.
     """
 
     def __init__(self, model, cfg, device="cuda"):
@@ -167,14 +254,52 @@ class Inferencer:
                             and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                             else torch.float32)
         self.timings = {"prep_wait_s": 0.0, "forward_s": 0.0,
-                        "finalize_s": 0.0}
-        self.n_forwards = 0
+                        "finalize_s": 0.0, "calib_s": 0.0}
+        self.n_forwards = self.n_calib_forwards = 0
+        # a ResNet backbone, or a model without one, has no int8 serving
+        bb = getattr(model, "backbone", None)
+        self.needs_calib = bool(getattr(bb, "int8_static", False)
+                                and getattr(bb, "int8_eval", False)
+                                and not bb.act_amax)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _calib_step(self, batch: Batch) -> None:
+        """One calibration forward: the running abs-maxes take this batch."""
+        t0 = time.perf_counter()
+        self.n_calib_forwards += 1
+        self.model.eval_forward(batch, calibrate=True)
+        self._sync()
+        self.timings["calib_s"] += time.perf_counter() - t0
+
+    def calibrate(self, eval_loader, n_batches: int) -> None:
+        """The static-int8 calibration sweep: calibration forwards over the
+        first ``n_batches`` items ``(batch, samples, _)`` of the loader,
+        across every TTA transform when TTA is on (host resize), so the
+        scales cover the largest serving scale."""
+        if not self.needs_calib:
+            return
+        transforms = self.tta.transforms() if self.tta.enabled else None
+        n_done = 0
+        for batch, samples, _ in eval_loader:
+            if transforms is None:
+                self._calib_step(batch.to(self.device))
+            else:
+                for tr in transforms:
+                    self._calib_step(self.collator(
+                        [tr(s) for s in samples]).to(self.device))
+            n_done += 1
+            if n_done >= n_batches:
+                break
+        self.needs_calib = False
+        logger.info("int8 static calibration: %d batches swept", n_done)
+
     def forward_batch(self, batch: Batch):
+        if self.needs_calib:
+            self._calib_step(batch)
+            self.needs_calib = False
         self.n_forwards += 1
         return self.model.eval_forward(batch)
 
@@ -245,6 +370,9 @@ class Inferencer:
         transforms = self.tta.transforms()
         groups = _tta_groups(transforms)
         union = self.tta.heur == "UNION"
+        if self.device_resize and not union and self.needs_calib:
+            # the int8 calibration sweeps the host path once
+            self.calibrate([(None, samples, None)], 1)
         sum_scores = sum_boxes = ref_sizes = mask0 = None
         union_scores, union_boxes = [], []
         t_i = 0
@@ -322,6 +450,22 @@ def _lookahead(items, pool, prep):
         yield prev
 
 
+def _int8_scales(inferencer, model, cfg, eval_loader) -> None:
+    """Load the static int8 scales from ``OUTPUT_DIR/int8_scales.npz``, or
+    calibrate and write that file (rank 0)."""
+    path = os.path.join(cfg.OUTPUT_DIR, "int8_scales.npz")
+    if os.path.exists(path):
+        model.backbone.act_amax = {
+            i: a.to(inferencer.device) for i, a in load_int8_scales(path).items()}
+        inferencer.needs_calib = False
+        logger.info("Loaded int8 scales from %s", path)
+        return
+    inferencer.calibrate(eval_loader, cfg.TPU.INT8_CALIB_BATCHES)
+    if process_count_and_index()[1] == 0 and os.path.isdir(cfg.OUTPUT_DIR):
+        save_int8_scales(path, model)
+        logger.info("Saved int8 scales to %s", path)
+
+
 def inference(model, cfg, eval_loader, dataset, output_folder=None,
               task: str = "det", use_cached: bool = True, device="cuda",
               timing_out: Optional[dict] = None):
@@ -329,9 +473,15 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
 
     Predictions are cached in ``output_folder/predictions.pkl`` and reused
     when ``use_cached``. ``timing_out``, when given, receives
-    ``n_images``, ``n_forwards``, ``wall_s`` (the prediction loop),
-    ``load_wait_s`` (waiting on image decode), the Inferencer's stage times
-    and ``eval_s``.
+    ``n_images``, ``n_forwards``, ``n_calib_forwards``, ``wall_s`` (the
+    prediction loop), ``load_wait_s`` (waiting on image decode), the
+    Inferencer's stage times and ``eval_s``.
+
+    Static int8 serving loads ``cfg.OUTPUT_DIR/int8_scales.npz`` when it
+    exists, else calibrates (before the loop, not counted in ``wall_s``)
+    and writes it on rank 0. With several processes (``torch.distributed``
+    initialized, the loader sharded by rank) rank 0 merges the shards and
+    evaluates; the other ranks return None.
     """
     pred_path = (os.path.join(output_folder, "predictions.pkl")
                  if output_folder else None)
@@ -342,8 +492,11 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
         logger.info("Loaded cached predictions from %s", pred_path)
     else:
         inferencer = Inferencer(model, cfg, device)
+        if inferencer.needs_calib:
+            _int8_scales(inferencer, model, cfg, eval_loader)
         tr0 = inferencer.tta.transforms()[0]
-        prefetch = cfg.TEST.BBOX_AUG.ENABLED and inferencer.device_resize
+        prefetch = (cfg.TEST.BBOX_AUG.ENABLED and inferencer.device_resize
+                    and not inferencer.needs_calib)
         predictions = {}
         n_images, load_wait = 0, 0.0
 
@@ -385,9 +538,15 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
         logger.info("Inference: %d images in %.1fs (%.4f s/img)", n_images,
                     wall, wall / max(n_images, 1))
         timing.update(n_images=n_images, n_forwards=inferencer.n_forwards,
+                      n_calib_forwards=inferencer.n_calib_forwards,
                       wall_s=wall, load_wait_s=load_wait,
                       **inferencer.timings)
-        predictions = [predictions[i] for i in sorted(predictions)]
+        predictions = gather_predictions(predictions, len(dataset),
+                                         output_folder)
+        if predictions is None:          # another rank evaluates
+            if timing_out is not None:
+                timing_out.update(timing)
+            return None
         if pred_path:
             with open(pred_path, "wb") as f:
                 pickle.dump(predictions, f)

@@ -13,6 +13,11 @@ attention proposals and adds the CAM loss. Backbones: VGG16
 (``VGG16-OICR``, stride 8) and ResNet (``R-{18,50,101}-C{4,5}``, stride
 16, with the ``ResNetRoINeck`` 7*7*C -> 2048 -> ``mlp_dim``).
 
+int8 serving (``TPU.INT8_EVAL`` for fc6/fc7, ``INT8_EVAL_CONVS``,
+``INT8_STATIC``, ``INT8_BF16_LAYERS`` for the convs; ``eval_forward``
+only, ``models/vgg16.py``): VGG16 only. As in the JAX package, a ResNet
+backbone ignores the four keys; the port logs a warning when one is set.
+
 Static padded layout as in the JAX package: images [B, H, W, 3] NHWC,
 proposals [B, P, 4] with a [B, P] mask.
 """
@@ -20,6 +25,7 @@ proposals [B, P, 4] with a [B, P] mask.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -41,6 +47,8 @@ from .sim_net import SimNet
 from .vgg16 import VGGBackbone, VGGRoINeck
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+logger = logging.getLogger("odwscl_tpu_torch.detector")
 
 
 @dataclasses.dataclass
@@ -85,10 +93,14 @@ class WSODDetector(nn.Module):
                  temperature: float = 0.2, loss_type: str = "supconv2",
                  fg_iou: float = 0.5, cap_a: int = 768, cap_b: int = 256,
                  gt_cap: int = 128, neck_dropout: float = 0.5,
-                 freeze_at: int = 2):
+                 freeze_at: int = 2, int8_eval: bool = False,
+                 int8_eval_convs: bool = False, int8_static: bool = False,
+                 int8_bf16_layers: Tuple[int, ...] = ()):
         """``freeze_at`` is ``FREEZE_CONV_BODY_AT``; each backbone reads it
         (VGG: the first ``FREEZE_CONV_COUNTS[at - 1]`` convolutions;
-        ResNet: the stem and layer1 when it is > 0)."""
+        ResNet: the stem and layer1 when it is > 0). The ``int8_*`` fields
+        are ``TPU.INT8_EVAL``, ``INT8_EVAL_CONVS``, ``INT8_STATIC`` and
+        ``INT8_BF16_LAYERS`` (VGG16 only)."""
         super().__init__()
         if predictor not in PREDICTORS:
             raise ValueError(f"unknown PREDICTOR {predictor!r}")
@@ -118,11 +130,20 @@ class WSODDetector(nn.Module):
         dtype = _DTYPES[compute_dtype]
         self.compute_dtype = dtype
         if backbone_arch.startswith("VGG16"):
-            self.backbone = VGGBackbone(backbone_arch, dtype, freeze_at)
+            self.backbone = VGGBackbone(backbone_arch, dtype, freeze_at,
+                                        int8_eval_convs, int8_static,
+                                        int8_bf16_layers)
             channels = 512
             self.neck = VGGRoINeck(channels * pooler_resolution ** 2,
-                                   mlp_dim, dtype, neck_dropout)
+                                   mlp_dim, dtype, neck_dropout,
+                                   int8_eval=int8_eval)
         elif backbone_arch.startswith("R-"):
+            if int8_eval or int8_eval_convs or int8_static:
+                logger.warning(
+                    "TPU.INT8_EVAL / INT8_EVAL_CONVS / INT8_STATIC are "
+                    "ignored for the %s backbone: int8 serving covers VGG16 "
+                    "only (as in the JAX package); this model evaluates in "
+                    "%s", backbone_arch, compute_dtype)
             depth = "-".join(backbone_arch.split("-")[:2])
             stages_out = 5 if backbone_arch.endswith("C5") else 4
             self.backbone = ResNetBackbone(depth, stages_out, dtype, freeze_at)
@@ -159,17 +180,27 @@ class WSODDetector(nn.Module):
         return RoIPoolFunction.apply(feats, boxes, mask, self.pooler_scale)
 
     @torch.no_grad()
-    def eval_forward(self, batch: Batch):
+    def eval_forward(self, batch: Batch, calibrate: bool = False):
         """(scores [B,P,C], boxes) per REGRESS_HEUR: AVG gives decoded
         per-class boxes [B,P,4C] clipped to the image; UNION gives one copy
         per refinement branch ([B,R*P,C], [B,R*P,4C]); WSDDN and CLS-AVG
         give the raw proposals [B,P,4]. A WSDDN predictor takes the WSDDN
         branch whatever REGRESS_HEUR says. Without box deltas (OICR) AVG
-        and UNION raise, unless REGRESS_ON is False (CLS-AVG)."""
-        feats = self.backbone(batch.images)
+        and UNION raise, unless REGRESS_ON is False (CLS-AVG).
+
+        The int8 serving paths apply here: the VGG16 convs with
+        ``int8_eval_convs`` (``calibrate`` runs them in the compute dtype
+        and records their activation scales) and fc6/fc7 with
+        ``int8_eval``."""
+        vgg = isinstance(self.backbone, VGGBackbone)
+        feats = (self.backbone(batch.images, fast_eval=True,
+                               calibrate=calibrate)
+                 if vgg else self.backbone(batch.images))
         pooled = self.pool(feats, batch.boxes, batch.box_mask)
         b, p = pooled.shape[:2]
-        clean = self.neck(pooled.reshape(b * p, -1)).reshape(b, p, -1)
+        flat = pooled.reshape(b * p, -1)
+        clean = (self.neck(flat, fast_eval=True) if vgg
+                 else self.neck(flat)).reshape(b, p, -1)
         cls, det, refs, bbox = self.pred(clean, batch.box_mask)
 
         if self.predictor == "WSDDNPredictor" or self.regress_heur == "WSDDN":
@@ -383,4 +414,8 @@ def detector_from_cfg(cfg) -> WSODDetector:
         cap_a=cfg.TPU.BANK_CAPACITY,
         cap_b=max(cfg.TPU.BANK_CAPACITY // 4, 64),
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
+        int8_eval=cfg.TPU.INT8_EVAL,
+        int8_eval_convs=cfg.TPU.INT8_EVAL_CONVS,
+        int8_static=cfg.TPU.INT8_STATIC,
+        int8_bf16_layers=tuple(cfg.TPU.INT8_BF16_LAYERS),
     )

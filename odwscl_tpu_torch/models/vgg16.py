@@ -18,15 +18,29 @@ and the output features return to NHWC with a free permute. The TPU's
 space-to-depth stem (``ops/s2d_stem.py``) is an exact re-association of
 conv1_1, conv1_2 and pool1 with the same parameters, so the plain stem
 here is its counterpart.
+
+int8 serving (``TPU.INT8_EVAL_CONVS``, ``INT8_STATIC``,
+``INT8_BF16_LAYERS``; ``TPU.INT8_EVAL`` for the neck): in ``eval_forward``
+only, the convs from index 2 on run ``ops/quant.py:conv2d_int8`` (the
+stem stays in the compute dtype). A calibration forward records each int8
+conv's per-input-channel abs-max as a running maximum while it runs the
+plain conv; ``int8_static`` then quantizes with those scales instead of
+each batch's own abs-max. The recorded scales live in ``act_amax``, a
+plain dict outside the ``state_dict``, so every checkpoint still loads
+strictly; ``engine/inference.py`` saves and loads them as the JAX
+package's ``int8_scales.npz``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.quant import (conv2d_int8, conv_weight_codes, dense_int8,
+                         quantize_weights)
 
 # Conv counts delimiting the freeze blocks: FREEZE_CONV_BODY_AT = k freezes
 # the first FREEZE_CONV_COUNTS[k - 1] convolutions.
@@ -44,16 +58,39 @@ VGG_CFGS = {
 }
 
 
+def _version(t: torch.Tensor):
+    """What identifies a tensor's values: its storage, device and in-place
+    update count (``_version``; an optimizer step or a load bumps it)."""
+    return t.data_ptr(), t.device, t._version
+
+
+def _kept(cache: dict, slot, key, make):
+    """``cache[slot]``'s value while its key is ``key``, else ``make()``."""
+    hit = cache.get(slot)
+    if hit is None or hit[0] != key:
+        hit = cache[slot] = (key, make())
+    return hit[1]
+
+
 class VGGBackbone(nn.Module):
     """NHWC images [B, H, W, 3] -> NHWC features [B, H/8, W/8, 512]
     (OICR variant), contiguous."""
 
     def __init__(self, arch: str = "VGG16-OICR",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 freeze_at: int = 0):
+                 freeze_at: int = 0, int8_eval: bool = False,
+                 int8_static: bool = False,
+                 int8_bf16_layers: Tuple[int, ...] = ()):
         super().__init__()
         self.arch = arch
         self.compute_dtype = compute_dtype
+        self.int8_eval = int8_eval
+        self.int8_static = int8_static
+        self.int8_bf16_layers = tuple(int8_bf16_layers)
+        # conv index -> calibrated per-input-channel abs-max [Cin] (or a 0-d
+        # abs-max from an old scales file); not in the state_dict
+        self.act_amax: Dict[int, torch.Tensor] = {}
+        self._wq: Dict[int, tuple] = {}   # conv index -> (key, weight codes)
         self.spec = VGG_CFGS[arch]
         self._layers = []  # (conv index, dilation) or "M"
         cin, i = 3, 0
@@ -82,8 +119,28 @@ class VGGBackbone(nn.Module):
                                 generator=generator)
             conv.bias.zero_()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def _weight_codes(self, i: int, weight: torch.Tensor,
+                      scale: Optional[torch.Tensor]):
+        """conv ``i``'s ``conv_weight_codes``, kept until its weight or its
+        scales change."""
+        key = (_version(weight), None if scale is None else _version(scale))
+        return _kept(self._wq, i, key,
+                     lambda: conv_weight_codes(weight.detach(), scale))
+
+    def int8_convs(self) -> Tuple[int, ...]:
+        """The conv indices that run in int8 on the serving path."""
+        if not self.int8_eval:
+            return ()
+        return tuple(i for i in range(2, self.num_convs)
+                     if i not in self.int8_bf16_layers)
+
+    def forward(self, images: torch.Tensor, fast_eval: bool = False,
+                calibrate: bool = False) -> torch.Tensor:
+        """``fast_eval`` (eval only) takes the int8 convs when
+        ``int8_eval``; with ``calibrate`` they run the plain conv and
+        record their inputs' per-channel abs-maxes into ``act_amax``."""
         dt = self.compute_dtype
+        int8 = self.int8_convs() if fast_eval else ()
         x = images.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels_last
         for layer in self._layers:
             if layer == "M":
@@ -91,10 +148,30 @@ class VGGBackbone(nn.Module):
                 continue
             i, dil = layer
             conv = getattr(self, f"conv{i}")
+            # the reference strips the final ReLU
+            relu = i + 1 < self.num_convs
+            if i in int8 and calibrate:
+                amax = x.abs().amax(dim=(0, 2, 3)).to(torch.float32)
+                prev = self.act_amax.get(i)
+                self.act_amax[i] = (amax if prev is None else
+                                    torch.maximum(prev.to(amax.device), amax))
+            elif i in int8:
+                scale = None
+                if self.int8_static:
+                    if i not in self.act_amax:
+                        raise RuntimeError(
+                            f"int8 static serving: conv{i} has no calibrated "
+                            "scale (run a calibration forward or load "
+                            "int8_scales.npz first)")
+                    scale = self.act_amax[i]
+                x = conv2d_int8(x.permute(0, 2, 3, 1), conv.weight, conv.bias,
+                                dil, dil, dt, scale, relu,
+                                self._weight_codes(i, conv.weight, scale)
+                                ).permute(0, 3, 1, 2)
+                continue
             x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
                          padding=dil, dilation=dil)
-            # the reference strips the final ReLU
-            if i + 1 < self.num_convs:
+            if relu:
                 x = F.relu(x)
         return x.permute(0, 2, 3, 1).contiguous()
 
@@ -106,9 +183,12 @@ class VGGRoINeck(nn.Module):
 
     def __init__(self, in_dim: int = 512 * 7 * 7, hidden_dim: int = 4096,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.5, mid_dim: Optional[int] = None):
+                 dropout_rate: float = 0.5, mid_dim: Optional[int] = None,
+                 int8_eval: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.int8_eval = int8_eval
+        self._wq: Dict[int, tuple] = {}   # fc6, fc7 -> (key, weight codes)
         self.dropout_rate = dropout_rate
         mid_dim = mid_dim or hidden_dim
         self.fc6 = nn.Linear(in_dim, mid_dim)
@@ -124,6 +204,11 @@ class VGGRoINeck(nn.Module):
                                 device=device) >= self.dropout_rate
                      for fc in (self.fc6, self.fc7))
 
+    def _weight_codes(self, li: int, weight: torch.Tensor):
+        """The layer's ``quantize_weights``, kept until its weight changes."""
+        return _kept(self._wq, li, _version(weight),
+                     lambda: quantize_weights(weight.detach()))
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         for fc in (self.fc6, self.fc7):
@@ -131,14 +216,20 @@ class VGGRoINeck(nn.Module):
             fc.bias.zero_()
 
     def forward(self, x: torch.Tensor,
-                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                fast_eval: bool = False) -> torch.Tensor:
         """``keep``: the fc6 and fc7 keep masks of these rows (train-mode
-        dropout, kept units scaled by 1 / (1 - rate)), or None."""
+        dropout, kept units scaled by 1 / (1 - rate)), or None.
+        ``fast_eval`` (eval only) runs both layers in int8 (``dense_int8``)
+        when ``int8_eval``."""
         dt = self.compute_dtype
+        int8 = fast_eval and self.int8_eval
         x = x.reshape(x.shape[0], -1).to(dt)
         for li, fc in enumerate((self.fc6, self.fc7)):
-            x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
+            x = F.relu(dense_int8(x, fc.weight, fc.bias, dt,
+                                  self._weight_codes(li, fc.weight))
+                       if int8 else
+                       F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
             if keep is not None:
                 x = torch.where(keep[li], x / (1.0 - self.dropout_rate),
                                 0.0).to(dt)

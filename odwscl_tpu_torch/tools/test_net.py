@@ -7,8 +7,11 @@
 ``--weights`` takes a port ``.pt`` (a state_dict or a training checkpoint
 of ``tools/train_net.py``), an ``.npz`` of the JAX package's flax params
 (``/``-joined keys; utils/from_jax.py) or a trained reference OD-WSCL
-``.pth`` (``import_reference_checkpoint``, VGG16). Without weights the
-model is a seeded random init (``cfg.SEED``) and a warning is logged.
+``.pth`` (``import_reference_checkpoint``, VGG16); a directory (the JAX
+package's Orbax checkpoint) is refused: its import is not ported. Without
+weights the model is a seeded random init (``cfg.SEED``) and a warning is
+logged. The ``TPU.INT8_*`` keys select int8 serving (VGG16;
+engine/inference.py), with no flag of their own.
 Results go to ``OUTPUT_DIR/inference/<dataset>/``. Needs Pillow.
 """
 
@@ -44,6 +47,12 @@ def load_model(cfg, weights=None):
     from odwscl_tpu_torch.utils.weight_import import \
         import_reference_checkpoint
 
+    if weights is not None and os.path.isdir(weights):
+        raise ValueError(
+            f"--weights {weights} is a directory, as the JAX package's Orbax "
+            "checkpoints are: importing an Orbax checkpoint is not ported. "
+            "Pass a flax-params .npz (odwscl_tpu_torch/utils/from_jax.py), a "
+            "port .pt or a reference .pth")
     model = detector_from_cfg(cfg)
     if weights is None:
         logging.getLogger("odwscl_tpu_torch").warning(

@@ -11,6 +11,9 @@ import torch
 # outside the tensor cores, for the comparisons of the pooling kernels.
 MEM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100": 3.35e12, "H200": 4.8e12}
 F32_OPS_PER_S = {"H100 PCIe": 51.0e12, "H100": 67.0e12, "H200": 67.0e12}
+# dense int8 tensor-core rate, for the int8 convolution kernel's bound
+INT8_OPS_PER_S = {"H100 PCIe": 1513.0e12, "H100": 1979.0e12,
+                  "H200": 1979.0e12}
 
 
 def card_rate(name: str, table: dict) -> float:

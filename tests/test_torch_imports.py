@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
 Every module of ``odwscl_tpu_torch`` (the training, ResNet, weight-import,
-device-resize, Concrete DropBlock and CAM modules named below among them)
+device-resize, Concrete DropBlock, CAM and int8 serving modules named below
+among them)
 and ``chip_smoke.py``
 is imported in a subprocess where ``jax``, ``flax``, ``optax`` and
 ``odwscl_tpu`` are blocked
@@ -34,9 +35,10 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "utils.checkpoint", "tools.train_net", "tools.profile_train",
                  "ops.roi_pool_stages", "tools.profile_pool_stages",
                  "models.resnet", "utils.weight_import", "ops.device_resize",
-                 "models.cdb", "models.cam", "models.cam_proposals"):
+                 "models.cdb", "models.cam", "models.cam_proposals",
+                 "ops.quant", "utils.dist"):
     assert "odwscl_tpu_torch." + required in names, required
-assert len(names) >= 48, names
+assert len(names) >= 50, names
 """
 
 
