@@ -6,8 +6,9 @@
 Phases (any failure ends the run with a non-zero exit code):
 1. Print the card's name and power limit; build the ROIPool forward
    kernel, with the stage profiler's instantiations, the backward kernel
-   (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd}.cu) and the int8 conv kernel
-   (csrc/conv_int8.cu) with nvcc for sm_90a, all at once.
+   (odwscl_tpu_torch/csrc/roi_pool_{fwd,bwd}.cu), the int8 conv kernel
+   (csrc/conv_int8.cu) and the int8 quantize kernel (csrc/quant_int8.cu)
+   with nvcc for sm_90a, all at once.
 2. Hold both instantiations of the forward kernel against their plain
    PyTorch versions on the card, bit-exactly (atol 0) in f32 and bf16: the
    output against ``roi_pool_plain`` and the training forward's int16
@@ -90,25 +91,40 @@ Phases (any failure ends the run with a non-zero exit code):
    WSDDN heads without regression or mining, each then evaluated with
    the device-resize TTA as in 8. No path launches a stage kernel.
 11. (Run after 5.) Hold the int8 conv kernel
-   (odwscl_tpu_torch/csrc/conv_int8.cu, built in 1) against its plain versions bit for bit: its
-   int32 ``ACC`` instantiation against ``conv2d_int8_acc_plain`` (a float64
+   (odwscl_tpu_torch/csrc/conv_int8.cu, built in 1) against its plain
+   versions bit for bit on its wgmma + TMA main loop: the int32 ``ACC``
+   output of both wgmma tiles against ``conv2d_int8_acc_plain`` (a float64
    convolution of the codes) and its fused dequantize against
    ``dequantize_plain`` (values: -0.0 equals 0.0), at the 11 VGG16 int8
    layer shapes of the 480 scale (B = 8) and at 37x53 (B = 1, 2; both
-   dilations; bf16 and f32), each in the three activation-scale modes.
-   Then time it at the 11 shapes of the 1200 scale (B = 8, 1280x1664) in
-   turns beside its bound, the int8 im2col + ``torch._int_mm`` route,
-   cuDNN's bf16 conv and the quantize pass, and the plain version once;
-   and the neck's ``torch._int_mm`` (fc6, fc7 at 16,384 rows) beside
-   ``F.linear`` in bf16.
-12. (Run after 8.) Serve the checkpoint of 7 in static int8 (``TPU.INT8_EVAL``,
-   ``INT8_EVAL_CONVS``, ``INT8_STATIC``; device-resize TTA; det), after a
-   bf16 run of the same: the first int8 run calibrates (2 batches x 14
-   transforms) and writes ``int8_scales.npz``, the second loads a copy and
-   must give identical predictions. The int8 conv kernel launches 11 times
-   a forward and never while calibrating; the backbone features of a
-   1200-scale batch stay within 0.25 of bf16's largest (the JAX package's
-   bound); the merged detections' gap to bf16 is printed.
+   dilations; bf16 and f32), each in the three activation-scale modes; and
+   its fused next-layer codes against the plain quantize of the plain
+   dequantize, per-channel (with power-of-two scales: exact ties) and
+   per-tensor scales, pooled and not. Hold the quantize kernel
+   (csrc/quant_int8.cu) against its plain versions bit for bit in each
+   mode (map per channel and per tensor, dynamic per tensor, dynamic per
+   row), with half-way ties, saturated codes, all-zero tensors and rows.
+   Then time, at the 11 shapes of the 1200 scale (B = 8, 1280x1664) in
+   turns, the conv kernel in the static path's output mode and in the
+   other (each beside its bound), its mma.sync main loop, the int8 im2col
+   + ``torch._int_mm`` route, cuDNN's bf16 conv, and the plain version
+   once; the quantize kernel at each layer's input (static map, dynamic)
+   beside its plain versions and PR 8's ``quantize_conv_input``; and the
+   neck's row quantize and ``torch._int_mm`` (fc6, fc7 at 16,384 rows)
+   beside ``F.linear`` in bf16.
+12. (Run after 8.) Serve the checkpoint of 7 in int8 (``TPU.INT8_EVAL``,
+   ``INT8_EVAL_CONVS``; device-resize TTA; det) after a bf16 run of the
+   same: twice static (``INT8_STATIC``), where the first run calibrates (2
+   batches x 14 transforms) and writes ``int8_scales.npz`` and the second
+   loads a copy and must give identical predictions, then once dynamic.
+   The launches must follow the layer plan: the int8 conv kernel 11 times
+   a forward and never while calibrating; the quantize kernel 3 times a
+   static forward (conv2's input, the neck's two row sets), 24 a dynamic
+   one, 2 a calibration forward; no plain activation quantize on a CUDA
+   tensor. On a 1200-scale batch the fused static backbone equals the
+   unfused chain bit for bit, and its features stay within 0.25 of bf16's
+   largest (the JAX package's bound); the merged detections' gap to bf16
+   and each run's images/s are printed.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -1357,16 +1373,39 @@ def int8_act_scale(mode, x):
     return amax
 
 
+def next_scales(q, y, kind, pow2=True):
+    """The next conv's input scales [C] for the fused output of y (NHWC), as
+    a calibration on y gives them: per channel from y's channel abs-maxes,
+    or y's per-tensor scale broadcast. Those abs-maxes are bf16 values, so
+    many quotients of y by their scales are exact half-integer ties before
+    the scale's rounding (the epilogue's exact tie decision); with
+    ``pow2`` every 4th channel's scale is also rounded to a power of two
+    (exact quotients: ties that stay ties)."""
+    import torch
+
+    if kind == "scalar":
+        return q.per_tensor_scale(y.abs().amax().float()).expand(
+            y.shape[-1]).contiguous()
+    s = q.channel_scales(y.abs().amax(dim=(0, 1, 2)).float())[0]
+    if pow2:
+        s[::4] = torch.exp2(torch.round(torch.log2(s[::4])))
+    return s
+
+
 def phase_int8_kernel(dev, q):
-    """The int8 conv kernel against its plain versions, bit for bit: the
-    int32 ``ACC`` instantiation against ``conv2d_int8_acc_plain`` (a
-    float64 convolution of the codes, exact) and the fused dequantize
-    (bf16, and f32 on the awkward shapes) against ``dequantize_plain`` of
-    that accumulator, compared as values (-0.0 equals 0.0). Every VGG16
-    int8 layer shape at the 480 scale (B = 8) and awkward sizes (37x53,
-    B = 1 and 2, both dilations), each in the three activation-scale modes
-    (quantized on the card by ``quantize_conv_input``). Returns the largest
-    absolute difference (0)."""
+    """The int8 conv kernel against its plain versions, bit for bit, on the
+    wgmma + TMA main loop: the int32 ``ACC`` output of both wgmma tiles
+    against ``conv2d_int8_acc_plain`` (a float64 convolution of the codes,
+    exact), the fused dequantize (bf16, and f32 on the awkward shapes)
+    against ``dequantize_plain`` of that accumulator, compared as values
+    (-0.0 equals 0.0), and the fused next-layer codes against
+    ``_quantize(dequantize_plain(acc, ..., relu), s_next)`` (then pooled:
+    ``max_pool_nhwc`` before the quantize), per-channel and per-tensor
+    ``s_next`` (``next_scales``), pooled and not. Every VGG16 int8 layer
+    shape at the 480 scale (B = 8) and awkward sizes (37x53, B = 1 and 2,
+    both dilations), each in the three activation-scale modes (quantized on
+    the card by ``quantize_conv_input``). Returns the largest absolute
+    difference (0)."""
     import torch
     from odwscl_tpu_torch.tools.tune_conv_int8 import (CANVAS, INT8_LAYERS,
                                                        conv_inputs)
@@ -1383,20 +1422,21 @@ def phase_int8_kernel(dev, q):
               ("37x53 B=2 dil 2", 2, 37, 53, 128, 256, 2, True,
                (torch.float32,))]
     worst = 0.0
-    n = 0
+    n = n_codes = 0
     for label, b, h, w, cin, cout, d, relu, dtypes in cases:
         x, wt, bias = conv_inputs(dev, gen, b, h, w, cin, cout)
         for mode in ("dynamic", "scalar", "channel"):
             xq, kq, scale = q.quantize_conv_input(x, wt,
                                                   int8_act_scale(mode, x))
-            acc = q.conv_int8_acc(xq, kq, d, d)
             ref = q.conv2d_int8_acc_plain(xq, kq, d, d)
-            torch.cuda.synchronize()
-            if not torch.equal(acc, ref):
-                bad = int((acc != ref).sum())
-                raise AssertionError(f"int8 conv {label} {mode}: ACC differs "
-                                     f"from the plain accumulator at {bad} "
-                                     "values")
+            for tile in ("wg128x128", "wg256x128"):
+                acc = q.conv_int8_acc(xq, kq, d, d, tile)
+                torch.cuda.synchronize()
+                if not torch.equal(acc, ref):
+                    bad = int((acc != ref).sum())
+                    raise AssertionError(f"int8 conv {label} {mode} {tile}: "
+                                         f"ACC differs from the plain "
+                                         f"accumulator at {bad} values")
             for dt in dtypes:
                 y = q.conv_int8_nhwc(xq, kq, scale, bias, d, d, dt, relu)
                 want = q.dequantize_plain(ref, scale, bias, dt, relu)
@@ -1408,13 +1448,120 @@ def phase_int8_kernel(dev, q):
                                          f"max |d| {diff} against the plain "
                                          "dequantize")
                 n += 1
-            del acc, ref
+        # the fused next-layer codes, on the channel mode's codes
+        for dt in dtypes:
+            y = q.dequantize_plain(ref, scale, bias, dt, True)
+            for kind in ("channel", "scalar"):
+                s_next = next_scales(q, y, kind)
+                for pool in (False, True):
+                    got = q.conv_int8_nhwc(xq, kq, scale, bias, d, d, dt,
+                                           True, out_scale=s_next, pool=pool)
+                    want = q._quantize(q.max_pool_nhwc(y) if pool else y,
+                                       s_next)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        bad = int((got != want).sum())
+                        raise AssertionError(
+                            f"int8 conv {label} {dt} codes ({kind}, pool "
+                            f"{pool}): {bad} codes differ from the plain "
+                            "quantize")
+                    n_codes += 1
+        del acc, ref, x, xq
     print(f"[int8] conv kernel bit-exact against the plain versions: {n} "
-          f"(shape, mode, dtype) cases, the 11 VGG16 int8 layers at 480 "
-          f"(B=8, {hc}x{wc} canvas) and 37x53 B=1/2 at dilations 1 and 2; "
-          "ACC = float64 conv of the codes, fused output = plain dequantize "
-          f"(max |d| {worst})")
+          f"(shape, mode, dtype) cases on the wgmma main loop (ACC on both "
+          f"wgmma tiles) and {n_codes} fused next-layer code cases "
+          f"(per-channel and per-tensor scales, pooled and not), the 11 "
+          f"VGG16 int8 layers at 480 (B=8, {hc}x{wc} canvas) and 37x53 B=1/2 "
+          "at dilations 1 and 2; ACC = float64 conv of the codes, fused "
+          f"output = plain dequantize (max |d| {worst}), codes = plain "
+          "quantize")
     return worst
+
+
+def phase_quant_kernel(dev, q):
+    """The quantize kernel (csrc/quant_int8.cu) against its plain versions
+    (``quantize_conv_act``, ``quantize_rows_plain``: the JAX expressions as
+    torch ops), bit for bit, codes and scales, in bf16 and f32: the map with
+    per-channel scales (some far below the values: codes past +-127
+    saturate) and with a calibrated per-tensor scale, the dynamic
+    per-tensor mode (abs-max, then the map), each on conv2's input shape at
+    the 480 scale with exact half-way ties ((k + 0.5) s at s = 1/16, whose
+    abs-max makes the dynamic scale 1/16 too) and on an all-zero tensor;
+    and the dynamic per-row mode on fc6's rows (2048 x 25088) with a tie
+    row, an all-zero row and a row whose scale takes the 1e-12 floor; then
+    the map over every magnitude (f32 subnormals to overflowing quotients,
+    scales over 20 decades), which holds the kernels' division-free
+    rounding to the true division."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 0
+    for dt in (torch.bfloat16, torch.float32):
+        shape = (8, 256, 320, 64)
+        ties = (torch.randint(-127, 127, shape, generator=gen, device=dev)
+                + 0.5) / 16
+        x = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5,
+                        ties, torch.randn(shape, generator=gen, device=dev)
+                        * 3).clamp_(-127 / 16, 127 / 16)
+        x[0, 0, 0, 0] = 127 / 16
+        x = x.to(dt)
+        amax = x.abs().amax(dim=(0, 1, 2)).float()
+        sa = q.channel_scales(amax * torch.linspace(0.05, 1.0, 64,
+                                                    device=dev))[0]
+        zero = torch.zeros((2, 16, 16, 64), dtype=dt, device=dev)
+        rows = (torch.randn((2048, 25088), generator=gen, device=dev)
+                * 2).to(dt)
+        rows[1] = x.reshape(-1)[:25088]
+        rows[2] = 0
+        rows[3] = (rows[3].float() * 1e-13).to(dt)
+        checks = [("map per channel", lambda t: q.quantize_act(t, sa),
+                   lambda t: q.quantize_conv_act(t, sa), (x,)),
+                  ("map per tensor", lambda t: q.quantize_act(
+                      t, None, amax.max() * 0.5),
+                   lambda t: q.quantize_conv_act(t, None, amax.max() * 0.5),
+                   (x,)),
+                  ("dynamic per tensor", q.quantize_act, q.quantize_conv_act,
+                   (x, zero)),
+                  ("dynamic per row", q.quantize_rows, q.quantize_rows_plain,
+                   (rows,))]
+        for label, kernel, plain, inputs in checks:
+            for t in inputs:
+                (got, gs), (want, ws) = kernel(t), plain(t)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"quant_int8 {label} {dt} {tuple(t.shape)}: "
+                        f"{int((got != want).sum())} codes differ")
+                if (gs is None) != (ws is None) or (
+                        gs is not None and not torch.equal(gs, ws)):
+                    raise AssertionError(f"quant_int8 {label} {dt}: the "
+                                         "scales differ")
+                n += 1
+        if not ((x.float() * 16).frac().abs() == 0.5).sum() > 1000:
+            raise AssertionError("quant_int8 check: too few half-way ties")
+        del x, ties, rows
+    # the division-free rounding over every magnitude: f32 values from
+    # subnormals to 2^100 (quotients that overflow), scales from 1e-14 to 1e6
+    gen64 = torch.Generator(device=dev).manual_seed(4)
+    mag = torch.exp2(torch.rand((4, 64, 64, 64), generator=gen64,
+                                device=dev) * 250 - 150)
+    x = mag * torch.randn((4, 64, 64, 64), generator=gen64,
+                          device=dev).sign()
+    sa = torch.exp2(torch.rand((64,), generator=gen64, device=dev) * 66 - 46)
+    for t in (x, x * 1e-30, (x * 2.0 ** -100).clamp(-300, 300)):
+        got, want = q.quantize_act(t, sa)[0], q.quantize_conv_act(t, sa)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"quant_int8 map over every magnitude: "
+                                 f"{int((got != want).sum())} codes differ")
+        n += 1
+    del x, mag
+    torch.cuda.empty_cache()
+    print(f"[int8] quantize kernel bit-exact against the plain versions "
+          f"(codes and scales): {n} (mode, dtype, input) cases; half-way "
+          "ties, saturated codes, an all-zero tensor, all-zero and floored "
+          "rows")
+    return 0.0
 
 
 def im2col_int_mm(xq, kq, scale, bias, d, relu):
@@ -1434,29 +1581,50 @@ def im2col_int_mm(xq, kq, scale, bias, d, relu):
                             relu).reshape(b, h, w, -1)
 
 
+def _bound(ops, nbytes, ops_rate, mem_rate):
+    """(bound ms, what bounds it) of ``ops`` operations and ``nbytes``."""
+    t_ops, t_mem = ops / ops_rate, nbytes / mem_rate
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops > t_mem else "bytes")
+
+
 def phase_int8_timing(dev, q):
-    """Row 5 at each int8 layer shape of the 1200 scale (B = 8, padded
-    1280x1664), in turns (3 readings of 5): the kernel (codes in, bf16 out),
-    its library route (``im2col_int_mm``, checked equal to the kernel),
-    cuDNN's bf16 conv of the same shape (channels_last) and the quantize
-    pass before the kernel (dynamic: abs-max, divide, round, clip, cast);
-    the plain version (float64) once. Bound: max(ops / int8 peak, bytes /
-    memory rate), bytes = int8 input + int8 weights + bf16 output. Then the
-    neck's ``torch._int_mm`` at N = 16,384 rows beside ``F.linear`` in bf16.
-    Returns (per-layer dicts, the sums, the dense dicts)."""
+    """Rows 5 and 6 at each int8 layer shape of the 1200 scale (B = 8,
+    padded 1280x1664), in turns (3 readings of 5). Row 5: the kernel's
+    wgmma main loop in the output mode the static path runs (the next
+    conv's codes for conv2-conv11, with per-channel scales from the
+    output's own range; bf16 for conv12) and in the other mode, each beside
+    its bound; the mma.sync main loop (bf16 out); its library route
+    (``im2col_int_mm``, checked equal to the kernel); cuDNN's bf16 conv of
+    the same shape (channels_last); the plain version (float64) once. Row
+    6 at each layer's input: the static map (kernel, plain), the dynamic
+    per-tensor quantize (kernel, plain) and PR 8's reading,
+    ``quantize_conv_input`` (the dynamic quantize plus the weight codes);
+    then the neck's rows (fc6, fc7 at 16,384 rows, kernel and plain) and
+    ``torch._int_mm`` beside ``F.linear`` in bf16. Bounds: max(ops / peak,
+    bytes / memory rate); for row 5 the int8 operations and the bytes of
+    the int8 input and weights and of the output written (int8 codes or
+    bf16); for row 6 a division a value (and a comparison for an abs-max)
+    at the f32 rate and one read and one write (two reads for the dynamic
+    abs-max). Returns (conv layer dicts, conv sums, quantize dicts, dense
+    dicts)."""
     import torch
     import torch.nn.functional as F
     from odwscl_tpu_torch.tools.tune_conv_int8 import (CANVAS, INT8_LAYERS,
                                                        conv_inputs)
-    from odwscl_tpu_torch.utils.profiling import (INT8_OPS_PER_S,
+    from odwscl_tpu_torch.utils.profiling import (F32_OPS_PER_S,
+                                                  INT8_OPS_PER_S,
                                                   MEM_BYTES_PER_S, card_rate)
 
     name = torch.cuda.get_device_name(dev)
-    ops_rate, mem_rate = (card_rate(name, INT8_OPS_PER_S),
-                          card_rate(name, MEM_BYTES_PER_S))
+    mem_rate = card_rate(name, MEM_BYTES_PER_S)
+    rates = (card_rate(name, INT8_OPS_PER_S), mem_rate)
+    # the quantize: a division a value (and a comparison a value for an
+    # abs-max) on the f32 units, outside the tensor cores
+    q_rates = (card_rate(name, F32_OPS_PER_S), mem_rate)
     gen = torch.Generator(device=dev).manual_seed(1)
     hc, wc = CANVAS[1200]
-    layers = []
+    layers, quant = [], []
     for i, s, cin, cout, d in INT8_LAYERS:
         h, w = hc // s, wc // s
         relu = i < 12
@@ -1465,16 +1633,28 @@ def phase_int8_timing(dev, q):
         got = q.conv_int8_nhwc(xq, kq, scale, bias, d, d, torch.bfloat16, relu)
         if not bool((im2col_int_mm(xq, kq, scale, bias, d, relu) == got).all()):
             raise AssertionError(f"conv{i}: im2col + _int_mm != the kernel")
+        s_next = next_scales(q, got, "channel", pow2=False)
+        sa = q.channel_scales(x.abs().amax(dim=(0, 1, 2)).float())[0]
         del got
+        mma = "128x128k128" if cin % 128 == 0 else "256x128"
         xc = x.permute(0, 3, 1, 2)                 # channels_last NCHW view
         wb, bb = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
-        fns = {"ms": lambda: q.conv_int8_nhwc(xq, kq, scale, bias, d, d,
-                                              torch.bfloat16, relu),
+        fns = {"codes_ms": lambda: q.conv_int8_nhwc(
+                   xq, kq, scale, bias, d, d, torch.bfloat16, True,
+                   out_scale=s_next),
+               "bf16_ms": lambda: q.conv_int8_nhwc(
+                   xq, kq, scale, bias, d, d, torch.bfloat16, relu),
+               "mma_sync_ms": lambda: q.conv_int8_nhwc(
+                   xq, kq, scale, bias, d, d, torch.bfloat16, relu, mma),
                "library_ms": lambda: im2col_int_mm(xq, kq, scale, bias, d,
                                                    relu),
                "cudnn_bf16_ms": lambda: F.conv2d(xc, wb, bb, padding=d,
                                                  dilation=d),
-               "quantize_ms": lambda: q.quantize_conv_input(x, wt)}
+               "q_static_ms": lambda: q.quantize_act(x, sa),
+               "q_static_plain_ms": lambda: q.quantize_conv_act(x, sa),
+               "q_dynamic_ms": lambda: q.quantize_act(x),
+               "q_dynamic_plain_ms": lambda: q.quantize_conv_act(x),
+               "q_pr8_ms": lambda: q.quantize_conv_input(x, wt)}
         reads = {k: [] for k in fns}
         for _ in range(3):
             for k, fn in fns.items():
@@ -1485,36 +1665,66 @@ def phase_int8_timing(dev, q):
             torch.bfloat16, relu), iters=1, warmup=1)
         m = 8 * h * w
         ops = 2.0 * m * cout * 9 * cin
-        nbytes = xq.numel() + kq.numel() + m * cout * 2
-        row.update(layer=f"conv{i}", shape=[8, h, w, cin, cout, d],
-                   ops=ops, bytes=nbytes,
-                   bound_ms=max(ops / ops_rate, nbytes / mem_rate) * 1e3,
-                   bound_by="operations" if ops / ops_rate > nbytes / mem_rate
-                   else "bytes",
-                   tops=ops / row["ms"] / 1e9)
+        into = xq.numel() + kq.numel()
+        row["codes_bound_ms"], row["codes_bound_by"] = _bound(
+            ops, into + m * cout, *rates)
+        row["bf16_bound_ms"], row["bf16_bound_by"] = _bound(
+            ops, into + 2 * m * cout, *rates)
+        path = "codes" if i < 12 else "bf16"
+        row.update(layer=f"conv{i}", shape=[8, h, w, cin, cout, d], ops=ops,
+                   path_mode=path, ms=row[path + "_ms"],
+                   bound_ms=row[path + "_bound_ms"],
+                   bound_by=row[path + "_bound_by"],
+                   tops=ops / row[path + "_ms"] / 1e9)
         layers.append(row)
-        print(f"[int8] conv{i} [8,{h},{w},{cin}]->{cout} dil {d}: kernel "
-              f"{row['ms']:.4f} ms ({row['tops']:.1f} TOP/s; readings "
-              f"{', '.join(f'{t:.4f}' for t in reads['ms'])}), bound "
-              f"{row['bound_ms']:.4f} ({row['bound_by']}), im2col+_int_mm "
-              f"{row['library_ms']:.4f}, cuDNN bf16 "
-              f"{row['cudnn_bf16_ms']:.4f}, quantize "
-              f"{row['quantize_ms']:.4f}, plain f64 {row['plain_ms']:.3f}")
+        n = x.numel()
+        quant.append({"at": f"conv{i} input", "shape": list(x.shape),
+                      **{k: row.pop(k) for k in list(row)
+                         if k.startswith("q_")},
+                      "q_static_bound_ms": _bound(n, 3 * n, *q_rates)[0],
+                      "q_dynamic_bound_ms": _bound(2 * n, 5 * n,
+                                                   *q_rates)[0]})
+        print(f"[int8] conv{i} [8,{h},{w},{cin}]->{cout} dil {d}: wgmma "
+              f"{path} {row['ms']:.4f} ms ({row['tops']:.1f} TOP/s; "
+              f"readings {', '.join(f'{t:.4f}' for t in reads[path + '_ms'])}"
+              f"), bound {row['bound_ms']:.4f} ({row['bound_by']}); codes "
+              f"{row['codes_ms']:.4f} (bound {row['codes_bound_ms']:.4f}), "
+              f"bf16 {row['bf16_ms']:.4f} (bound {row['bf16_bound_ms']:.4f})"
+              f"; mma.sync {mma} {row['mma_sync_ms']:.4f}; cuDNN bf16 "
+              f"{row['cudnn_bf16_ms']:.4f}; im2col+_int_mm "
+              f"{row['library_ms']:.4f}; plain f64 {row['plain_ms']:.3f}")
+        qr = quant[-1]
+        print(f"[int8] quantize at conv{i}'s input {list(x.shape)}: static "
+              f"map {qr['q_static_ms']:.4f} ms (plain "
+              f"{qr['q_static_plain_ms']:.4f}, bound "
+              f"{qr['q_static_bound_ms']:.4f}), dynamic "
+              f"{qr['q_dynamic_ms']:.4f} (plain "
+              f"{qr['q_dynamic_plain_ms']:.4f}, bound "
+              f"{qr['q_dynamic_bound_ms']:.4f}); PR 8's quantize_conv_input "
+              f"{qr['q_pr8_ms']:.4f}")
         del x, xq, xc, fns
         torch.cuda.empty_cache()
-    total = {k: sum(r[k] for r in layers)
-             for k in ("ms", "library_ms", "cudnn_bf16_ms", "quantize_ms",
-                       "plain_ms", "bound_ms", "ops")}
-    print(f"[int8] the 11 int8 convs of one 1200-scale batch: kernel "
-          f"{total['ms']:.3f} ms ({total['ops'] / total['ms'] / 1e9:.1f} "
-          f"TOP/s) + quantize {total['quantize_ms']:.3f}; bound "
-          f"{total['bound_ms']:.3f}; im2col+_int_mm {total['library_ms']:.3f};"
-          f" cuDNN bf16 {total['cudnn_bf16_ms']:.3f}; plain "
-          f"{total['plain_ms']:.1f}")
+    keys = ("ms", "codes_ms", "bf16_ms", "mma_sync_ms", "library_ms",
+            "cudnn_bf16_ms", "plain_ms", "bound_ms", "ops")
+    total = {k: sum(r[k] for r in layers) for k in keys}
+    slower = [r["layer"] for r in layers if r["ms"] > r["cudnn_bf16_ms"]]
+    print(f"[int8] the 11 int8 convs of one 1200-scale batch in the static "
+          f"path's modes: kernel {total['ms']:.3f} ms "
+          f"({total['ops'] / total['ms'] / 1e9:.1f} TOP/s; target 15.0); "
+          f"bound {total['bound_ms']:.3f}; all codes {total['codes_ms']:.3f},"
+          f" all bf16 {total['bf16_ms']:.3f}; mma.sync "
+          f"{total['mma_sync_ms']:.3f}; im2col+_int_mm "
+          f"{total['library_ms']:.3f}; cuDNN bf16 "
+          f"{total['cudnn_bf16_ms']:.3f}; plain {total['plain_ms']:.1f}; "
+          f"slower than cuDNN bf16: {slower or 'none'}")
+    SUMMARY.append(f"int8 convs {total['ms']:.3f} ms (cuDNN bf16 "
+                   f"{total['cudnn_bf16_ms']:.3f})")
+
     dense = []
     for label, k, n in INT8_DENSE:
-        a = torch.randint(-127, 128, (INT8_DENSE_ROWS, k), generator=gen,
-                          device=dev, dtype=torch.int8)
+        x = (torch.randn((INT8_DENSE_ROWS, k), generator=gen, device=dev)
+             .relu_()).to(torch.bfloat16)
+        a, _ = q.quantize_rows(x)
         wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                            dtype=torch.int8)
         if not torch.equal(q.int_mm(a[:64], wq.t()),
@@ -1522,7 +1732,9 @@ def phase_int8_timing(dev, q):
             raise AssertionError(f"{label}: torch._int_mm != int_mm_plain")
         ab, wb = a.to(torch.bfloat16), wq.to(torch.bfloat16)
         fns = {"int_mm_ms": lambda: torch._int_mm(a, wq.t()),
-               "bf16_linear_ms": lambda: F.linear(ab, wb)}
+               "bf16_linear_ms": lambda: F.linear(ab, wb),
+               "q_rows_ms": lambda: q.quantize_rows(x),
+               "q_rows_plain_ms": lambda: q.quantize_rows_plain(x)}
         reads = {kk: [] for kk in fns}
         for _ in range(3):
             for kk, fn in fns.items():
@@ -1530,32 +1742,58 @@ def phase_int8_timing(dev, q):
         ops = 2.0 * INT8_DENSE_ROWS * k * n
         row = {kk: statistics.mean(v) for kk, v in reads.items()}
         row.update(layer=label, shape=[INT8_DENSE_ROWS, k, n],
-                   bound_ms=max(ops / ops_rate,
-                                (a.numel() + wq.numel()
-                                 + INT8_DENSE_ROWS * n * 4) / mem_rate) * 1e3)
+                   bound_ms=_bound(ops, a.numel() + wq.numel()
+                                   + INT8_DENSE_ROWS * n * 4, *rates)[0],
+                   q_rows_bound_ms=_bound(2 * x.numel(), 3 * x.numel(),
+                                          *q_rates)[0])
         dense.append(row)
         print(f"[int8] {label} [{INT8_DENSE_ROWS},{k}]x[{k},{n}]: "
               f"torch._int_mm {row['int_mm_ms']:.4f} ms "
               f"({ops / row['int_mm_ms'] / 1e9:.1f} TOP/s), bound "
               f"{row['bound_ms']:.4f}; F.linear bf16 "
-              f"{row['bf16_linear_ms']:.4f}")
-        del a, wq, ab, wb, fns
+              f"{row['bf16_linear_ms']:.4f}; row quantize "
+              f"{row['q_rows_ms']:.4f} (plain {row['q_rows_plain_ms']:.4f}, "
+              f"bound {row['q_rows_bound_ms']:.4f})")
+        del a, wq, ab, wb, x, fns
     torch.cuda.empty_cache()
-    return layers, total, dense
+    static = {k: quant[0]["q_static" + k] + sum(r["q_rows" + k] for r in dense)
+              for k in ("_ms", "_plain_ms", "_bound_ms")}
+    dynamic = {k: sum(r["q_dynamic" + k] for r in quant)
+               + sum(r["q_rows" + k] for r in dense)
+               for k in ("_ms", "_plain_ms", "_bound_ms")}
+    pr8 = sum(r["q_pr8_ms"] for r in quant)
+    print(f"[int8] quantize left in a forward (conv2's input and the neck's "
+          f"rows): static {static['_ms']:.4f} ms (target 2.0; plain "
+          f"{static['_plain_ms']:.4f}, bound {static['_bound_ms']:.4f}); "
+          f"dynamic (the 11 conv inputs and the rows) {dynamic['_ms']:.4f} "
+          f"(plain {dynamic['_plain_ms']:.4f}, bound "
+          f"{dynamic['_bound_ms']:.4f}); PR 8's quantize_conv_input over the "
+          f"11 layers {pr8:.4f}")
+    SUMMARY.append(f"int8 quantize static {static['_ms']:.4f} ms, dynamic "
+                   f"{dynamic['_ms']:.4f}")
+    return layers, total, {"static": static, "dynamic": dynamic, "pr8": pr8,
+                           "by_input": quant}, dense
 
 
 def phase_int8_eval(rp, q, tmp, config, weights):
-    """Static int8 serving of the main path's checkpoint: ``test_net`` det
-    with the device-resize TTA, in bf16 and then twice with
-    ``TPU.INT8_EVAL``, ``INT8_EVAL_CONVS`` and ``INT8_STATIC``. The first
-    int8 run calibrates (``TPU.INT8_CALIB_BATCHES`` x 14 host-path forwards)
-    and writes ``int8_scales.npz``; the second starts from a copy of that
-    file, calibrates nothing and must give identical predictions. Every
-    forward launches the int8 conv kernel 11 times and #1 once; a
-    calibration forward launches #1 and no int8 conv. The merged
-    detections' gap to bf16 is printed; the backbone features of one
-    1200-scale batch must stay within INT8_FEAT_REL of bf16's largest
-    magnitude. Returns {run: (int8 conv launches, roi_pool launches)}."""
+    """int8 serving of the main path's checkpoint: ``test_net`` det with
+    the device-resize TTA, in bf16, then twice with ``TPU.INT8_EVAL``,
+    ``INT8_EVAL_CONVS`` and ``INT8_STATIC``, then once dynamic
+    (``INT8_STATIC False``). The first static run calibrates
+    (``TPU.INT8_CALIB_BATCHES`` x 14 host-path forwards) and writes
+    ``int8_scales.npz``; the second starts from a copy of that file,
+    calibrates nothing and must give identical predictions. Every int8
+    forward launches the conv kernel 11 times and #1 once, and the quantize
+    kernel as the layer plan says: static, once for conv2's input and once
+    for each of the neck's two row sets; dynamic, twice (abs-max, map) for
+    each of the 11 conv inputs and the two row sets. A calibration forward
+    launches #1 and the neck's two, and no int8 conv. No plain activation
+    quantize (``quantize_conv_act``, ``quantize_rows_plain``) may run on a
+    CUDA tensor. The merged detections' gap to bf16 is printed. On one
+    1200-scale batch, the fused static backbone must equal the unfused
+    chain (``unfused_int8_forward``) bit for bit, and its features stay
+    within INT8_FEAT_REL of bf16's largest magnitude. Returns {run: (int8
+    conv launches, quantize kernel launches, roi_pool launches)}."""
     import pickle
 
     import torch
@@ -1564,6 +1802,7 @@ def phase_int8_eval(rp, q, tmp, config, weights):
     from odwscl_tpu_torch.engine import inference
     from odwscl_tpu_torch.engine.inference import (Inferencer,
                                                    load_int8_scales)
+    from odwscl_tpu_torch.models import vgg16
     from odwscl_tpu_torch.tools import test_net
 
     int8_opts = ["TPU.INT8_EVAL", "True", "TPU.INT8_EVAL_CONVS", "True",
@@ -1571,8 +1810,16 @@ def phase_int8_eval(rp, q, tmp, config, weights):
     finalize = inference.Inferencer._finalize
     merged = {}
     stats = {}
+    plain_on_cuda = []
 
-    def run(label, opts, scales=None):
+    def guard(fn):
+        def plain(x, *args, **kwargs):
+            if x.is_cuda:
+                plain_on_cuda.append(fn.__name__)
+            return fn(x, *args, **kwargs)
+        return plain
+
+    def run(label, opts, scales=None, quant_per_fwd=0):
         out = os.path.join(tmp, "int8_" + label)
         if scales:
             os.makedirs(out)
@@ -1584,6 +1831,7 @@ def phase_int8_eval(rp, q, tmp, config, weights):
             return finalize(self, scores, boxes, mask)
 
         rp.roi_pool.launches = q.conv_int8_nhwc.launches = 0
+        q.quantize_act.launches = q.quantize_rows.launches = 0
         inference.Inferencer._finalize = capture
         timing = {}
         try:
@@ -1595,37 +1843,56 @@ def phase_int8_eval(rp, q, tmp, config, weights):
             inference.Inferencer._finalize = finalize
         (t,), (r,) = timing.values(), res.values()
         conv, pool = q.conv_int8_nhwc.launches, rp.roi_pool.launches
-        per_fwd = 11 if opts else 0
-        if (conv != per_fwd * t["n_forwards"]
-                or pool != t["n_forwards"] + t["n_calib_forwards"]):
+        quant = q.quantize_act.launches + q.quantize_rows.launches
+        fwd, calib = t["n_forwards"], t["n_calib_forwards"]
+        want = ((11 if opts else 0) * fwd,
+                quant_per_fwd * fwd + (2 if opts else 0) * calib,
+                fwd + calib)
+        if (conv, quant, pool) != want:
             raise AssertionError(
-                f"int8 eval {label}: int8 conv launches {conv}, roi_pool "
-                f"{pool} for {t['n_forwards']} forwards and "
-                f"{t['n_calib_forwards']} calibration forwards")
+                f"int8 eval {label}: int8 conv, quantize and roi_pool "
+                f"launches {(conv, quant, pool)} for {fwd} forwards and "
+                f"{calib} calibration forwards; the layer plan says {want}")
         if not math.isfinite(r["map"]):
             raise AssertionError(f"int8 eval {label}: mAP {r['map']}")
         with open(os.path.join(out, "inference", "voc_2007_test",
                                "predictions.pkl"), "rb") as f:
             preds = pickle.load(f)   # written by the run above
-        stats[label] = dict(t, conv=conv, pool=pool, map=r["map"], out=out,
-                            preds=preds)
+        stats[label] = dict(t, conv=conv, quant=quant, pool=pool,
+                            map=r["map"], out=out, preds=preds)
         print(f"[int8] eval {label}: mAP {r['map']:.4f}; {t['n_images']} "
               f"images in {t['wall_s']:.2f} s = "
               f"{t['n_images'] / t['wall_s']:.2f} images/s; forward+merge "
               f"{t['forward_s']:.2f} s, NMS+top-K {t['finalize_s']:.2f} s, "
-              f"calibration {t['calib_s']:.2f} s ({t['n_calib_forwards']} "
-              f"forwards, outside the loop); {t['n_forwards']} forwards: "
-              f"int8 conv launches {conv}, roi_pool {pool}")
+              f"calibration {t['calib_s']:.2f} s ({calib} forwards, outside "
+              f"the loop); {fwd} forwards: int8 conv launches {conv}, "
+              f"quantize {quant}, roi_pool {pool}")
         SUMMARY.append(f"int8 eval {label}: "
                        f"{t['n_images'] / t['wall_s']:.2f} images/s, "
                        f"calibration {t['calib_s']:.2f} s")
 
-    run("bf16", [])
-    run("calibrate", int8_opts)
-    scales = os.path.join(stats["calibrate"]["out"], "int8_scales.npz")
-    if not os.path.exists(scales):
-        raise AssertionError("the calibrating run wrote no int8_scales.npz")
-    run("from_file", int8_opts, scales)
+    patched = [(mod, name, getattr(mod, name))
+               for mod, name in ((q, "quantize_conv_act"),
+                                 (q, "quantize_rows_plain"),
+                                 (vgg16, "quantize_conv_act"))]
+    for mod, name, fn in patched:
+        setattr(mod, name, guard(fn))
+    try:
+        run("bf16", [])
+        run("calibrate", int8_opts, quant_per_fwd=3)
+        scales = os.path.join(stats["calibrate"]["out"], "int8_scales.npz")
+        if not os.path.exists(scales):
+            raise AssertionError("the calibrating run wrote no "
+                                 "int8_scales.npz")
+        run("from_file", int8_opts, scales, quant_per_fwd=3)
+        run("dynamic", int8_opts[:4] + ["TPU.INT8_STATIC", "False"],
+            quant_per_fwd=2 * 11 + 2)
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+    if plain_on_cuda:
+        raise AssertionError(f"int8 serving ran a plain activation quantize "
+                             f"on CUDA tensors: {sorted(set(plain_on_cuda))}")
     first, second = stats["calibrate"], stats["from_file"]
     if first["n_calib_forwards"] != 2 * 14 or second["n_calib_forwards"]:
         raise AssertionError(f"calibration forwards {first['n_calib_forwards']}"
@@ -1636,17 +1903,26 @@ def phase_int8_eval(rp, q, tmp, config, weights):
             if not np.array_equal(a[key], b[key]):
                 raise AssertionError("int8 eval from the scales file differs "
                                      f"from the calibrating run ({key})")
-    ds = max((a[0] - b[0]).abs().max().item()
-             for a, b in zip(merged["bf16"], merged["calibrate"]))
-    db = max((a[1] - b[1]).abs().max().item()
-             for a, b in zip(merged["bf16"], merged["calibrate"]))
+    gaps = {}
+    for label in ("calibrate", "dynamic"):
+        gaps[label] = (
+            max((a[0] - b[0]).abs().max().item()
+                for a, b in zip(merged["bf16"], merged[label])),
+            max((a[1] - b[1]).abs().max().item()
+                for a, b in zip(merged["bf16"], merged[label])))
+    rate = {k: v["n_images"] / v["wall_s"] for k, v in stats.items()}
     print(f"[int8] the run from int8_scales.npz gave predictions identical "
-          f"to the calibrating run; merged detections int8 vs bf16: max "
-          f"|d score| {ds:.3e}, max |d box| {db:.3f} px (printed only: random "
-          f"weights)")
+          f"to the calibrating run; no plain activation quantize ran on the "
+          f"card; merged detections vs bf16: static max |d score| "
+          f"{gaps['calibrate'][0]:.3e}, max |d box| "
+          f"{gaps['calibrate'][1]:.3f} px; dynamic {gaps['dynamic'][0]:.3e}, "
+          f"{gaps['dynamic'][1]:.3f} px (printed only: random weights); "
+          f"images/s: bf16 {rate['bf16']:.2f}, static "
+          f"{rate['calibrate']:.2f} / {rate['from_file']:.2f}, dynamic "
+          f"{rate['dynamic']:.2f}")
 
-    # the backbone features of one batch at the largest scale, int8 static
-    # vs bf16
+    # one batch at the largest scale: the fused static backbone against the
+    # unfused chain on the same scales, and against bf16
     cfg = get_default_cfg()
     cfg.merge_from_file(config)
     cfg.merge_from_list(int8_opts)
@@ -1660,29 +1936,37 @@ def phase_int8_eval(rp, q, tmp, config, weights):
     batch, _ = inf._prep_scale(tr, samples)
     with torch.no_grad():
         f16 = model.backbone(batch.images).float()
-        f8 = model.backbone(batch.images, fast_eval=True).float()
+        f8 = model.backbone(batch.images, fast_eval=True)
+        unfused = vgg16.unfused_int8_forward(model.backbone, batch.images)
+        if not torch.equal(f8, unfused):
+            bad = int((f8 != unfused).sum())
+            raise AssertionError(f"the fused static backbone differs from "
+                                 f"the unfused chain at {bad} of "
+                                 f"{f8.numel()} features")
+        f8 = f8.float()
         model.backbone.int8_static = False
         f8d = model.backbone(batch.images, fast_eval=True).float()
     top = f16.abs().max().item()
     gap, gap_d = ((f8 - f16).abs().max().item() / top,
                   (f8d - f16).abs().max().item() / top)
     print(f"[int8] backbone features of a {tr.min_size}-scale batch "
-          f"{list(batch.images.shape)}: int8 static vs bf16 max |d| "
-          f"{gap:.4f} of the largest (bound {INT8_FEAT_REL}); dynamic "
-          f"{gap_d:.4f}")
+          f"{list(batch.images.shape)}: fused static == unfused chain, bit "
+          f"for bit; int8 static vs bf16 max |d| {gap:.4f} of the largest "
+          f"(bound {INT8_FEAT_REL}); dynamic {gap_d:.4f}")
     if not gap < INT8_FEAT_REL:
         raise AssertionError(f"int8 static features off bf16 by {gap:.4f}")
     SUMMARY.append(f"int8 features vs bf16 {gap:.4f} (static), {gap_d:.4f} "
                    "(dynamic)")
     torch.cuda.synchronize()
-    return {k: (stats[k]["conv"], stats[k]["pool"]) for k in stats}
+    return {k: (stats[k]["conv"], stats[k]["quant"], stats[k]["pool"])
+            for k in stats}
 
 
 def build(rp, q):
-    """Build the three kernel sources, one nvcc each, started together."""
+    """Build the four kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = (rp.KERNEL, rp.BWD_KERNEL, q.CONV_KERNEL)
+    libs = (rp.KERNEL, rp.BWD_KERNEL, q.CONV_KERNEL, q.QUANT_KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(k.get) for k in libs]:
@@ -1742,8 +2026,9 @@ def main():
     del r50_timed
     stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
     int8_err = timed("int8 conv kernel checks", phase_int8_kernel, dev, q)
-    int8_layers, int8_total, int8_dense = timed(
-        "int8 conv timing", phase_int8_timing, dev, q)
+    quant_err = timed("quantize kernel checks", phase_quant_kernel, dev, q)
+    int8_layers, int8_total, int8_quant, int8_dense = timed(
+        "int8 conv and quantize timing", phase_int8_timing, dev, q)
     for arch in ("VGG16-OICR", "R-18-C5"):
         timed(f"eval card vs CPU {arch}", phase_card_vs_cpu, dev, arch)
         timed(f"train card vs CPU {arch}", phase_train_card_vs_cpu, dev,
@@ -1794,7 +2079,7 @@ def main():
                              f"kernels: {rs.roi_pool_stage.launches}")
     # each path's launches, read right after it ran
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
-                       **{f"VGG16-OICR int8 eval {k}": v[1]
+                       **{f"VGG16-OICR int8 eval {k}": v[2]
                           for k, v in int8_eval.items()},
                        **{f"{k} eval": v["eval"] for k, v in variants.items()
                           if "eval" in v}},
@@ -1837,30 +2122,57 @@ def main():
                           "decoded from the stored argmax (indices built "
                           "outside the timing), then .to(bf16)"),
          **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd)}] + stages
+    int8_runs = {f"VGG16-OICR int8 eval {k}": v for k, v in int8_eval.items()
+                 if k != "bf16"}
     kernels.append({
         "name": "conv_int8", "route": "cuda", "source": src + "conv_int8.cu",
         "replaces": ("odwscl_tpu/ops/quant.py:58 conv2d_int8 (XLA "
                      "conv_general_dilated int8 -> int32 at :109; no Pallas "
                      "kernel)"),
-        "launches": sum(v[0] for v in int8_eval.values()),
-        "launches_by_path": {f"VGG16-OICR int8 eval {k}": v[0]
-                             for k, v in int8_eval.items()},
+        "launches": sum(v[0] for v in int8_runs.values()),
+        "launches_by_path": {k: v[0] for k, v in int8_runs.items()},
         "max_abs_err": int8_err,
         **{k: int8_total[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "cudnn_bf16_ms",
-                                      "quantize_ms")},
+                                      "codes_ms", "bf16_ms", "mma_sync_ms")},
         # the kind that bounds most of the summed bound
         "bound_by": max(("operations", "bytes"), key=lambda kind: sum(
             r["bound_ms"] for r in int8_layers if r["bound_by"] == kind)),
         "timed": "sum over the 11 int8 convs of one 1200-scale batch (B=8, "
-                 "1280x1664)",
+                 "1280x1664), each in the static path's output mode (the "
+                 "next conv's int8 codes for conv2-conv11, bf16 for conv12)",
         "library_note": "int8 im2col (pad, 9 shifted slices) + "
                         "torch._int_mm, same dequantize",
-        "by_layer": [{k: r[k] for k in ("layer", "shape", "ms", "plain_ms",
-                                        "bound_ms", "bound_by", "library_ms",
-                                        "cudnn_bf16_ms", "quantize_ms")}
-                     for r in int8_layers],
+        "by_layer": [{k: r[k] for k in (
+            "layer", "shape", "path_mode", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "cudnn_bf16_ms", "codes_ms",
+            "codes_bound_ms", "bf16_ms", "bf16_bound_ms", "mma_sync_ms")}
+            for r in int8_layers],
         "int_mm": int8_dense})
+    dyn = int8_quant["dynamic"]
+    kernels.append({
+        "name": "quant_int8", "route": "cuda", "source": src + "quant_int8.cu",
+        "replaces": ("odwscl_tpu/ops/quant.py:58 conv2d_int8's activation "
+                     "quantize (:97, :100-103) and :119 dense_int8's "
+                     "(:128-131); XLA elementwise and reduce, no Pallas "
+                     "kernel"),
+        "launches": sum(v[1] for v in int8_runs.values()),
+        "launches_by_path": {k: v[1] for k, v in int8_runs.items()},
+        "max_abs_err": quant_err,
+        "ms": dyn["_ms"], "plain_ms": dyn["_plain_ms"],
+        "bound_ms": dyn["_bound_ms"], "bound_by": "bytes",
+        "library_ms": int8_quant["pr8"],
+        "timed": "the dynamic forward's quantize passes at a 1200-scale "
+                 "batch: the 11 conv inputs (abs-max, then the map) and the "
+                 "neck's rows (fc6, fc7 at 16,384 rows)",
+        "library_note": "PR 8's reading: the plain torch chain "
+                        "quantize_conv_input (the dynamic activation quantize "
+                        "and the weight codes) at the 11 conv inputs",
+        "static": {k.strip("_"): v for k, v in int8_quant["static"].items()},
+        "by_input": int8_quant["by_input"],
+        "rows": [{k: r[k] for k in ("layer", "shape", "q_rows_ms",
+                                    "q_rows_plain_ms", "q_rows_bound_ms")}
+                 for r in int8_dense]})
     SUMMARY.append(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     print("[summary] " + "; ".join(SUMMARY))
     print(json.dumps({"kernels": kernels}))

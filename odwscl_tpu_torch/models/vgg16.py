@@ -21,14 +21,25 @@ here is its counterpart.
 
 int8 serving (``TPU.INT8_EVAL_CONVS``, ``INT8_STATIC``,
 ``INT8_BF16_LAYERS``; ``TPU.INT8_EVAL`` for the neck): in ``eval_forward``
-only, the convs from index 2 on run ``ops/quant.py:conv2d_int8`` (the
-stem stays in the compute dtype). A calibration forward records each int8
+only, the convs from index 2 on run in int8 (``ops/quant.py``; the stem
+stays in the compute dtype). A calibration forward records each int8
 conv's per-input-channel abs-max as a running maximum while it runs the
 plain conv; ``int8_static`` then quantizes with those scales instead of
 each batch's own abs-max. The recorded scales live in ``act_amax``, a
 plain dict outside the ``state_dict``, so every checkpoint still loads
 strictly; ``engine/inference.py`` saves and loads them as the JAX
 package's ``int8_scales.npz``.
+
+With calibrated scales the next int8 conv's codes depend on this conv's
+output alone, so static serving fuses that quantize into the producing
+conv's epilogue (``conv_int8_nhwc``'s ``out_scale``; the JAX package
+leaves the same fusion to XLA, ``ops/quant.py:65-69`` there): an int8
+conv followed by an int8 conv writes the next one's int8 codes, and the
+``M`` between them max-pools the codes. Only a conv input after a float
+layer (the stem's pool1, a layer of ``int8_bf16_layers``) is quantized on
+its own (``quantize_act``). Dynamic serving quantizes every int8 conv's
+input with its batch abs-max. ``unfused_int8_forward`` is the unfused
+chain the fused one equals bit for bit.
 """
 
 from __future__ import annotations
@@ -39,7 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.quant import (conv2d_int8, conv_weight_codes, dense_int8,
+from ..ops.quant import (conv_int8_nhwc, conv_weight_codes, dense_int8,
+                         per_tensor_scale, quantize_act, quantize_conv_act,
                          quantize_weights)
 
 # Conv counts delimiting the freeze blocks: FREEZE_CONV_BODY_AT = k freezes
@@ -122,10 +134,22 @@ class VGGBackbone(nn.Module):
     def _weight_codes(self, i: int, weight: torch.Tensor,
                       scale: Optional[torch.Tensor]):
         """conv ``i``'s ``conv_weight_codes``, kept until its weight or its
-        scales change."""
+        scales change. With a calibrated scale it also holds the dequantize
+        scale of the int32 sums [Cout] and the input's quantize scale [Cin]
+        (per channel, or the per-tensor scale broadcast)."""
         key = (_version(weight), None if scale is None else _version(scale))
-        return _kept(self._wq, i, key,
-                     lambda: conv_weight_codes(weight.detach(), scale))
+
+        def make():
+            kq, ks, sa = conv_weight_codes(weight.detach(), scale)
+            if scale is None:
+                return kq, ks, sa
+            if sa is not None:
+                return kq, ks, sa, ks, sa
+            xs = per_tensor_scale(scale.to(weight.device))
+            return (kq, ks, sa, xs * ks,
+                    xs.expand(weight.shape[1]).contiguous())
+
+        return _kept(self._wq, i, key, make)
 
     def int8_convs(self) -> Tuple[int, ...]:
         """The conv indices that run in int8 on the serving path."""
@@ -134,6 +158,13 @@ class VGGBackbone(nn.Module):
         return tuple(i for i in range(2, self.num_convs)
                      if i not in self.int8_bf16_layers)
 
+    def _static_scale(self, i: int) -> torch.Tensor:
+        if i not in self.act_amax:
+            raise RuntimeError(
+                f"int8 static serving: conv{i} has no calibrated scale (run "
+                "a calibration forward or load int8_scales.npz first)")
+        return self.act_amax[i]
+
     def forward(self, images: torch.Tensor, fast_eval: bool = False,
                 calibrate: bool = False) -> torch.Tensor:
         """``fast_eval`` (eval only) takes the int8 convs when
@@ -141,11 +172,18 @@ class VGGBackbone(nn.Module):
         record their inputs' per-channel abs-maxes into ``act_amax``."""
         dt = self.compute_dtype
         int8 = self.int8_convs() if fast_eval else ()
+        static = self.int8_static and not calibrate
+        if static:
+            for i in int8:
+                self._static_scale(i)
         x = images.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels_last
-        for layer in self._layers:
+        codes = None   # NHWC int8 codes of the next conv's input, if fused
+        layers = self._layers
+        for li, layer in enumerate(layers):
             if layer == "M":
-                x = F.max_pool2d(x, 2, 2)
-                continue
+                if codes is None:
+                    x = F.max_pool2d(x, 2, 2)
+                continue           # codes come pooled from their conv
             i, dil = layer
             conv = getattr(self, f"conv{i}")
             # the reference strips the final ReLU
@@ -155,25 +193,70 @@ class VGGBackbone(nn.Module):
                 prev = self.act_amax.get(i)
                 self.act_amax[i] = (amax if prev is None else
                                     torch.maximum(prev.to(amax.device), amax))
+            elif i in int8 and static:
+                kq, _, _, deq, s_in = self._weight_codes(
+                    i, conv.weight, self._static_scale(i))
+                if codes is None:
+                    codes = quantize_act(x.permute(0, 2, 3, 1), s_in)[0]
+                if i + 1 in int8:  # the next conv's codes, pooled if "M"
+                    s_out = self._weight_codes(
+                        i + 1, getattr(self, f"conv{i + 1}").weight,
+                        self._static_scale(i + 1))[4]
+                    pool = li + 1 < len(layers) and layers[li + 1] == "M"
+                    codes = conv_int8_nhwc(codes, kq, deq, conv.bias, dil,
+                                           dil, dt, relu, out_scale=s_out,
+                                           pool=pool)
+                else:
+                    x = conv_int8_nhwc(codes, kq, deq, conv.bias, dil, dil,
+                                       dt, relu).permute(0, 3, 1, 2)
+                    codes = None
+                continue
             elif i in int8:
-                scale = None
-                if self.int8_static:
-                    if i not in self.act_amax:
-                        raise RuntimeError(
-                            f"int8 static serving: conv{i} has no calibrated "
-                            "scale (run a calibration forward or load "
-                            "int8_scales.npz first)")
-                    scale = self.act_amax[i]
-                x = conv2d_int8(x.permute(0, 2, 3, 1), conv.weight, conv.bias,
-                                dil, dil, dt, scale, relu,
-                                self._weight_codes(i, conv.weight, scale)
-                                ).permute(0, 3, 1, 2)
+                kq, ks, _ = self._weight_codes(i, conv.weight, None)
+                xq, xs = quantize_act(x.permute(0, 2, 3, 1))
+                x = conv_int8_nhwc(xq, kq, xs * ks, conv.bias, dil, dil, dt,
+                                   relu).permute(0, 3, 1, 2)
                 continue
             x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
                          padding=dil, dilation=dil)
             if relu:
                 x = F.relu(x)
         return x.permute(0, 2, 3, 1).contiguous()
+
+
+@torch.no_grad()
+def unfused_int8_forward(backbone: VGGBackbone, images: torch.Tensor
+                         ) -> torch.Tensor:
+    """The static int8 serving forward as an unfused chain of
+    ``ops/quant.py`` calls: each int8 conv's input quantized on its own
+    (``quantize_conv_act``, plain torch ops), the convs writing the compute
+    dtype, the pools on those values. The fused ``backbone(images,
+    fast_eval=True)`` equals it bit for bit (the CPU tests; on the card,
+    ``chip_smoke.py``)."""
+    dt = backbone.compute_dtype
+    int8 = backbone.int8_convs()
+    x = images.to(dt).permute(0, 3, 1, 2)
+    for layer in backbone._layers:
+        if layer == "M":
+            x = F.max_pool2d(x, 2, 2)
+            continue
+        i, dil = layer
+        conv = getattr(backbone, f"conv{i}")
+        relu = i + 1 < backbone.num_convs
+        if i in int8:
+            scale = backbone._static_scale(i)
+            kq, ks, sa = conv_weight_codes(conv.weight, scale)
+            xq, xs = quantize_conv_act(x.permute(0, 2, 3, 1).contiguous(),
+                                       sa, scale)
+            x = conv_int8_nhwc(xq, kq, ks if xs is None else xs * ks,
+                               conv.bias, dil, dil, dt,
+                               relu).permute(0, 3, 1, 2)
+            continue
+        x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=dil,
+                     dilation=dil)
+        if relu:
+            x = F.relu(x)
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 class VGGRoINeck(nn.Module):

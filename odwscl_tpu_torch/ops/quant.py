@@ -29,15 +29,19 @@ the weight scales and the result equal the JAX package's (``ROADMAP.md``
 Queue 3).
 
 The int8 convolution is the hand-written kernel of ``csrc/conv_int8.cu``
-(an implicit GEMM on ``mma.sync`` s8, the dequantize, bias and ReLU fused)
-for CUDA tensors, and ``conv2d_int8_acc_plain`` (a float64 convolution of
-the codes: every partial sum is an integer below 2^53, so it is exact in
-any order) plus the plain dequantize for CPU tensors. The dense's int8
-product is a library call, ``torch._int_mm`` (cuBLASLt, int32 accumulate),
-as the JAX package leaves it to XLA's ``dot_general``; ``int_mm_plain`` (a
-float64 product, exact for the same reason) serves the CPU. The quantize
-passes are plain torch ops, as they are XLA elementwise and reduce work in
-the JAX package.
+(an implicit GEMM on ``wgmma`` + TMA, the dequantize, bias and ReLU fused,
+and in static serving the next conv's quantize too: ``conv_int8_nhwc``'s
+``out_scale``) for CUDA tensors, and ``conv2d_int8_acc_plain`` (a float64
+convolution of the codes: every partial sum is an integer below 2^53, so
+it is exact in any order) plus the plain dequantize and quantize for CPU
+tensors. The activation quantize that no conv epilogue takes (a conv input
+after a float layer, the dynamic per-tensor scale, the dense's rows) is
+the hand-written kernel of ``csrc/quant_int8.cu`` (``quantize_act``,
+``quantize_rows``) for CUDA tensors and ``quantize_conv_act`` /
+``quantize_rows_plain`` for CPU tensors. The dense's int8 product is a
+library call, ``torch._int_mm`` (cuBLASLt, int32 accumulate), as the JAX
+package leaves it to XLA's ``dot_general``; ``int_mm_plain`` (a float64
+product, exact for the same reason) serves the CPU.
 """
 
 from __future__ import annotations
@@ -65,12 +69,25 @@ def _quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return q.round_().clamp_(-QMAX, QMAX).to(torch.int8)
 
 
+def over_qmax(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as a true division on every device, as XLA and the
+    kernels divide: CUDA's ``tensor / python float`` multiplies by the
+    float's reciprocal instead, which can be an ulp off."""
+    return t / torch.full((), QMAX, dtype=t.dtype, device=t.device)
+
+
+def per_tensor_scale(amax: torch.Tensor) -> torch.Tensor:
+    """A conv's per-tensor activation scale, ``max(amax, 1e-12) / 127``
+    (floor, then divide)."""
+    return over_qmax(torch.clamp(amax.to(torch.float32), min=SCALE_FLOOR))
+
+
 def quantize_weights(weight: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nn.Linear`` weight [N, K] f32 -> (codes int8 [N, K], scales f32
     [N]): the JAX ``quantize_weights`` of the kernel ``weight.T``."""
     w = weight.to(torch.float32)
-    s = torch.clamp(w.abs().amax(dim=1) / QMAX, min=SCALE_FLOOR)
+    s = torch.clamp(over_qmax(w.abs().amax(dim=1)), min=SCALE_FLOOR)
     return _quantize(w, s[:, None]), s
 
 
@@ -85,7 +102,7 @@ def channel_scales(act_amax: torch.Tensor
     top = amax.max()
     live = (amax != 0) | (top == 0)
     amax = torch.where(live, amax, top)
-    return torch.clamp(amax, min=SCALE_FLOOR) / QMAX, live
+    return per_tensor_scale(amax), live
 
 
 def quantize_conv_weights(weight: torch.Tensor,
@@ -96,7 +113,8 @@ def quantize_conv_weights(weight: torch.Tensor,
     [Cin] restricts each output channel's abs-max to the live channels."""
     w = weight.to(torch.float32)
     wl = w if live is None else torch.where(live[None, :, None, None], w, 0.0)
-    ks = torch.clamp(wl.abs().amax(dim=(1, 2, 3)) / QMAX, min=SCALE_FLOOR)
+    ks = torch.clamp(over_qmax(wl.abs().amax(dim=(1, 2, 3))),
+                     min=SCALE_FLOOR)
     kq = _quantize(w, ks[:, None, None, None])
     return kq.permute(0, 2, 3, 1).contiguous(), ks
 
@@ -128,7 +146,7 @@ def quantize_conv_act(x: torch.Tensor, sa: Optional[torch.Tensor] = None,
         amax = torch.maximum(-lo, hi).to(torch.float32)
     else:
         amax = act_scale.to(device=x.device, dtype=torch.float32)
-    xs = torch.clamp(amax, min=SCALE_FLOOR) / QMAX
+    xs = per_tensor_scale(amax)
     return _quantize(x, xs).contiguous(), xs
 
 
@@ -154,6 +172,33 @@ def conv2d_int8_acc_plain(xq: torch.Tensor, kq: torch.Tensor,
     return acc.permute(0, 2, 3, 1).to(torch.int32).contiguous()
 
 
+def max_pool_nhwc(y: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool of NHWC floats, floor mode: the backbone's ``M``."""
+    return F.max_pool2d(y.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def pool_codes(q: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool of NHWC int8 codes, floor mode (an odd H or W loses its
+    last row or column, as ``max_pool2d``'s): ``amax`` over a [B, H/2, 2,
+    W/2, 2, C] view, since CUDA's ``max_pool2d`` takes no int8. The scales
+    are positive and ``clip(rint(. / s))`` is monotone, so it equals the
+    codes of the pooled values."""
+    b, h, w, c = q.shape
+    q = q[:, :h // 2 * 2, :w // 2 * 2]
+    return q.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def quantize_rows_plain(x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense's activation quantize: x [N, K] float -> (codes int8,
+    per-row scales f32 [N, 1]), ``s = max(max|x_row| / 127, 1e-12)``
+    (divide, then floor)."""
+    xf = x.to(torch.float32)
+    xs = torch.clamp(over_qmax(xf.abs().amax(dim=-1, keepdim=True)),
+                     min=SCALE_FLOOR)
+    return _quantize(xf, xs), xs
+
+
 def dequantize_plain(acc: torch.Tensor, scale: torch.Tensor,
                      bias: Optional[torch.Tensor], out_dtype,
                      relu: bool = False) -> torch.Tensor:
@@ -167,28 +212,55 @@ def dequantize_plain(acc: torch.Tensor, scale: torch.Tensor,
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    # (x, w, out, B, H, W, Cin, Cout, dil, pad, tile, stream)
-    lib.conv_int8_acc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+    # (x, w, scale, bias, out_scale, out, out_kind, relu, round_bf16, B, H,
+    # W, Cin, Cout, dil, pad, tile, stream)
+    lib.conv_int8.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
-    lib.conv_int8_acc.restype = ctypes.c_int
-    # (x, w, scale, bias, out, out_bf16, relu, B, H, W, Cin, Cout, dil, pad,
-    # tile, stream)
-    lib.conv_int8_dequant.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 10 + [ctypes.c_void_p]
-    lib.conv_int8_dequant.restype = ctypes.c_int
+    lib.conv_int8.restype = ctypes.c_int
+
+
+def _bind_quant(lib: ctypes.CDLL) -> None:
+    # (x, x_bf16, n, C, scale, amax, xs, out, stream)
+    lib.quant_int8_map.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int] + [
+        ctypes.c_void_p] * 5
+    # (x, x_bf16, n, amax, stream)
+    lib.quant_int8_absmax.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p]
+    # (x, x_bf16, rows, K, out, xs, stream)
+    lib.quant_int8_rows.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 3
+    for fn in (lib.quant_int8_map, lib.quant_int8_absmax,
+               lib.quant_int8_rows):
+        fn.restype = ctypes.c_int
 
 
 CONV_KERNEL = CudaLibrary("conv_int8", _bind)
-# the kernel's block tiles (csrc/conv_int8.cu): output pixels x output
-# channels, and "k128" for 128 input channels a stage (else 64)
-CONV_TILES = {"256x128": 0, "128x128k128": 1}
+QUANT_KERNEL = CudaLibrary("quant_int8", _bind_quant)
+# the conv kernel's block tiles (csrc/conv_int8.cu), output pixels x output
+# channels: "wg" the wgmma + TMA main loop (spatial blocks of 8 x 16 or
+# 16 x 16 pixels), else mma.sync ("k128" for 128 input channels a stage,
+# else 64), kept for the timing beside it
+CONV_TILES = {"256x128": 0, "128x128k128": 1, "wg128x128": 2,
+              "wg256x128": 3}
+_OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+_CODES = 3
 
 
-def conv_tile(cin: int) -> str:
-    """The tile for Cin input channels: 128 channels a stage where Cin
-    allows, else 256 x 128 (the faster of the two at every VGG16 int8 layer
-    of the 1200 scale, tools/tune_conv_int8.py)."""
-    return "128x128k128" if cin % 128 == 0 else "256x128"
+def tile_fits(tile: str, cin: int, cout: int) -> bool:
+    """Whether the tile takes Cin input and Cout output channels."""
+    step = 128 if tile.endswith("k128") else 64
+    return cin % step == 0 and cout % 128 == 0
+
+
+def conv_tile(cin: int, cout: int, codes: bool = False) -> str:
+    """The tile for a Cin -> Cout conv writing floats, or the next conv's
+    codes: 16 x 16 pixels, but 8 x 16 for codes at Cin 64 (conv2), whose
+    epilogue is most of its time and has the registers there to overlap
+    its quantize (tools/tune_conv_int8.py at the VGG16 int8 layers of the
+    1200 scale)."""
+    return "wg128x128" if codes and cin < 128 else "wg256x128"
 
 
 def _conv_geometry(xq, kq, dilation, padding):
@@ -219,36 +291,65 @@ def _conv_geometry(xq, kq, dilation, padding):
     return b, h, w, cin, cout, ho, wo
 
 
-def _tile_index(tile: Optional[str], cin: int) -> int:
-    tile = conv_tile(cin) if tile is None else tile
-    if tile.endswith("k128") and cin % 128:
-        raise ValueError(f"conv_int8 tile {tile} needs Cin a multiple of 128, "
-                         f"not {cin}")
+def _tile_index(tile: Optional[str], cin: int, cout: int,
+                codes: bool) -> int:
+    tile = conv_tile(cin, cout, codes) if tile is None else tile
+    if not tile_fits(tile, cin, cout):
+        raise ValueError(f"conv_int8 tile {tile} does not take Cin {cin}, "
+                         f"Cout {cout}")
     return CONV_TILES[tile]
 
 
-def _check_raised(err: int) -> None:
+def _check_raised(err: int, name: str = "conv_int8") -> None:
     if err != 0:
-        raise RuntimeError(f"conv_int8 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def _f32(t: torch.Tensor, device, n: int, what: str) -> torch.Tensor:
+    t = t.to(device=device, dtype=torch.float32).contiguous()
+    if t.shape != (n,):
+        raise ValueError(f"int8 kernels: {what} must be [{n}], not "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _launch_conv(xq, kq, dilation, padding, tile, out_dtype, scale=None,
+                 bias=None, out_scale=None, relu=False):
+    """One launch of the conv kernel; returns its output."""
+    b, h, w, cin, cout, ho, wo = _conv_geometry(xq, kq, dilation, padding)
+    ptrs = [0, 0, 0]
+    if out_dtype != torch.int32:
+        scale = _f32(scale, xq.device, cout, "scale")
+        bias = (torch.zeros_like(scale) if bias is None
+                else _f32(bias, xq.device, cout, "bias"))
+        ptrs = [scale.data_ptr(), bias.data_ptr(), 0]
+    kind = _OUT_KIND[out_dtype]
+    if out_scale is not None:   # the scales and their reciprocals
+        out_scale = _f32(out_scale, xq.device, cout, "out_scale")
+        out_scale = torch.stack((out_scale, out_scale.reciprocal()))
+        ptrs[2], kind = out_scale.data_ptr(), _CODES
+    out = torch.empty((b, ho, wo, cout), device=xq.device,
+                      dtype=torch.int8 if kind == _CODES else out_dtype)
+    lib = CONV_KERNEL.get()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        _check_raised(lib.conv_int8(
+            xq.data_ptr(), kq.data_ptr(), *ptrs, out.data_ptr(), kind,
+            int(relu), int(out_dtype == torch.bfloat16), b, h, w, cin, cout,
+            dilation, padding, _tile_index(tile, cin, cout, kind == _CODES),
+            stream))
+    return out
 
 
 def conv_int8_acc(xq: torch.Tensor, kq: torch.Tensor, dilation: int = 1,
                   padding: int = 1, tile: Optional[str] = None
                   ) -> torch.Tensor:
-    """The int32 accumulator of the int8 conv (the kernel's ``ACC``
-    instantiation on CUDA, ``conv2d_int8_acc_plain`` on the CPU). Each
-    launch adds one to ``conv_int8_acc.launches``."""
+    """The int32 accumulator of the int8 conv (the kernel's ``ACC`` output
+    on CUDA, ``conv2d_int8_acc_plain`` on the CPU). Each launch adds one to
+    ``conv_int8_acc.launches``."""
     if xq.device.type == "cpu":
         return conv2d_int8_acc_plain(xq, kq, dilation, padding)
-    b, h, w, cin, cout, ho, wo = _conv_geometry(xq, kq, dilation, padding)
-    out = torch.empty((b, ho, wo, cout), dtype=torch.int32, device=xq.device)
-    lib = CONV_KERNEL.get()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        _check_raised(lib.conv_int8_acc(xq.data_ptr(), kq.data_ptr(),
-                                        out.data_ptr(), b, h, w, cin, cout,
-                                        dilation, padding,
-                                        _tile_index(tile, cin), stream))
+    out = _launch_conv(xq, kq, dilation, padding, tile, torch.int32)
     conv_int8_acc.launches += 1
     return out
 
@@ -259,45 +360,123 @@ conv_int8_acc.launches = 0
 def conv_int8_nhwc(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, dilation: int = 1,
                    padding: int = 1, out_dtype=torch.bfloat16,
-                   relu: bool = False, tile: Optional[str] = None
-                   ) -> torch.Tensor:
+                   relu: bool = False, tile: Optional[str] = None,
+                   out_scale: Optional[torch.Tensor] = None,
+                   pool: bool = False) -> torch.Tensor:
     """The int8 3x3 conv with its dequantize: codes xq NHWC int8 [B, H, W,
     Cin], kq [Cout, 3, 3, Cin] int8, f32 ``scale`` [Cout] (= xs * ks) and
     ``bias`` [Cout] -> NHWC [B, Ho, Wo, Cout] in ``out_dtype`` (bf16 or f32),
     ReLU'd if ``relu``.
 
-    CPU tensors take the plain versions. CUDA tensors launch
+    ``out_scale`` [Cout] (static serving): the output is instead the next
+    conv's int8 codes of that value, ``_quantize(y, out_scale)``, and
+    ``pool`` then max-pools them 2x2 (the ``M`` between two convs; exact,
+    see ``pool_codes``).
+
+    CPU tensors take the plain versions (the pool on the floats, before the
+    quantize, as the JAX package orders them). CUDA tensors launch
     ``csrc/conv_int8.cu`` (Cin a multiple of 64, Cout of 128, dilation and
     padding 1 or 2, any H and W; ``tile``, a key of ``CONV_TILES``, by
-    default ``conv_tile(Cin)``) on the current stream or raise; each launch
+    default ``conv_tile``'s) on the current stream or raise; each launch
     adds one to ``conv_int8_nhwc.launches``."""
+    if pool and out_scale is None:
+        raise ValueError("conv_int8_nhwc pools only the int8 codes")
     if xq.device.type == "cpu":
-        return dequantize_plain(conv2d_int8_acc_plain(xq, kq, dilation,
-                                                      padding),
-                                scale, bias, out_dtype, relu)
-    b, h, w, cin, cout, ho, wo = _conv_geometry(xq, kq, dilation, padding)
+        y = dequantize_plain(conv2d_int8_acc_plain(xq, kq, dilation, padding),
+                             scale, bias, out_dtype, relu)
+        if out_scale is None:
+            return y
+        return quantize_conv_act(max_pool_nhwc(y) if pool else y,
+                                 out_scale)[0]
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"conv_int8 kernel writes bf16 or f32, not "
                         f"{out_dtype}")
-    scale = scale.to(device=xq.device, dtype=torch.float32).contiguous()
-    bias = (torch.zeros_like(scale) if bias is None else
-            bias.to(device=xq.device, dtype=torch.float32).contiguous())
-    if scale.shape != (cout,) or bias.shape != (cout,):
-        raise ValueError(f"conv_int8: scale and bias must be [{cout}]")
-    out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=xq.device)
-    lib = CONV_KERNEL.get()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        _check_raised(lib.conv_int8_dequant(
-            xq.data_ptr(), kq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), int(relu),
-            b, h, w, cin, cout, dilation, padding, _tile_index(tile, cin),
-            stream))
+    out = _launch_conv(xq, kq, dilation, padding, tile, out_dtype, scale,
+                       bias, out_scale, relu)
     conv_int8_nhwc.launches += 1
-    return out
+    return pool_codes(out) if pool else out
 
 
 conv_int8_nhwc.launches = 0
+
+
+def _quant_operand(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_int8: x on {x.device} is neither a CPU "
+                         "tensor (plain path) nor a CUDA tensor (kernel)")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quant_int8 kernel takes bf16 or f32, not {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("quant_int8 kernel takes contiguous, 16-byte "
+                         "aligned values")
+
+
+def quantize_act(x: torch.Tensor, sa: Optional[torch.Tensor] = None,
+                 act_scale: Optional[torch.Tensor] = None):
+    """A conv's activation quantize, as ``quantize_conv_act`` (which CPU
+    tensors take): x NHWC float -> (codes int8 NHWC, the per-tensor scale
+    xs, or None with per-channel scales ``sa`` [C]); ``act_scale`` None is
+    dynamic (an abs-max pass, then the map), a 0-d tensor a calibrated
+    abs-max. CUDA tensors launch ``csrc/quant_int8.cu`` (C a multiple of 8
+    with ``sa``) on the current stream or raise; each kernel launched adds
+    one to ``quantize_act.launches``."""
+    if x.device.type == "cpu":
+        return quantize_conv_act(x, sa, act_scale)
+    _quant_operand(x)
+    dev = x.device
+    out = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    lib = QUANT_KERNEL.get()
+    bf16 = int(x.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if sa is not None:
+            sa = _f32(sa, dev, x.shape[-1], "sa")
+            args, xs, n = (x.shape[-1], sa.data_ptr(), None, None), None, 1
+        elif act_scale is not None:
+            xs = per_tensor_scale(act_scale.to(dev))
+            args, n = (0, xs.data_ptr(), None, None), 1
+        else:
+            amax = torch.empty((), dtype=torch.float32, device=dev)
+            xs = torch.empty((), dtype=torch.float32, device=dev)
+            _check_raised(lib.quant_int8_absmax(x.data_ptr(), bf16, x.numel(),
+                                                amax.data_ptr(), stream),
+                          "quant_int8")
+            args, n = (0, None, amax.data_ptr(), xs.data_ptr()), 2
+        _check_raised(lib.quant_int8_map(x.data_ptr(), bf16, x.numel(), *args,
+                                         out.data_ptr(), stream), "quant_int8")
+    quantize_act.launches += n
+    return out, xs
+
+
+quantize_act.launches = 0
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense's per-row activation quantize, as ``quantize_rows_plain``
+    (which CPU tensors take): x [N, K] float -> (codes int8 [N, K], scales
+    f32 [N, 1]). CUDA tensors launch ``csrc/quant_int8.cu`` (one block a
+    row, K a multiple of 8) on the current stream or raise; each launch
+    adds one to ``quantize_rows.launches``."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    _quant_operand(x)
+    if x.dim() != 2:
+        raise ValueError(f"quant_int8 rows take x [N, K], not "
+                         f"{tuple(x.shape)}")
+    n, k = x.shape
+    out = torch.empty((n, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    lib = QUANT_KERNEL.get()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check_raised(lib.quant_int8_rows(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), n, k,
+            out.data_ptr(), xs.data_ptr(), stream), "quant_int8")
+    quantize_rows.launches += 1
+    return out, xs
+
+
+quantize_rows.launches = 0
 
 
 def conv2d_int8(x: torch.Tensor, weight: torch.Tensor,
@@ -315,7 +494,7 @@ def conv2d_int8(x: torch.Tensor, weight: torch.Tensor,
     the kernel; the JAX package applies it outside). ``wq`` optionally
     supplies ``conv_weight_codes(weight, act_scale)``."""
     kq, ks, sa = conv_weight_codes(weight, act_scale) if wq is None else wq
-    xq, xs = quantize_conv_act(x, sa, act_scale)
+    xq, xs = quantize_act(x, sa, act_scale)
     return conv_int8_nhwc(xq, kq, ks if xs is None else xs * ks, bias,
                           dilation, padding, out_dtype, relu)
 
@@ -344,12 +523,11 @@ def dense_int8(x: torch.Tensor, weight: torch.Tensor,
                ) -> torch.Tensor:
     """``x @ weight.T + bias`` with int8 math: x [N, K] (any float dtype),
     weight [out, K] f32 (``nn.Linear``); ``wq`` optionally the codes and
-    scales of ``quantize_weights(weight)``. Per-row activation scales."""
+    scales of ``quantize_weights(weight)``. Per-row activation scales
+    (``quantize_rows``)."""
     kq, ks = quantize_weights(weight) if wq is None else wq
-    xf = x.to(torch.float32)
-    xs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / QMAX,
-                     min=SCALE_FLOOR)
-    acc = int_mm(_quantize(xf, xs), kq.t())
+    xq, xs = quantize_rows(x)
+    acc = int_mm(xq, kq.t())
     y = acc.to(torch.float32) * xs * ks
     if bias is not None:
         y = y + bias.to(torch.float32)

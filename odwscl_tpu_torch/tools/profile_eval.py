@@ -2,6 +2,7 @@
 forward, and the device's busy share over one 14-transform TTA batch.
 
     python -m odwscl_tpu_torch.tools.profile_eval [--batch 8] [--iters 5]
+        [--int8 static|dynamic]
 
 1. One ``eval_forward`` at the main-path shape (bf16, B images of
    832x1344, 2048 proposals each), split into its stages (backbone, ROIPool
@@ -11,6 +12,16 @@ forward, and the device's busy share over one 14-transform TTA batch.
    path: PIL resize + collate per scale, forwards, AVG merge, NMS) on
    synthetic 375x500 images, traced with torch.profiler: the summed
    device time of all kernels against the wall time gives the busy share.
+
+With ``--int8`` it instead splits one forward at the 1200 scale (B images
+on the padded 1280x1664 canvas) in bf16 and then in int8 serving
+(``TPU.INT8_EVAL``, ``INT8_EVAL_CONVS``; ``static`` calibrates on the
+batch first): the stages as in 1, and, from torch.profiler's device times,
+the int8 forward's kernels by kind: the int8 convs (``csrc/conv_int8.cu``),
+the conv-input quantize and the neck's row quantize
+(``csrc/quant_int8.cu``), ROIPool, the int8 GEMMs of the neck
+(``torch._int_mm``) and the rest (the stem's cuDNN convs, pools, the heads'
+GEMMs, elementwise work), with the largest kernels by name.
 
 Random weights (seeded); prints one JSON line per part. Needs a CUDA card.
 """
@@ -75,7 +86,8 @@ def conv_outputs_channels_last(backbone, images):
 
 
 def forward_stages(model, batch, iters):
-    """Device ms per stage of ``eval_forward`` at the batch's shape."""
+    """Device ms per stage of ``eval_forward`` at the batch's shape (the
+    serving paths: int8 where the model's keys ask for it)."""
     from odwscl_tpu_torch.ops.roi_pool import roi_pool
 
     with torch.no_grad():
@@ -84,17 +96,82 @@ def forward_stages(model, batch, iters):
         b, p = batch.boxes.shape[:2]
         ms = {}
         ms["backbone"], feats = _events_ms(
-            lambda: model.backbone(batch.images), iters)
+            lambda: model.backbone(batch.images, fast_eval=True), iters)
         ms["roi_pool"], pooled = _events_ms(
             lambda: roi_pool(feats, batch.boxes, batch.box_mask,
                              model.pooler_scale), iters)
         ms["neck_fc6_fc7"], clean = _events_ms(
-            lambda: model.neck(pooled.reshape(b * p, -1)), iters)
+            lambda: model.neck(pooled.reshape(b * p, -1), fast_eval=True),
+            iters)
         ms["heads"], _ = _events_ms(
             lambda: model.pred(clean.reshape(b, p, -1), batch.box_mask), iters)
         ms["eval_forward"], _ = _events_ms(
             lambda: model.eval_forward(batch), iters)
     return ms
+
+
+# kernel-name fragments of the int8 forward's kinds, matched in order
+INT8_KINDS = (("int8 convs (#5)", ("conv_int8",)),
+              ("conv input quantize (#6)", ("map_kernel", "absmax_kernel")),
+              ("neck row quantize (#6)", ("rows_kernel",)),
+              ("ROIPool (#1)", ("roi_pool",)),
+              ("neck int8 GEMMs (_int_mm)", ("s8", "i8", "imma", "int8")))
+
+
+def kernel_split(model, batch, iters):
+    """Device ms per kernel kind of one ``eval_forward`` (torch.profiler,
+    over ``iters`` forwards), and the 8 largest kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        model.eval_forward(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                model.eval_forward(batch)
+            torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / iters
+    kinds = dict.fromkeys([k for k, _ in INT8_KINDS] + ["other"], 0.0)
+    for name, ms in by_name.items():
+        kind = next((k for k, frags in INT8_KINDS
+                     if any(f in name for f in frags)), "other")
+        kinds[kind] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return kinds, {name[:80]: ms for name, ms in top}
+
+
+def int8_split(cfg, batch, iters, mode):
+    """The bf16 and the int8 forward at the batch's shape: event-timed
+    stages of both, the int8 forward's kernel kinds."""
+    from odwscl_tpu_torch.models.detector import detector_from_cfg
+
+    out = {}
+    for label in ("bf16", "int8 " + mode):
+        c = cfg.clone()
+        c.defrost()
+        if label != "bf16":
+            c.merge_from_list(["TPU.INT8_EVAL", "True",
+                               "TPU.INT8_EVAL_CONVS", "True",
+                               "TPU.INT8_STATIC", str(mode == "static")])
+        model = detector_from_cfg(c)
+        model.reset_parameters(torch.Generator().manual_seed(c.SEED))
+        model.to(batch.images.device).eval()
+        if label != "bf16" and mode == "static":
+            with torch.no_grad():
+                model.eval_forward(batch, calibrate=True)
+        out[label] = {"stages_ms": forward_stages(model, batch, iters)}
+        if label != "bf16":
+            out[label]["kernels_ms"], out[label]["top_kernels_ms"] = (
+                kernel_split(model, batch, iters))
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 def tta_busy_share(model, cfg, samples):
@@ -121,15 +198,30 @@ def tta_busy_share(model, cfg, samples):
             "stage_s": inf.timings, "n_forwards": inf.n_forwards}
 
 
+def _batch(rng, b, h, w, p, size, xy_max):
+    """B random images of h x w (valid size (H, W)) and P random boxes an
+    image of 16-300 px from corners up to ``xy_max``, clipped to it."""
+    from odwscl_tpu_torch.models import Batch
+
+    x1y1 = rng.uniform(0, xy_max, (b, p, 2))
+    wh = rng.uniform(16, 300, (b, p, 2))
+    boxes = np.concatenate([x1y1, np.minimum(x1y1 + wh,
+                                             [size[1] - 1, size[0] - 1])], -1)
+    return Batch(torch.from_numpy(rng.randn(b, h, w, 3).astype(np.float32)),
+                 torch.tensor([list(size)] * b),
+                 torch.from_numpy(boxes.astype(np.float32)),
+                 torch.ones((b, p), dtype=torch.bool))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--int8", choices=("static", "dynamic"))
     args = ap.parse_args(argv)
 
     from odwscl_tpu_torch.config import get_default_cfg
     from odwscl_tpu_torch.data.transforms import Sample
-    from odwscl_tpu_torch.models import Batch
     from odwscl_tpu_torch.models.detector import detector_from_cfg
     from odwscl_tpu_torch.utils.device import resolve_device
     from odwscl_tpu_torch.utils.profiling import card_name_and_limit
@@ -139,19 +231,20 @@ def main(argv=None):
     cfg = get_default_cfg()
     cfg.merge_from_file(CONFIG)
     cfg.freeze()
+    rng = np.random.RandomState(0)
+    if args.int8:
+        b, h, w, p = args.batch, 1280, 1664, 2048
+        batch = _batch(rng, b, h, w, p, (1200.0, 1600.0), 1400).to(dev)
+        print(json.dumps({"part": "int8_forward_split", "card": card,
+                          "shape": [b, h, w, p], "mode": args.int8,
+                          **int8_split(cfg, batch, args.iters, args.int8)}))
+        return
     model = detector_from_cfg(cfg)
     model.reset_parameters(torch.Generator().manual_seed(cfg.SEED))
     model.to(dev).eval()
 
-    rng = np.random.RandomState(0)
     b, h, w, p = args.batch, 832, 1344, 2048
-    x1y1 = rng.uniform(0, 1000, (b, p, 2))
-    wh = rng.uniform(16, 300, (b, p, 2))
-    boxes = np.concatenate([x1y1, np.minimum(x1y1 + wh, [1332, 799])], -1)
-    batch = Batch(torch.from_numpy(rng.randn(b, h, w, 3).astype(np.float32)),
-                  torch.tensor([[800.0, 1333.0]] * b),
-                  torch.from_numpy(boxes.astype(np.float32)),
-                  torch.ones((b, p), dtype=torch.bool)).to(dev)
+    batch = _batch(rng, b, h, w, p, (800.0, 1333.0), 1000).to(dev)
     ms = forward_stages(model, batch, args.iters)
     conv_flop = b * backbone_flops(model.backbone.spec, h, w)
     print(json.dumps({"part": "forward_stages_ms", "card": card,

@@ -1,13 +1,16 @@
-"""Time the int8 conv kernel's block tiles at the VGG16 int8 layer shapes.
+"""Time the int8 conv kernel's main loops and tiles at the VGG16 int8 layers.
 
     python -m odwscl_tpu_torch.tools.tune_conv_int8 [--scale 1200]
         [--iters 5] [--rounds 3]
 
-Each tile of ``csrc/conv_int8.cu`` (``ops/quant.py:CONV_TILES``) is first
-checked bit for bit against ``conv2d_int8_acc_plain`` at a few shapes, then
-timed with cuDNN's bf16 conv of the same shape beside it, in turns, at the
-11 int8 convs (conv2-conv12) of one padded batch of 8 VOC images (375x500)
-at ``--scale``. ``ops/quant.py:conv_tile`` was chosen from these readings.
+Each tile of ``csrc/conv_int8.cu`` (``ops/quant.py:CONV_TILES``: the
+``wgmma`` + TMA main loop on 8 x 16 or 16 x 16 pixels a block, the
+``mma.sync`` one with its two tiles) is first checked bit for bit against
+``conv2d_int8_acc_plain`` at a few shapes, then timed in both output modes
+(bf16, and the next conv's int8 codes of static serving) with cuDNN's bf16
+conv of the same shape beside it, in turns, at the 11 int8 convs
+(conv2-conv12) of one padded batch of 8 VOC images (375x500) at
+``--scale``. ``ops/quant.py:conv_tile`` was chosen from these readings.
 Needs a CUDA card.
 """
 
@@ -56,10 +59,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def tiles_for(cin: int):
-    from odwscl_tpu_torch.ops.quant import CONV_TILES
+def tiles_for(cin: int, cout: int):
+    from odwscl_tpu_torch.ops.quant import CONV_TILES, tile_fits
 
-    return [t for t in CONV_TILES if not t.endswith("k128") or cin % 128 == 0]
+    return [t for t in CONV_TILES if tile_fits(t, cin, cout)]
 
 
 def main(argv=None) -> dict:
@@ -85,7 +88,7 @@ def main(argv=None) -> dict:
         x, wt, _ = conv_inputs(dev, gen, b, h, w, cin, cout)
         xq, kq, _ = q.quantize_conv_input(x, wt)
         ref = q.conv2d_int8_acc_plain(xq, kq, d, d)
-        for tile in tiles_for(cin):
+        for tile in tiles_for(cin, cout):
             if not torch.equal(q.conv_int8_acc(xq, kq, d, d, tile), ref):
                 raise AssertionError(f"tile {tile} differs from the plain "
                                      f"accumulator at {(b, h, w, cin, cout)}")
@@ -96,11 +99,19 @@ def main(argv=None) -> dict:
         h, w = hc // s, wc // s
         x, wt, bias = conv_inputs(dev, gen, 8, h, w, cin, cout)
         xq, kq, scale = q.quantize_conv_input(x, wt)
+        # the next conv's scales as a calibration on this output gives them
+        y = q.conv_int8_nhwc(xq, kq, scale, bias, d, d, torch.bfloat16, True)
+        s_out = q.channel_scales(y.abs().amax(dim=(0, 1, 2)).float())[0]
+        del y
         xc, wb, bb = (x.permute(0, 3, 1, 2), wt.to(torch.bfloat16),
                       bias.to(torch.bfloat16))
-        fns = {t: (lambda t=t: q.conv_int8_nhwc(
-            xq, kq, scale, bias, d, d, torch.bfloat16, i < 12, t))
-            for t in tiles_for(cin)}
+        fns = {}
+        for t in tiles_for(cin, cout):
+            fns[t] = (lambda t=t: q.conv_int8_nhwc(
+                xq, kq, scale, bias, d, d, torch.bfloat16, i < 12, t))
+            fns[t + " codes"] = (lambda t=t: q.conv_int8_nhwc(
+                xq, kq, scale, bias, d, d, torch.bfloat16, True, t,
+                out_scale=s_out))
         fns["cudnn_bf16"] = lambda: F.conv2d(xc, wb, bb, padding=d,
                                              dilation=d)
         reads = {k: [] for k in fns}
@@ -108,16 +119,20 @@ def main(argv=None) -> dict:
             for k, fn in fns.items():
                 reads[k].append(cuda_ms(fn, args.iters))
         ops = 2.0 * 8 * h * w * cout * 9 * cin
-        line = []
         means = {k: statistics.mean(v) for k, v in reads.items()}
-        means["shipped"] = means[q.conv_tile(cin)]
+        shipped = (q.conv_tile(cin, cout), q.conv_tile(cin, cout, True))
+        means["shipped"] = means[shipped[0]]
+        means["shipped codes"] = means[shipped[1] + " codes"]
+        line = []
         for k, ms in means.items():
             sums[k] = sums.get(k, 0.0) + ms
-            if k != "shipped":
+            if not k.startswith("shipped"):
                 line.append(f"{k} {ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s)")
         print(f"[tune] conv{i} [8,{h},{w},{cin}]->{cout} dil {d}: "
-              + ", ".join(line) + f"; shipped {q.conv_tile(cin)}")
-        del x, xq, xc
+              + ", ".join(line) + f"; shipped {shipped[0]}, codes "
+              f"{shipped[1]}")
+        del x, xq, xc, fns
+        torch.cuda.empty_cache()
     print("[tune] sums over the layers each runs (shipped: all 11): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items()))
     return sums

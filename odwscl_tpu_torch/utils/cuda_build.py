@@ -3,9 +3,9 @@
 Plain ``nvcc`` for ``sm_90a`` into a library with a C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The library is
 built at first use into ``build/odwscl_tpu_torch/`` at the root of the
-checkout, named by a hash of the source and the flags, so a changed source
-is rebuilt and an unchanged one is reused. A failed build raises: there is
-no fallback to the plain version.
+checkout, named by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so a changed source is rebuilt and an unchanged one is
+reused. A failed build raises: there is no fallback to the plain version.
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ class CudaLibrary:
 
     def path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared includes
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 

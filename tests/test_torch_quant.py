@@ -221,6 +221,15 @@ def test_cuda_tensors_never_take_the_plain_path():
         tq.conv_int8_acc(xq, kq)
     with pytest.raises(ValueError, match="neither a CPU"):
         tq.conv_int8_nhwc(xq, kq, torch.ones(128))
+    with pytest.raises(ValueError, match="neither a CPU"):
+        tq.conv_int8_nhwc(xq, kq, torch.ones(128), out_scale=torch.ones(128))
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="neither a CPU"):
+        tq.quantize_act(x)
+    with pytest.raises(ValueError, match="neither a CPU"):
+        tq.quantize_act(x, torch.ones(64))
+    with pytest.raises(ValueError, match="neither a CPU"):
+        tq.quantize_rows(x.reshape(4, 256))
 
 
 def test_dead_channel_repair():
@@ -319,9 +328,9 @@ def test_tuner_layer_table_is_vgg16s_int8_convs():
             want.append((i, stride, conv.in_channels, conv.out_channels, dil))
     assert bb.num_convs == 13
     assert tune.INT8_LAYERS == want
-    for cin in (64, 128, 256, 512):
-        assert tune.tiles_for(cin)
-        assert tq.conv_tile(cin) in tune.tiles_for(cin)
+    for _, _, cin, cout, _ in tune.INT8_LAYERS:
+        assert tune.tiles_for(cin, cout)
+        assert tq.conv_tile(cin, cout) in tune.tiles_for(cin, cout)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):
             tune.main([])
