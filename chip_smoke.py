@@ -55,7 +55,8 @@ Phases (any failure ends the run with a non-zero exit code):
    training variant of ``VARIANT_STEPS`` (WSDDN; OICR and MIST OICR_P 0.15
    without contrastive mining; OICR with it; Concrete DropBlock; CAM
    proposals), VGG16 at full width; the Concrete DropBlock's step runs
-   again on the card with cuDNN's TF32, and its gap is printed.
+   again on the card with cuDNN's TF32, and its gap is printed; and the
+   main step again with the COCO configs' 81-class heads.
 7. Drive the training path: ``odwscl_tpu_torch.tools.train_net`` with
    configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml (VGG16-OICR, bf16, batch
    8, scales 480-1200, random init) for 20 iterations on a synthetic VOC
@@ -125,6 +126,20 @@ Phases (any failure ends the run with a non-zero exit code):
    unfused chain bit for bit, and its features stay within 0.25 of bf16's
    largest (the JAX package's bound); the merged detections' gap to bf16
    and each run's images/s are printed.
+13. (Run after 10.) Drive the COCO configuration
+   (configs/coco/coco14_contra_db_b8_lr0.01_mcg.yaml as shipped: 81
+   classes, bf16, batch 8, scales 480-1200, MCG proposal files, random
+   init) on a synthetic ``coco14`` layout of COCO's 480x640 images (32
+   train, 16 val, 16 valminusminival; 2048 proposals each; point and
+   scribble annotations): train 10 steps as in 7, the mining counters
+   non-zero; evaluate the checkpoint with the 14-transform TTA and
+   ``TPU.EVAL_DEVICE_RESIZE True`` into the 7 COCO stats, all finite, the
+   launches as in 8; the COCO evaluator fed the val GT must give AP 1.0,
+   and less with the boxes shifted by 8 px. ``SOLVER.CLASS_BATCH`` over
+   two datasets must raise a ValueError; then 5 steps each of two
+   training datasets (``coco_2014_train``, ``coco_2014_valminusminival``),
+   ``SOLVER.CLASS_BATCH``, ``PARTIAL_LABELS point`` and ``scribble``
+   (with ``ROI_LOSS_REFINE``) as in 7.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -146,6 +161,8 @@ CONFIG = os.path.join(ROOT, "configs", "voc",
                       "voc07_contra_db_b8_lr0.01_mcg.yaml")
 CONFIG_R50 = os.path.join(ROOT, "configs", "voc",
                           "voc07_r50_c5_contra_db_b8_lr0.02_ss.yaml")
+CONFIG_COCO = os.path.join(ROOT, "configs", "coco",
+                           "coco14_contra_db_b8_lr0.01_mcg.yaml")
 
 # phase 5: f32 card vs CPU. Both run the same f32 algorithm; the card sums
 # convolutions and GEMMs in another order (cuDNN/cuBLAS tiling, no TF32).
@@ -811,7 +828,8 @@ VARIANT_STEPS = [
 ]
 
 
-def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None, **kw):
+def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None,
+                            num_classes=21, **kw):
     """One f32 train step on the card and on the CPU: same weights, batch
     and draws; neck dropout 0 (its masks come from each device's own
     generator). One positive class per image, so stage B's chain compares
@@ -821,7 +839,8 @@ def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None, **kw):
     tensors that variant trains. With ``DB.METHOD concrete`` the card's
     step is then repeated with cuDNN's TF32 (PyTorch's default, which the
     port keeps for the CDB's convolutions) and its gap to the CPU and the
-    drop decisions that moved are printed. Returns the f32 loss gap."""
+    drop decisions that moved are printed. ``num_classes`` 81 is the COCO
+    configs' head. Returns the f32 loss gap."""
     import torch
     from odwscl_tpu_torch.models import Batch
     from odwscl_tpu_torch.models import cdb as tcdb
@@ -841,11 +860,12 @@ def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None, **kw):
     boxes = np.concatenate([x1y1, np.minimum(x1y1 + wh, sizes[:, None, ::-1]
                                              - 1)], -1).astype(np.float32)
     mask = rng.uniform(size=(b, p)) > 0.1
-    labels = np.zeros((b, 21), np.float32)
+    labels = np.zeros((b, num_classes), np.float32)
     labels[0, 7] = labels[1, 15] = 1.0
     batch = Batch(*(torch.from_numpy(a) for a in (images, sizes, boxes, mask,
                                                   labels)))
-    model = _detector(arch, neck_dropout=0.0, cap_a=1024, cap_b=256, **kw)
+    model = _detector(arch, neck_dropout=0.0, cap_a=1024, cap_b=256,
+                      num_classes=num_classes, **kw)
     with torch.no_grad():
         for name, _ in model.pred.heads:
             if not name.startswith("bbox_pred"):
@@ -998,12 +1018,14 @@ def write_r50_weights(tmp):
     return blobs
 
 
-def phase_train(rp, tmp, config, steps, label, opts=(), period=None):
+def phase_train(rp, tmp, config, steps, label, opts=(), period=None,
+                live=()):
     """``train_net`` with ``config`` for ``steps`` iterations, a checkpoint
     every ``period`` (default ``steps``) and at the end; every step must
     launch the training forward (with the argmax) and the backward once
-    and the eval forward never, and every loss must be finite. Returns the
-    launch counts (fwd[argmax], bwd) and the final checkpoint."""
+    and the eval forward never, every loss must be finite and each metric
+    of ``live`` (e.g. the mining counters) non-zero in some step. Returns
+    the launch counts (fwd[argmax], bwd) and the final checkpoint."""
     import torch
     from odwscl_tpu_torch.tools import train_net
 
@@ -1033,6 +1055,9 @@ def phase_train(rp, tmp, config, steps, label, opts=(), period=None):
     if launches != (0, steps, steps):
         raise AssertionError(f"{label}: kernel launches (fwd, fwd[argmax], "
                              f"bwd) {launches} for {steps} steps")
+    dead = [k for k in live if not any(st[k] for st in steps_log)]
+    if dead:
+        raise AssertionError(f"{label}: {dead} zero in every step")
     window = steps_log[4:]
     med = statistics.median(st["step_s"] for st in window)
     data_wait = sum(st["data_s"] for st in window)
@@ -1056,6 +1081,9 @@ def phase_train(rp, tmp, config, steps, label, opts=(), period=None):
     print(f"[train] {label} kernel launches: roi_pool_fwd[argmax] "
           f"{launches[1]}, roi_pool_bwd {launches[2]} = steps {steps}; "
           f"roi_pool_fwd {launches[0]}")
+    if live:
+        print(f"[train] {label} " + ", ".join(
+            f"{k} {[int(st[k]) for st in steps_log]}" for k in live))
     for name in (f"model_{period:07d}.pt", "model_final.pt"):
         if not os.path.exists(os.path.join(out, name)):
             raise AssertionError(f"checkpoint {name} missing")
@@ -1285,6 +1313,7 @@ def phase_eval(rp, tmp, config, weights, label, runs, opts=()):
         for task, device_resize in runs:
             inference.Inferencer._finalize = (capture if task == "det"
                                               else finalize)
+            torch.cuda.reset_peak_memory_stats()
             timing = {}
             t0 = time.perf_counter()
             res = test_net.main([
@@ -1296,25 +1325,35 @@ def phase_eval(rp, tmp, config, weights, label, runs, opts=()):
                 timing_out=timing)
             wall = time.perf_counter() - t0
             (t,), (r,) = timing.values(), res.values()
-            metric = r["map"] if task == "det" else r["mean_corloc"]
-            if not math.isfinite(metric):
-                raise AssertionError(f"{label} {task}: non-finite {metric}")
+            name = ("mAP" if "map" in r else "COCO AP" if "AP" in r
+                    else "CorLoc")
+            metric = r.get("map", r.get("AP", r.get("mean_corloc")))
+            stats = ({k: v for k, v in r.items() if k in COCO_STATS}
+                     if "AP" in r else {name: metric})
+            if "AP" in r and set(stats) != set(COCO_STATS):
+                raise AssertionError(f"{label}: COCO stats {sorted(r)}")
+            if not all(math.isfinite(v) for v in stats.values()):
+                raise AssertionError(f"{label} {task}: non-finite {stats}")
             if t["n_forwards"] != n_batches * n_tta:
                 raise AssertionError(f"{label} {task}: {t['n_forwards']} "
                                      f"forwards, expected {n_batches} x "
                                      f"{n_tta}")
             total += t["n_forwards"]
             mode = "device resize" if device_resize else "host resize"
-            print(f"[eval] {label} {task}, {mode}: "
-                  f"{'mAP' if task == 'det' else 'CorLoc'} {metric:.4f}; "
+            extra = (" (" + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      stats.items()) + ")"
+                     if len(stats) > 1 else "")
+            print(f"[eval] {label} {task}, {mode}: {name} {metric:.4f}"
+                  f"{extra}; "
                   f"{t['n_images']} images in {t['wall_s']:.2f} s = "
                   f"{t['n_images'] / t['wall_s']:.2f} images/s; "
                   f"{t['n_forwards']} forwards; stage s: load wait "
                   f"{t['load_wait_s']:.2f}, prep_wait_s "
                   f"{t['prep_wait_s']:.2f}, forward+merge "
                   f"{t['forward_s']:.2f}, NMS+top-K+to-host "
-                  f"{t['finalize_s']:.2f}, eval {t['eval_s']:.3f}; CLI wall "
-                  f"{wall:.2f} s")
+                  f"{t['finalize_s']:.2f}, eval {t['eval_s']:.3f}; max memory "
+                  f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                  f"GB; CLI wall {wall:.2f} s")
             SUMMARY.append(f"{label} eval {task} {mode}: "
                            f"{t['n_images'] / t['wall_s']:.2f} images/s, "
                            f"prep_wait_s {t['prep_wait_s']:.2f}")
@@ -1351,6 +1390,114 @@ def phase_eval(rp, tmp, config, weights, label, runs, opts=()):
     return launches
 
 
+
+# phase 13: the COCO configuration. The 7 stats of the COCO evaluator (the
+# JAX package's set: AP over IoU .5:.95, AP50, AP75, AR at 100
+# detections, AP by area)
+COCO_STATS = ("AP", "AP50", "AP75", "AR", "AP_s", "AP_m", "AP_l")
+COCO_STEPS = 10
+COCO_VARIANT_STEPS = 5
+COCO_TRAIN_PROPS = ("proposal/MCG/coco/MCG-coco14_train.pkl",
+                    "proposal/MCG/coco/MCG-coco14_valminusminival.pkl")
+TWO_DATASETS = ["DATASETS.TRAIN",
+                "('coco_2014_train', 'coco_2014_valminusminival')",
+                "PROPOSAL_FILES.TRAIN", str(COCO_TRAIN_PROPS)]
+# (label, overrides) of the COCO14 config, 5 steps each
+COCO_VARIANTS = [
+    ("two datasets", TWO_DATASETS),
+    ("CLASS_BATCH", ["SOLVER.CLASS_BATCH", "True"]),
+    ("point", ["MODEL.ROI_WEAK_HEAD.PARTIAL_LABELS", "point",
+               "MODEL.ROI_WEAK_HEAD.ROI_LOSS_REFINE", "True"]),
+    ("scribble", ["MODEL.ROI_WEAK_HEAD.PARTIAL_LABELS", "scribble",
+                  "MODEL.ROI_WEAK_HEAD.ROI_LOSS_REFINE", "True"]),
+]
+# the planted evaluator check: GT boxes shifted by this many pixels
+COCO_SHIFT_PX = 8.0
+
+
+def write_coco_data(tmp):
+    """The synthetic ``coco14`` layout under ``tmp``: 32 train, 16 val and
+    16 valminusminival images of COCO's 480x640 with 1-3 objects of 40-300
+    px among COCO's 80 categories, point and scribble annotations, 2048
+    MCG-named proposals each."""
+    from odwscl_tpu_torch.data.synthetic import write_synthetic_coco
+
+    t0 = time.perf_counter()
+    write_synthetic_coco(tmp, n_train=32, n_val=16, seed=0,
+                         img_hw=(480, 640), n_props=2048, layout="coco14",
+                         obj_size=(40, 300), prop_size=(20, 400),
+                         n_valminusminival=16, partial=True)
+    print(f"[data] synthetic COCO (coco14 layout, 80 categories): 32 train "
+          f"+ 16 val + 16 valminusminival images 480x640, 2048 proposals "
+          f"each, points and scribbles, written in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_coco_planted(tmp):
+    """The COCO evaluator on the val split's own GT as predictions (boxes
+    in the +1 convention, score 1): AP, AP50, AP75 and AR must be 1.0;
+    with the boxes shifted by COCO_SHIFT_PX they must fall below."""
+    from odwscl_tpu_torch.data.build import build_dataset
+    from odwscl_tpu_torch.evaluation.coco_eval import do_coco_evaluation
+
+    ds = build_dataset("coco_2014_val", None, tmp)
+    out = {}
+    for shift in (0.0, COCO_SHIFT_PX):
+        preds = []
+        for i in range(len(ds)):
+            boxes, labels, _ = ds.get_groundtruth(i)
+            boxes = boxes + np.float32([shift, shift, shift, shift])
+            preds.append({"boxes": boxes, "labels": labels,
+                          "scores": np.ones(len(labels), np.float32)})
+        out[shift] = do_coco_evaluation(ds, preds)
+    exact, shifted = out[0.0], out[COCO_SHIFT_PX]
+    print(f"[eval] COCO evaluator, planted: the val GT as predictions gives "
+          + ", ".join(f"{k} {exact[k]:.4f}" for k in COCO_STATS)
+          + f"; shifted {COCO_SHIFT_PX:g} px: "
+          + ", ".join(f"{k} {shifted[k]:.4f}" for k in COCO_STATS))
+    if any(exact[k] != 1.0 for k in ("AP", "AP50", "AP75", "AR")):
+        raise AssertionError(f"COCO evaluator on the GT itself: {exact}")
+    if not shifted["AP"] < 1.0:
+        raise AssertionError(f"COCO evaluator on shifted GT: {shifted}")
+    SUMMARY.append(f"COCO planted AP 1.0 / shifted {shifted['AP']:.4f}")
+
+
+def phase_coco(rp, tmp):
+    """The COCO14 config as shipped (81 classes, bf16, batch 8, scales
+    480-1200, MCG proposals; random init): train COCO_STEPS steps with
+    the mining counters live, evaluate the checkpoint with the 14
+    transforms, device-resized, into COCO AP; the planted evaluator check;
+    then COCO_VARIANT_STEPS steps of each of COCO_VARIANTS, after checking
+    that CLASS_BATCH over two datasets raises the port's ValueError.
+    Returns {label: launches}."""
+    from odwscl_tpu_torch.tools import train_net
+
+    launches = {}
+    live = ("n_bank", "n_mined", "n_pos0")
+    train, ckpt = phase_train(rp, tmp, CONFIG_COCO, COCO_STEPS, "COCO14",
+                              ("MODEL.WEIGHT", ""), live=live)
+    launches["COCO14"] = {"train": train}
+    launches["COCO14"]["eval"] = phase_eval(
+        rp, tmp, CONFIG_COCO, ckpt, "COCO14", [("det", True)])
+    shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    phase_coco_planted(tmp)
+    try:
+        train_net.main(["--config-file", CONFIG_COCO, "--data-root", tmp,
+                        "--device", "cuda", "--skip-test", "OUTPUT_DIR",
+                        os.path.join(tmp, "coco_refused"), "MODEL.WEIGHT",
+                        "", "SOLVER.CLASS_BATCH", "True", *TWO_DATASETS])
+    except ValueError as e:
+        print(f"[train] COCO14 CLASS_BATCH over two datasets refused: {e}")
+    else:
+        raise AssertionError("CLASS_BATCH over two datasets trained")
+    for label, opts in COCO_VARIANTS:
+        train, ckpt = phase_train(
+            rp, tmp, CONFIG_COCO, COCO_VARIANT_STEPS, "COCO14 " + label,
+            ("MODEL.WEIGHT", "", *opts),
+            live=("n_pos0",) if label in ("point", "scribble") else live)
+        launches["COCO14 " + label] = {"train": train}
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    return launches
 
 # the neck's int8 GEMMs at 8 images x 2048 rois: (name, K, N)
 INT8_DENSE = [("fc6", 25088, 4096), ("fc7", 4096, 4096)]
@@ -2037,6 +2184,9 @@ def main():
         f"train card vs CPU {label}",
         lambda lb=label, kw=kw: phase_train_card_vs_cpu(dev, label=lb, **kw))
         for label, kw in VARIANT_STEPS}
+    variant_gaps["81 classes"] = timed(
+        "train card vs CPU, 81 classes", phase_train_card_vs_cpu, dev,
+        "VGG16-OICR", "VGG16-OICR 81 classes", 81)
     SUMMARY.append("variants f32 card vs CPU loss gaps " + ", ".join(
         f"{k} {v:.1e}" for k, v in variant_gaps.items()))
     cfg, cfg_r50 = get_default_cfg(), get_default_cfg()
@@ -2072,6 +2222,8 @@ def main():
         r50_eval = timed("R-50-C5 eval", phase_eval, rp, tmp, CONFIG_R50,
                          ckpt, "R-50-C5", [("det", False), ("det", True)])
         variants = timed("training variants", phase_variants, rp, tmp, cfg)
+        write_coco_data(tmp)
+        coco = timed("COCO train, eval and variants", phase_coco, rp, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if any(rs.roi_pool_stage.launches.values()):
@@ -2082,12 +2234,15 @@ def main():
                        **{f"VGG16-OICR int8 eval {k}": v[2]
                           for k, v in int8_eval.items()},
                        **{f"{k} eval": v["eval"] for k, v in variants.items()
-                          if "eval" in v}},
+                          if "eval" in v},
+                       "COCO14 eval": coco["COCO14"]["eval"]},
                "fwd_argmax": {"VGG16-OICR": train_fwd, "R-50-C5": r50_fwd,
                               **{k: v["train"][0]
-                                 for k, v in variants.items()}},
+                                 for k, v in variants.items()},
+                              **{k: v["train"][0] for k, v in coco.items()}},
                "bwd": {"VGG16-OICR": train_bwd, "R-50-C5": r50_bwd,
-                       **{k: v["train"][1] for k, v in variants.items()}}}
+                       **{k: v["train"][1] for k, v in variants.items()},
+                       **{k: v["train"][1] for k, v in coco.items()}}}
 
     src = "odwscl_tpu_torch/csrc/"
     no_lib = ("no single PyTorch call computes ROIPool; torchvision is not "

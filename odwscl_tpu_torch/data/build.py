@@ -1,15 +1,17 @@
-"""Loader assembly, VOC.
+"""Loader assembly: VOC, COCO and web datasets.
 
 Counterpart of ``odwscl_tpu/data/build.py``: dataset + sampler + transform
-+ collator. The train loader yields CPU ``Batch``es (one process); the
-eval loader yields ``(batch, samples, indices)``, sharded by process when
-several run. A thread pool prepares the next batch while the current one
-runs.
++ collator. The train loader yields CPU ``Batch``es (one process), over
+one dataset or several concatenated, with aspect grouping or
+``SOLVER.CLASS_BATCH`` pairs; the eval loader yields ``(batch, samples,
+indices)``, sharded by process when several run. A thread pool prepares
+the next batch while the current one runs.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as futures
+import functools
 import os
 from typing import Optional
 
@@ -18,29 +20,65 @@ import numpy as np
 from ..config.catalog import DatasetCatalog
 from ..utils.dist import process_count_and_index
 from .collate import BatchCollator, collator_from_cfg
+from .coco_dataset import COCODataset
+from .flickr import WebDataset
 from .samplers import (InferenceSampler, IterationBatchSampler,
-                       aspect_ratio_groups)
+                       aspect_ratio_groups, class_batch_pairs,
+                       require_groundtruth)
 from .transforms import EvalTransform, TrainTransform, build_train_transform
 from .voc import PascalVOCDataset
 
 
 def build_dataset(name: str, proposal_file: Optional[str],
-                  data_root: str = "datasets",
-                  is_train: bool = False) -> PascalVOCDataset:
-    """A VOC dataset (difficult objects kept for evaluation only); a
-    relative proposal path resolves under ``data_root`` when it is not
-    found as given."""
+                  data_root: str = "datasets", is_train: bool = False,
+                  load_masks: bool = False, load_keypoints: bool = False):
+    """The catalog's dataset ``name``: VOC (difficult objects kept for
+    evaluation only), COCO (images without a non-crowd annotation dropped
+    in training only; masks and keypoints raise, as not ported) or web
+    data. A relative proposal path resolves under ``data_root`` when it is
+    not found as given."""
     if (proposal_file and not os.path.isabs(proposal_file)
             and not os.path.exists(proposal_file)):
         candidate = os.path.join(data_root, proposal_file)
         if os.path.exists(candidate):
             proposal_file = candidate
     info = DatasetCatalog.get(name, data_root)
-    if info["factory"] != "PascalVOCDataset":
-        raise NotImplementedError(f"dataset {name!r} ({info['factory']}) is "
-                                  "not ported yet: VOC only")
-    return PascalVOCDataset(proposal_file=proposal_file,
-                            use_difficult=not is_train, **info["args"])
+    factory, args = info["factory"], info["args"]
+    if factory == "PascalVOCDataset":
+        return PascalVOCDataset(proposal_file=proposal_file,
+                                use_difficult=not is_train, **args)
+    if factory == "COCODataset":
+        return COCODataset(proposal_file=proposal_file,
+                           remove_images_without_annotations=is_train,
+                           load_masks=load_masks,
+                           load_keypoints=load_keypoints, **args)
+    if factory == "WebDataset":
+        return WebDataset(proposal_file=proposal_file, **args)
+    raise ValueError(f"unknown dataset factory {factory}")
+
+
+class ConcatDataset:
+    """Several datasets as one, indexed in order (the samples keep their
+    own datasets' ``image_id``)."""
+
+    def __init__(self, datasets):
+        self.datasets = datasets
+        self.offsets = np.cumsum([0] + [len(d) for d in datasets])
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def _locate(self, idx):
+        d = int(np.searchsorted(self.offsets, idx, side="right") - 1)
+        return self.datasets[d], idx - int(self.offsets[d])
+
+    def __getitem__(self, idx):
+        ds, i = self._locate(idx)
+        return ds[i]
+
+    def get_img_info(self, idx):
+        ds, i = self._locate(idx)
+        return ds.get_img_info(i)
 
 
 class TrainLoader:
@@ -53,13 +91,23 @@ class TrainLoader:
     def __init__(self, dataset, transform: TrainTransform,
                  collator: BatchCollator, batch_size: int, max_iter: int,
                  start_iter: int = 0, seed: int = 1234,
-                 aspect_grouping: bool = True, num_workers: int = 4):
+                 aspect_grouping: bool = True, num_workers: int = 4,
+                 class_batch: bool = False):
+        """``class_batch`` (``SOLVER.CLASS_BATCH``) batches image pairs
+        that share a class (``class_batch_pairs``) instead of grouping by
+        aspect."""
         self.dataset = dataset
         self.transform = transform
         self.collator = collator
+        ebf = None
+        if class_batch:
+            require_groundtruth(dataset)
+            ebf = functools.partial(class_batch_pairs, dataset, batch_size)
         self.sampler = IterationBatchSampler(
             len(dataset), batch_size, max_iter, start_iter=start_iter,
-            groups=aspect_ratio_groups(dataset) if aspect_grouping else None)
+            groups=(aspect_ratio_groups(dataset)
+                    if aspect_grouping and not class_batch else None),
+            epoch_batches_fn=ebf)
         self.start_iter = start_iter
         self.seed = seed
         self.num_workers = max(num_workers, 1)
@@ -87,22 +135,28 @@ class TrainLoader:
 
 def make_train_loader(cfg, start_iter: int = 0,
                       data_root: str = "datasets") -> TrainLoader:
-    """The train loader of ``cfg.DATASETS.TRAIN`` (one VOC dataset)."""
-    if cfg.SOLVER.CLASS_BATCH:
-        raise NotImplementedError("SOLVER.CLASS_BATCH is not ported yet")
+    """The train loader of ``cfg.DATASETS.TRAIN``, each dataset with its
+    ``PROPOSAL_FILES.TRAIN`` entry; several datasets are concatenated. A
+    count of proposal files other than the datasets' raises (the JAX
+    package's ``zip`` drops the datasets past the last file)."""
     names = cfg.DATASETS.TRAIN
-    if len(names) != 1:
-        raise NotImplementedError("training on several datasets is not "
-                                  f"ported yet: {names}")
-    pfiles = cfg.PROPOSAL_FILES.TRAIN or (None,)
-    dataset = build_dataset(names[0], pfiles[0], data_root, is_train=True)
+    pfiles = cfg.PROPOSAL_FILES.TRAIN or (None,) * len(names)
+    if len(pfiles) != len(names):
+        raise ValueError(f"DATASETS.TRAIN {names} needs one "
+                         f"PROPOSAL_FILES.TRAIN entry each: {pfiles}")
+    datasets = [build_dataset(n, p, data_root, is_train=True,
+                              load_masks=cfg.MODEL.MASK_ON,
+                              load_keypoints=cfg.MODEL.KEYPOINT_ON)
+                for n, p in zip(names, pfiles)]
+    dataset = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
     return TrainLoader(dataset, build_train_transform(cfg),
                        collator_from_cfg(cfg),
                        batch_size=cfg.SOLVER.IMS_PER_BATCH,
                        max_iter=cfg.SOLVER.MAX_ITER, start_iter=start_iter,
                        seed=cfg.SEED,
                        aspect_grouping=cfg.DATALOADER.ASPECT_RATIO_GROUPING,
-                       num_workers=cfg.DATALOADER.NUM_WORKERS)
+                       num_workers=cfg.DATALOADER.NUM_WORKERS,
+                       class_batch=cfg.SOLVER.CLASS_BATCH)
 
 
 class EvalLoader:
@@ -156,7 +210,9 @@ def make_eval_loaders(cfg, data_root: str = "datasets",
     pfiles = cfg.PROPOSAL_FILES.TEST or (None,) * len(names)
     loaders = []
     for n, p in zip(names, pfiles):
-        ds = build_dataset(n, p, data_root)
+        ds = build_dataset(n, p, data_root,
+                           load_masks=cfg.MODEL.MASK_ON,
+                           load_keypoints=cfg.MODEL.KEYPOINT_ON)
         transform = (None if cfg.TEST.BBOX_AUG.ENABLED else EvalTransform(
             cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST,
             tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD),

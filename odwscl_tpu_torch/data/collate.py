@@ -1,10 +1,13 @@
-"""Batch collation to static padded shapes (image-level fields).
+"""Batch collation to static padded shapes (image-level and partial-label
+fields).
 
 Counterpart of ``odwscl_tpu/data/collate.py:BatchCollator``: images pad to
 the batch's largest size rounded up to ``SIZE_DIVISIBILITY`` and then to
 ``IMAGE_PAD_MULTIPLE``; proposals pad to the smallest ``PROPOSAL_BUCKETS``
-size that holds them (the largest bucket truncates). The batch is built on
-the CPU; the caller moves it to its device.
+size that holds them (the largest bucket truncates). Clicks and scribbles,
+when any sample has them, pad to ``PARTIAL_CAP`` slots with a mask (the
+first ``PARTIAL_CAP`` of an image are kept). The batch is built on the
+CPU; the caller moves it to its device.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import torch
 
 from ..models.detector import Batch
 from .transforms import Sample
+
+# clicks / scribbles per image in a batch (the JAX package's cap)
+PARTIAL_CAP = 32
 
 
 def _round_up(x: int, m: int) -> int:
@@ -76,11 +82,34 @@ class BatchCollator:
             mask[i, :n] = True
         labels = np.stack([image_labels(s.gt_labels, self.num_classes)
                            for s in samples])
+        extra = {}
+        for name, width in (("click", 2), ("scribble", 4)):
+            if any(getattr(s, name + "s") is not None
+                   and len(getattr(s, name + "s")) for s in samples):
+                extra.update(_pad_partial(samples, name, width))
         return Batch(images=torch.from_numpy(images),
                      image_sizes=torch.from_numpy(sizes),
                      boxes=torch.from_numpy(boxes),
                      box_mask=torch.from_numpy(mask),
-                     labels=torch.from_numpy(labels))
+                     labels=torch.from_numpy(labels), **extra)
+
+
+def _pad_partial(samples: List[Sample], name: str, width: int) -> dict:
+    """``{name}s`` [B, PARTIAL_CAP, width] f32, ``{name}_labels`` [B, cap]
+    int64 and ``{name}_mask`` [B, cap] bool from the samples' fields."""
+    b, k = len(samples), PARTIAL_CAP
+    pts = np.zeros((b, k, width), np.float32)
+    lab = np.zeros((b, k), np.int64)
+    valid = np.zeros((b, k), bool)
+    for i, s in enumerate(samples):
+        v, v_lab = getattr(s, name + "s"), getattr(s, name + "_labels")
+        if v is None or not len(v):
+            continue
+        n = min(len(v), k)
+        pts[i, :n], lab[i, :n], valid[i, :n] = v[:n], v_lab[:n], True
+    return {name + "s": torch.from_numpy(pts),
+            name + "_labels": torch.from_numpy(lab),
+            name + "_mask": torch.from_numpy(valid)}
 
 
 def collator_from_cfg(cfg) -> BatchCollator:

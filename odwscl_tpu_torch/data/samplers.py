@@ -1,12 +1,13 @@
-"""Samplers: epoch-seeded shuffling with aspect-ratio grouping, recycled
-up to a number of iterations and resumable, and sequential eval batches.
+"""Samplers: epoch-seeded shuffling with aspect-ratio grouping or class
+pairs (``SOLVER.CLASS_BATCH``), recycled up to a number of iterations and
+resumable, and sequential eval batches.
 
 Counterpart of ``odwscl_tpu/data/samplers.py`` for one process.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -24,19 +25,25 @@ class IterationBatchSampler:
     """Batches of dataset indices up to ``num_iterations``. Each epoch
     shuffles with ``RandomState(epoch)`` and pads the order to whole
     batches; with ``groups`` every batch stays in one aspect group and the
-    epoch's batches are shuffled. Iterations before ``start_iter`` are
-    skipped (resume)."""
+    epoch's batches are shuffled. ``epoch_batches_fn(epoch)``, when given,
+    makes each epoch's batches instead (``class_batch_pairs``). Iterations
+    before ``start_iter`` are skipped (resume)."""
 
     def __init__(self, dataset_len: int, batch_size: int,
                  num_iterations: int, start_iter: int = 0,
-                 groups: Optional[np.ndarray] = None):
+                 groups: Optional[np.ndarray] = None,
+                 epoch_batches_fn: Optional[
+                     Callable[[int], List[np.ndarray]]] = None):
         self.n = dataset_len
         self.batch_size = batch_size
         self.num_iterations = num_iterations
         self.start_iter = start_iter
         self.groups = groups
+        self.epoch_batches_fn = epoch_batches_fn
 
     def _epoch_batches(self, epoch: int) -> List[np.ndarray]:
+        if self.epoch_batches_fn is not None:
+            return [np.asarray(b) for b in self.epoch_batches_fn(epoch)]
         rng = np.random.RandomState(epoch)
         order = rng.permutation(self.n)
         total = int(np.ceil(self.n / self.batch_size)) * self.batch_size
@@ -67,6 +74,65 @@ class IterationBatchSampler:
 
     def __len__(self):
         return self.num_iterations - self.start_iter
+
+
+def require_groundtruth(dataset) -> None:
+    """Raise a ValueError when ``SOLVER.CLASS_BATCH`` cannot read the
+    dataset's GT classes."""
+    if not hasattr(dataset, "get_groundtruth"):
+        raise ValueError(
+            f"SOLVER.CLASS_BATCH needs each image's GT classes, which "
+            f"{type(dataset).__name__} does not give (a web dataset or "
+            f"several training datasets): train them without CLASS_BATCH")
+
+
+def class_batch_pairs(dataset, batch_size: int, epoch: int
+                      ) -> List[np.ndarray]:
+    """One epoch of ``SOLVER.CLASS_BATCH`` batches: in a
+    ``RandomState(epoch)`` order, each image not yet used is followed by
+    the first unused image that shares one of its GT classes (the classes
+    of its GT set in the set's order, as in the JAX package; candidates in
+    index order), so that the batches carry
+    contrastive positives; the last batch is filled up by repeating its
+    own images. Reads ``dataset.get_groundtruth``: a dataset without GT
+    boxes (web data, several datasets concatenated) raises a ValueError
+    (the JAX package fails on them with an AttributeError)."""
+    require_groundtruth(dataset)
+    rng = np.random.RandomState(epoch)
+    by_class = {}
+    labels_per_img = []
+    for i in range(len(dataset)):
+        _, labels, _ = dataset.get_groundtruth(i)
+        cls = set(np.unique(labels).tolist())
+        labels_per_img.append(cls)
+        for c in cls:
+            by_class.setdefault(c, []).append(i)
+
+    order = rng.permutation(len(dataset))
+    used = np.zeros(len(dataset), bool)
+    batches, cur = [], []
+    for i in order:
+        if used[i]:
+            continue
+        used[i] = True
+        cur.append(i)
+        partner = -1
+        for c in labels_per_img[i]:
+            partner = next((j for j in by_class.get(c, []) if not used[j]),
+                           -1)
+            if partner >= 0:
+                break
+        if partner >= 0:
+            used[partner] = True
+            cur.append(partner)
+        if len(cur) >= batch_size:
+            batches.append(np.asarray(cur[:batch_size]))
+            cur = cur[batch_size:]
+    if cur:
+        pad = batch_size - len(cur)
+        cur = cur + cur[:pad] if pad <= len(cur) else cur * batch_size
+        batches.append(np.asarray(cur[:batch_size]))
+    return batches
 
 
 class InferenceSampler:

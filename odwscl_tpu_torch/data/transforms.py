@@ -1,7 +1,9 @@
 """Host-side (CPU) transforms: colour jitter, PIL resize, flip, PCA
 lighting, normalize.
 
-Counterpart of ``odwscl_tpu/data/transforms.py`` (WSOD fields). Images
+Counterpart of ``odwscl_tpu/data/transforms.py`` (the WSOD and
+partial-label fields; the supervised stack's masks and keypoints are not
+ported). Images
 are PIL images until ``to_array``, then numpy HWC float32; boxes are numpy
 [N, 4] xyxy. The train transform draws from a per-sample
 ``np.random.RandomState`` in the JAX package's order, so the same seed
@@ -28,6 +30,12 @@ class Sample:
     gt_difficult: Optional[np.ndarray] = None
     rois: Optional[np.ndarray] = None
     image_id: Optional[object] = None
+    # partial-label supervision (COCO ``point`` clicks and ``scribble``
+    # boxes); the labels are contiguous class ids
+    clicks: Optional[np.ndarray] = None           # [K, 2] (x, y)
+    click_labels: Optional[np.ndarray] = None     # [K]
+    scribbles: Optional[np.ndarray] = None        # [S, 4] xyxy
+    scribble_labels: Optional[np.ndarray] = None  # [S]
 
 
 def get_resize_size(size_wh: Tuple[int, int], min_size: int,
@@ -60,8 +68,8 @@ IMAGENET_PCA_EIGVEC = np.array([
 
 def resize(sample: Sample, min_size, max_size: Optional[int],
            rng: Optional[np.random.RandomState] = None) -> Sample:
-    """PIL BILINEAR resize of the image; boxes scale with it. A sequence of
-    ``min_size`` values picks one with ``rng``."""
+    """PIL BILINEAR resize of the image; boxes, clicks and scribbles scale
+    with it. A sequence of ``min_size`` values picks one with ``rng``."""
     from PIL import Image
 
     if isinstance(min_size, (list, tuple)):
@@ -84,11 +92,24 @@ def resize(sample: Sample, min_size, max_size: Optional[int],
 
     return dataclasses.replace(sample, image=img, size=(ow, oh),
                                gt_boxes=scale(sample.gt_boxes),
-                               rois=scale(sample.rois))
+                               rois=scale(sample.rois),
+                               clicks=scale(sample.clicks),
+                               scribbles=scale(sample.scribbles))
+
+
+def _flip_points(pts: Optional[np.ndarray], axis: int, extent: int):
+    """Points [K, 2] mirrored along x (axis 0) or y (axis 1) of an image
+    ``extent`` pixels wide or tall (+1 convention)."""
+    if pts is None or len(pts) == 0:
+        return pts
+    out = pts.copy()
+    out[:, axis] = extent - pts[:, axis] - 1
+    return out
 
 
 def hflip(sample: Sample) -> Sample:
-    """Horizontal flip with the +1 box convention (x' = W - 1 - x)."""
+    """Horizontal flip with the +1 box convention (x' = W - 1 - x), for
+    boxes, scribbles and clicks."""
     img = sample.image
     if isinstance(img, np.ndarray):
         img = img[:, ::-1]
@@ -107,7 +128,9 @@ def hflip(sample: Sample) -> Sample:
 
     return dataclasses.replace(sample, image=img,
                                gt_boxes=flip(sample.gt_boxes),
-                               rois=flip(sample.rois))
+                               rois=flip(sample.rois),
+                               clicks=_flip_points(sample.clicks, 0, w),
+                               scribbles=flip(sample.scribbles))
 
 
 def to_array(sample: Sample) -> Sample:
@@ -155,7 +178,8 @@ def color_jitter(sample: Sample, rng: np.random.RandomState,
 
 
 def vflip(sample: Sample) -> Sample:
-    """Vertical flip with the +1 box convention (y' = H - 1 - y)."""
+    """Vertical flip with the +1 box convention (y' = H - 1 - y), for
+    boxes, scribbles and clicks."""
     img = sample.image
     if isinstance(img, np.ndarray):
         img = img[::-1]
@@ -174,7 +198,9 @@ def vflip(sample: Sample) -> Sample:
 
     return dataclasses.replace(sample, image=img,
                                gt_boxes=flip(sample.gt_boxes),
-                               rois=flip(sample.rois))
+                               rois=flip(sample.rois),
+                               clicks=_flip_points(sample.clicks, 1, h),
+                               scribbles=flip(sample.scribbles))
 
 
 def pca_lighting(sample: Sample, rng: np.random.RandomState,

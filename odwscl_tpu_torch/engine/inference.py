@@ -45,6 +45,8 @@ import torch
 from ..data.collate import collator_from_cfg
 from ..data.transforms import (EvalTransform, Sample, get_resize_size,
                                normalize, to_array)
+from ..data.voc import PascalVOCDataset
+from ..evaluation.coco_eval import do_coco_evaluation
 from ..evaluation.voc_eval import do_corloc_evaluation, do_voc_evaluation
 from ..models.detector import Batch
 from ..ops.device_resize import resize_image_batch, scale_boxes_batch
@@ -469,7 +471,8 @@ def _int8_scales(inferencer, model, cfg, eval_loader) -> None:
 def inference(model, cfg, eval_loader, dataset, output_folder=None,
               task: str = "det", use_cached: bool = True, device="cuda",
               timing_out: Optional[dict] = None):
-    """Full dataset inference + VOC evaluation (``det`` mAP or ``corloc``).
+    """Full dataset inference + evaluation: CorLoc for ``task`` corloc,
+    else VOC mAP on a VOC dataset and COCO AP (bbox) on any other.
 
     Predictions are cached in ``output_folder/predictions.pkl`` and reused
     when ``use_cached``. ``timing_out``, when given, receives
@@ -554,8 +557,10 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
     t0 = time.perf_counter()
     if task == "corloc":
         result = do_corloc_evaluation(dataset, predictions, output_folder)
-    else:
+    elif isinstance(dataset, PascalVOCDataset):
         result = do_voc_evaluation(dataset, predictions, output_folder)
+    else:       # COCO AP; predictions[i] is dataset index i's
+        result = do_coco_evaluation(dataset, predictions, output_folder)
     timing["eval_s"] = time.perf_counter() - t0
     if timing_out is not None:
         timing_out.update(timing)

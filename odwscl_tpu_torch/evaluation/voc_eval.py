@@ -157,7 +157,12 @@ def do_corloc_evaluation(dataset, predictions: List[Dict], output_folder=None,
                          iou_thresh: float = 0.5) -> Dict:
     """CorLoc (voc_eval_old.py:252-411): per (image, class) take the single
     highest-scored detection; it's correct if IoU > thresh with any GT box
-    of that class; CorLoc_c = hits / #images containing class c."""
+    of that class; CorLoc_c = hits / #images containing class c. Needs
+    the dataset's ``CLASSES`` (VOC): another dataset raises a ValueError
+    (the JAX package fails on it with an AttributeError)."""
+    if not hasattr(dataset, "CLASSES"):
+        raise ValueError(f"CorLoc reads the dataset's CLASSES, which "
+                         f"{type(dataset).__name__} has not (VOC only)")
     num_classes = len(dataset.CLASSES)
     hits = np.zeros(num_classes)
     nimgs = np.zeros(num_classes)

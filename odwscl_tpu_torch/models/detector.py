@@ -4,12 +4,16 @@ Counterpart of ``odwscl_tpu/models/detector.py`` (``Batch``,
 ``WSODDetector.pool`` / ``eval_forward`` / ``train_forward``,
 ``detector_from_cfg``). Predictors: WSDDN, OICR and MIST
 (``MODEL.ROI_WEAK_HEAD.PREDICTOR``). ``train_forward`` covers every WSOD
-recipe but partial labels: the augmented view by DropBlock, Concrete
+recipe: the augmented view by DropBlock, Concrete
 DropBlock or none (``DB.METHOD``); contrastive mining with SupCon and
 ``od_layer`` pseudo-labels (``SOLVER.CONTRA``), or else the ``oicr_layer``
 (``OICR_P`` 0) or the ``mist_layer`` (``OICR_P`` > 0); WSDDN alone trains
 the MIL loss only; ``MODEL.FASTER_RCNN`` replaces the proposals by CAM
-attention proposals and adds the CAM loss. Backbones: VGG16
+attention proposals and adds the CAM loss; partial labels
+(``ROI_WEAK_HEAD.PARTIAL_LABELS`` point / scribble, with the batch's
+clicks or scribbles) subsample the proposals to a balanced FG/BG set
+before pooling and, with ``ROI_LOSS_REFINE``, filter the pseudo labels.
+Backbones: VGG16
 (``VGG16-OICR``, stride 8) and ResNet (``R-{18,50,101}-C{4,5}``, stride
 16, with the ``ResNetRoINeck`` 7*7*C -> 2048 -> ``mlp_dim``).
 
@@ -35,6 +39,9 @@ from ..losses import (assemble_bank, avg_image_accuracy, mil_loss,
                       mist_layer, od_layer, oicr_layer, refinement_cls_loss,
                       refinement_reg_loss, stage_a, stage_b, supcon_loss,
                       supcon_v2_loss, wsddn_final_score)
+# the module, not its names: it imports models.matcher, which may run
+# this file first
+from ..losses import partial_labels as partial_filters
 from ..ops.dropblock import dropblock_2d, noise_augment
 from ..ops.roi_pool import RoIPoolFunction
 from ..structures.boxes import clip_to_image, decode_boxes
@@ -43,6 +50,8 @@ from .cam_proposals import cam_to_proposals
 from .cdb import ConvConcreteDB
 from .predictors import PREDICTORS
 from .resnet import ResNetBackbone, ResNetRoINeck
+from .roi_sampler import (match_labels_point, match_labels_scribble,
+                          subsample_proposals)
 from .sim_net import SimNet
 from .vgg16 import VGGBackbone, VGGRoINeck
 
@@ -53,13 +62,20 @@ logger = logging.getLogger("odwscl_tpu_torch.detector")
 
 @dataclasses.dataclass
 class Batch:
-    """One padded batch (image-level fields)."""
+    """One padded batch: image-level fields and, with partial labels, the
+    padded clicks and scribbles (None when the data has none)."""
 
     images: torch.Tensor       # [B, H, W, 3] normalized (BGR*255 - mean)
     image_sizes: torch.Tensor  # [B, 2] (h, w) before padding, f32
     boxes: torch.Tensor        # [B, P, 4] xyxy proposals, f32
     box_mask: torch.Tensor     # [B, P] bool
     labels: Optional[torch.Tensor] = None  # [B, C] image-level, col 0 = 0
+    clicks: Optional[torch.Tensor] = None           # [B, K, 2] (x, y) f32
+    click_labels: Optional[torch.Tensor] = None     # [B, K] int64
+    click_mask: Optional[torch.Tensor] = None       # [B, K] bool
+    scribbles: Optional[torch.Tensor] = None        # [B, S, 4] xyxy f32
+    scribble_labels: Optional[torch.Tensor] = None  # [B, S] int64
+    scribble_mask: Optional[torch.Tensor] = None    # [B, S] bool
 
     def replace(self, **changes) -> "Batch":
         return dataclasses.replace(self, **changes)
@@ -86,12 +102,14 @@ class WSODDetector(nn.Module):
                  db_method: str = "dropblock", db_size: int = 3,
                  db_prob: float = 0.3, contra: bool = True,
                  oicr_p: float = 0.0,
-                 partial_labels: str = "none",
+                 partial_labels: str = "none", roi_refine: bool = False,
                  faster_rcnn: bool = False, rpn_post_nms: int = 512,
                  p_thres: float = 0.5,
                  mining_nms: float = 0.1, lmda: float = 0.1,
                  temperature: float = 0.2, loss_type: str = "supconv2",
-                 fg_iou: float = 0.5, cap_a: int = 768, cap_b: int = 256,
+                 fg_iou: float = 0.5, bg_iou: float = 0.5,
+                 roi_batch_size: int = 512, roi_pos_fraction: float = 0.25,
+                 cap_a: int = 768, cap_b: int = 256,
                  gt_cap: int = 128, neck_dropout: float = 0.5,
                  freeze_at: int = 2, int8_eval: bool = False,
                  int8_eval_convs: bool = False, int8_static: bool = False,
@@ -100,7 +118,11 @@ class WSODDetector(nn.Module):
         (VGG: the first ``FREEZE_CONV_COUNTS[at - 1]`` convolutions;
         ResNet: the stem and layer1 when it is > 0). The ``int8_*`` fields
         are ``TPU.INT8_EVAL``, ``INT8_EVAL_CONVS``, ``INT8_STATIC`` and
-        ``INT8_BF16_LAYERS`` (VGG16 only)."""
+        ``INT8_BF16_LAYERS`` (VGG16 only). ``partial_labels`` (none, point,
+        scribble), ``roi_refine``, ``bg_iou``, ``roi_batch_size`` and
+        ``roi_pos_fraction`` are ``ROI_WEAK_HEAD.PARTIAL_LABELS``,
+        ``ROI_LOSS_REFINE`` and ``ROI_HEADS.BG_IOU_THRESHOLD``,
+        ``BATCH_SIZE_PER_IMAGE``, ``POSITIVE_FRACTION``."""
         super().__init__()
         if predictor not in PREDICTORS:
             raise ValueError(f"unknown PREDICTOR {predictor!r}")
@@ -111,6 +133,9 @@ class WSODDetector(nn.Module):
             raise NotImplementedError("only the 7x7 ROIPool pooler is ported")
         if regress_heur not in ("WSDDN", "CLS-AVG", "UNION", "AVG"):
             raise ValueError(f"unknown REGRESS_HEUR {regress_heur!r}")
+        if partial_labels not in ("none", "point", "scribble"):
+            raise ValueError(f"unknown PARTIAL_LABELS {partial_labels!r} "
+                             "(none, point, scribble)")
         self.num_classes = num_classes
         self.predictor = predictor
         self.pooler_scale = pooler_scale
@@ -122,6 +147,9 @@ class WSODDetector(nn.Module):
         self.db_method, self.db_size, self.db_prob = db_method, db_size, db_prob
         self.contra, self.oicr_p = contra, oicr_p
         self.partial_labels, self.faster_rcnn = partial_labels, faster_rcnn
+        self.roi_refine, self.bg_iou = roi_refine, bg_iou
+        self.roi_batch_size = roi_batch_size
+        self.roi_pos_fraction = roi_pos_fraction
         self.rpn_post_nms = rpn_post_nms
         self.p_thres, self.mining_nms = p_thres, mining_nms
         self.lmda, self.temperature = lmda, temperature
@@ -240,26 +268,41 @@ class WSODDetector(nn.Module):
         """(losses, metrics) of one training batch, as scalar tensors.
 
         ``generator`` (on the batch's device) draws the dropout masks, the
-        DropBlock centers, the Concrete DropBlock's gumbel noise and the
-        noise view. ``draws`` may hand in the DropBlock uniforms
-        ``dropblock`` [B*P, 7, 7] and ``sim_drop`` [capA, 7, 7], the
-        Concrete DropBlock's uniforms ``cdb_gumbel`` [B*P, 7, 7, 2] and the
-        ``noise`` normals [capA, 7, 7, C] instead. ``trace(stage)`` is
-        called as each stage has been enqueued.
+        DropBlock centers, the Concrete DropBlock's gumbel noise, the
+        noise view and the partial-label subsample. ``draws`` may hand in
+        the DropBlock uniforms ``dropblock`` [B*P, 7, 7] and ``sim_drop``
+        [capA, 7, 7], the Concrete DropBlock's uniforms ``cdb_gumbel``
+        [B*P, 7, 7, 2], the ``noise`` normals [capA, 7, 7, C] and the
+        subsample's uniforms ``subsample`` [B, 2, P0] instead (P0 the
+        batch's proposals; P those that the subsample keeps).
+        ``trace(stage)`` is called as each stage has been enqueued.
 
         Under ``contra`` the all-RoI clean pass is the mining view only and
         runs without gradient; the loss reaches the clean neck through the
         mined bank rows alone, recomputed with gradient and with the same
         rows' dropout masks.
         """
-        if self.partial_labels != "none":
-            raise NotImplementedError("partial labels are not ported yet")
         draws = draws or {}
         trace = trace or (lambda stage: None)
         boxes, mask, labels = batch.boxes, batch.box_mask, batch.labels
         dev = boxes.device
         losses: Dict[str, torch.Tensor] = {}
         metrics: Dict[str, torch.Tensor] = {}
+        plab = None
+        if self.partial_labels == "point" and batch.clicks is not None:
+            plab = match_labels_point(boxes, batch.clicks, batch.click_labels,
+                                      batch.click_mask)
+        elif (self.partial_labels == "scribble"
+              and batch.scribbles is not None):
+            plab = match_labels_scribble(
+                boxes, batch.scribbles, batch.scribble_labels,
+                batch.scribble_mask, self.fg_iou, self.bg_iou)
+        if plab is not None:
+            # a balanced FG/BG subset of the proposals, before pooling
+            boxes, mask, _ = subsample_proposals(
+                boxes, mask, plab, self.roi_batch_size,
+                self.roi_pos_fraction, generator, draws.get("subsample"))
+            trace("subsample")
         feats = self.backbone(batch.images)
         trace("backbone")
         if self.faster_rcnn:
@@ -361,6 +404,18 @@ class WSODDetector(nn.Module):
                 pl = mist_layer(boxes, mask, src[..., 1:], labels_fg,
                                 portion=self.oicr_p, fg_iou=self.fg_iou,
                                 reg_weights=self.reg_weights)
+            if (self.roi_refine and self.partial_labels == "point"
+                    and batch.clicks is not None):
+                pl = pl._replace(
+                    labels=partial_filters.filter_pseudo_labels_point(
+                        pl.labels, boxes, batch.clicks, batch.click_labels,
+                        batch.click_mask))
+            elif (self.roi_refine and self.partial_labels == "scribble"
+                    and batch.scribbles is not None):
+                pl = pl._replace(
+                    labels=partial_filters.filter_pseudo_labels_scribble(
+                        pl.labels, boxes, batch.scribbles,
+                        batch.scribble_labels, batch.scribble_mask))
             lam = 3.0 if i == 0 else 1.0
             losses[f"loss_ref_cls{i}"] = lam * refinement_cls_loss(
                 refs[i], pl.labels, pl.weights, mask)
@@ -403,6 +458,7 @@ def detector_from_cfg(cfg) -> WSODDetector:
         contra=cfg.SOLVER.CONTRA,
         oicr_p=cfg.MODEL.ROI_WEAK_HEAD.OICR_P,
         partial_labels=cfg.MODEL.ROI_WEAK_HEAD.PARTIAL_LABELS,
+        roi_refine=cfg.MODEL.ROI_WEAK_HEAD.ROI_LOSS_REFINE,
         faster_rcnn=cfg.MODEL.FASTER_RCNN,
         rpn_post_nms=cfg.TPU.RPN_POST_NMS,
         p_thres=cfg.thres,
@@ -411,6 +467,9 @@ def detector_from_cfg(cfg) -> WSODDetector:
         temperature=cfg.temp,
         loss_type=cfg.loss,
         fg_iou=cfg.MODEL.ROI_HEADS.FG_IOU_THRESHOLD,
+        bg_iou=cfg.MODEL.ROI_HEADS.BG_IOU_THRESHOLD,
+        roi_batch_size=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+        roi_pos_fraction=cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION,
         cap_a=cfg.TPU.BANK_CAPACITY,
         cap_b=max(cfg.TPU.BANK_CAPACITY // 4, 64),
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,

@@ -34,6 +34,18 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return inter / (area1[..., :, None] + area2[..., None, :] - inter)
 
 
+def box_iou_async(boxes1: torch.Tensor, boxes2: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pairwise intersection over the area of ``boxes1`` (+1 convention).
+    [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    area1 = box_area(boxes1)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt + TO_REMOVE).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area1[..., :, None] + 1e-10)
+
+
 def clip_to_image(boxes: torch.Tensor, image_size_hw: torch.Tensor
                   ) -> torch.Tensor:
     """Clip xyxy boxes to [0, size-1]; ``image_size_hw`` broadcasts against

@@ -1,12 +1,13 @@
 """Where the time of a train step goes on the card.
 
     python -m odwscl_tpu_torch.tools.profile_train [--scale 1200] [--iters 5] \
-        [KEY VALUE ...]
+        [--config-file CFG] [KEY VALUE ...]
 
-One bf16 train step of configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml at
-full width (VGG16-OICR, batch 8, 2048 proposals per image, random init) on
-random images of 375x500 resized to the train scale ``--scale`` (padded as
-the collator pads):
+One bf16 train step of configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml (or
+``--config-file``, e.g. the 81-class COCO config) at full width
+(VGG16-OICR, batch 8, 2048 proposals per image, random init, 1-3 random
+image labels each) on random images of 375x500 resized to the train scale
+``--scale`` (padded as the collator pads):
 
 1. the step's wall time (median of ``--iters`` steps after a warm-up) and
    the device's idle share over as many more steps, traced with
@@ -17,7 +18,9 @@ the collator pads):
    stage A with its two views, stage B, the bank recompute with SupCon,
    the pseudo-labels and refinement losses. An event pair measures device
    time plus any wait on the host in between; the host syncs are counted
-   per stage (``torch.cuda.set_sync_debug_mode``);
+   per stage (``torch.cuda.set_sync_debug_mode``), and so are the kernel
+   launches (the runtime's launch calls between the stage marks in a
+   torch.profiler trace of one more step);
 3. the backward and the optimizer step, timed the same way; the backbone's
    backward and the two ROIPool kernels (the training forward with its
    argmax, then the backward from it) also timed alone at the step's
@@ -127,10 +130,34 @@ def forward_stages(model, batch, generator):
     return ms, n_syncs
 
 
+def stage_launches(model, batch, generator):
+    """CUDA kernel launches per forward stage of one step: the runtime's
+    launch calls between the stage marks of a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def trace(stage):
+        with record_function("stage_mark:" + stage):
+            pass
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.train_forward(batch, generator, trace=trace)
+        torch.cuda.synchronize()
+    counts, n = {}, 0
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.name.startswith("stage_mark:"):
+            counts[e.name.split(":", 1)[1]] = n
+            n = 0
+        elif "LaunchKernel" in e.name:
+            n += 1
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=1200)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--config-file", default=CONFIG)
     ap.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = ap.parse_args(argv)
 
@@ -149,7 +176,7 @@ def main(argv=None):
     dev = resolve_device("cuda")
     card = card_name_and_limit()
     cfg = get_default_cfg()
-    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(["MODEL.WEIGHT", "", *(args.opts or [])])
     cfg.freeze()
     model = detector_from_cfg(cfg)
@@ -164,6 +191,8 @@ def main(argv=None):
     b, hp, wp, _ = batch.images.shape
     shape = {"batch": b, "padded_hw": [hp, wp], "proposals": 2048,
              "scale": args.scale, "dtype": "bfloat16",
+             "config": os.path.basename(args.config_file),
+             "classes": cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
              "opts": args.opts or []}
 
     for _ in range(2):                                   # warm-up
@@ -195,6 +224,8 @@ def main(argv=None):
     ms, syncs = forward_stages(model, batch, gen)
     opt_ms, _ = _events_ms(lambda: optimizer.step(), iters=1, warmup=False)
     optimizer.zero_grad(set_to_none=True)
+    launches = stage_launches(model, batch, gen)
+    optimizer.zero_grad(set_to_none=True)
 
     # the backbone's backward and the ROIPool kernels alone, same shapes
     feats = model.backbone(batch.images)
@@ -216,6 +247,7 @@ def main(argv=None):
         tuple(feats.shape[1:3])))
     print(json.dumps({"part": "stages_ms", "card": card, **shape,
                       "forward": ms, "host_syncs": syncs,
+                      "kernel_launches": launches,
                       "optimizer": opt_ms,
                       "alone": {"backbone_forward": bb_fwd_ms,
                                 "backbone_backward": bb_bwd_ms,

@@ -1,8 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
 Every module of ``odwscl_tpu_torch`` (the training, ResNet, weight-import,
-device-resize, Concrete DropBlock, CAM and int8 serving modules named below
-among them)
+device-resize, Concrete DropBlock, CAM, int8 serving, COCO, web data and
+partial-label modules named below among them)
 and ``chip_smoke.py``
 is imported in a subprocess where ``jax``, ``flax``, ``optax`` and
 ``odwscl_tpu`` are blocked
@@ -36,9 +36,12 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "ops.roi_pool_stages", "tools.profile_pool_stages",
                  "models.resnet", "utils.weight_import", "ops.device_resize",
                  "models.cdb", "models.cam", "models.cam_proposals",
-                 "ops.quant", "utils.dist"):
+                 "ops.quant", "utils.dist", "data.coco_dataset",
+                 "data.flickr", "evaluation.coco_eval", "structures.rle",
+                 "models.matcher", "models.roi_sampler",
+                 "losses.partial_labels"):
     assert "odwscl_tpu_torch." + required in names, required
-assert len(names) >= 50, names
+assert len(names) >= 68, names
 """
 
 

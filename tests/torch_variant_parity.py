@@ -25,9 +25,11 @@ be met here, and with the backbone frozen no gradient crosses it: its
 forward drift reaches the pooled features as ~1e-7 relative, whichever
 cell a near-tie picks.
 
-The draws: the JAX detector's ``dropblock_2d``, ``noise_augment`` and the
-Concrete DropBlock's ``gumbel_softmax`` are wrapped to use fixed keys;
-the port gets the same uniforms and normals through ``draws``.
+The draws: the JAX detector's ``dropblock_2d``, ``noise_augment``, the
+Concrete DropBlock's ``gumbel_softmax`` and the partial-label
+``subsample_proposals`` are wrapped to use fixed keys; the port gets the
+same uniforms and normals through ``draws``. ``KW`` holds the defaults;
+a test's keywords override them (e.g. 81 classes).
 
 Tolerances: losses 1e-5 relative; gradients of every trainable tensor
 1e-4 of its largest magnitude, at least 1e-8 absolute (the det_score bias
@@ -43,6 +45,7 @@ import torch
 
 import odwscl_tpu.models.cdb as jcdb
 import odwscl_tpu.models.detector as jdet
+import odwscl_tpu.models.roi_sampler as jsampler
 from odwscl_tpu.models import Batch as JBatch
 from odwscl_tpu_torch.models import Batch, WSODDetector
 from odwscl_tpu_torch.utils.from_jax import (jax_params_from_state_dict,
@@ -51,7 +54,8 @@ from odwscl_tpu_torch.utils.from_jax import (jax_params_from_state_dict,
 KW = dict(num_classes=6, mlp_dim=64, cap_a=64, cap_b=32, gt_cap=16,
           compute_dtype="float32", neck_dropout=0.0)
 KEYS = {3: jax.random.PRNGKey(11), 1: jax.random.PRNGKey(12),
-        "noise": jax.random.PRNGKey(13), "cdb": jax.random.PRNGKey(14)}
+        "noise": jax.random.PRNGKey(13), "cdb": jax.random.PRNGKey(14),
+        "subsample": jax.random.PRNGKey(15)}
 HEAD_SCALE = 300.0
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
@@ -76,17 +80,19 @@ def inputs(seed=0, b=2, h=64, w=96, p=16, c=6):
 
 
 def jax_batch(arrays):
-    return JBatch(*(jnp.asarray(a) for a in arrays))
+    """``arrays`` in the Batch's field order (None for absent fields)."""
+    return JBatch(*(None if a is None else jnp.asarray(a) for a in arrays))
 
 
 def port_batch(arrays):
-    return Batch(*(torch.from_numpy(a) for a in arrays))
+    return Batch(*(None if a is None else torch.from_numpy(a)
+                   for a in arrays))
 
 
 def init_params(jkw, arrays):
     """The JAX detector's init for ``jkw`` (its predictor, CDB and CAM
     leaves included), with the scaled score heads, as numpy f32."""
-    model = jdet.WSODDetector(**KW, **jkw)
+    model = jdet.WSODDetector(**{**KW, **jkw})
     v = jax.jit(lambda r, bb: model.init(r, bb, method="init_all"))(
         {"params": jax.random.PRNGKey(0), "augment": jax.random.PRNGKey(1)},
         jax_batch(arrays))
@@ -112,14 +118,29 @@ def fixed_key_draws(mp):
     mp.setattr(jdet, "noise_augment",
                lambda rng, x: orig_noise(KEYS["noise"], x))
     mp.setattr(jcdb, "gumbel_softmax", gumbel)
+    orig_subsample = jsampler.subsample_proposals
+    mp.setattr(jsampler, "subsample_proposals",
+               lambda rng, *a, **kw: orig_subsample(KEYS["subsample"], *a,
+                                                    **kw))
 
 
-def port_draws(n_rows, cap_a=KW["cap_a"]):
-    """The uniforms and normals the wrapped JAX draws produce."""
+def subsample_uniforms(key, b, p):
+    """[B, 2, P]: the uniforms of the JAX ``subsample_proposals`` (one key
+    an image, split into the positives' and the negatives' draws)."""
+    return np.stack([np.stack([np.array(jax.random.uniform(r, (p,)))
+                               for r in jax.random.split(k)])
+                     for k in jax.random.split(key, b)])
+
+
+def port_draws(n_rows, cap_a=KW["cap_a"], bp=None):
+    """The uniforms and normals the wrapped JAX draws produce; ``bp`` (B,
+    P) adds the partial-label subsample's."""
     def arr(x):
         return torch.from_numpy(np.array(x))
 
-    return {"dropblock": arr(jax.random.uniform(KEYS[3], (n_rows, 7, 7))),
+    extra = ({"subsample": arr(subsample_uniforms(KEYS["subsample"], *bp))}
+             if bp else {})
+    return {**extra, "dropblock": arr(jax.random.uniform(KEYS[3], (n_rows, 7, 7))),
             "sim_drop": arr(jax.random.uniform(KEYS[1], (cap_a, 7, 7))),
             "noise": arr(jax.random.normal(KEYS["noise"], (cap_a, 7, 7, 512),
                                            jnp.float32)),
@@ -129,7 +150,7 @@ def port_draws(n_rows, cap_a=KW["cap_a"]):
 
 def jax_train(jkw, params, arrays):
     """(total, losses, metrics, grads) of the JAX train forward."""
-    model = jdet.WSODDetector(**KW, **jkw, freeze_convs=13)
+    model = jdet.WSODDetector(**{**KW, **jkw}, freeze_convs=13)
 
     def loss_fn(p):
         losses, metrics = model.apply(
@@ -146,7 +167,7 @@ def jax_train(jkw, params, arrays):
 
 
 def port_model(params, kw):
-    model = WSODDetector(**KW, **kw, freeze_at=5)
+    model = WSODDetector(**{**KW, **kw}, freeze_at=5)
     model.load_state_dict(state_dict_from_jax(params))
     return model
 
@@ -172,9 +193,13 @@ def assert_train_matches(kw, arrays=None, params=None):
     want_total, want_losses, want_metrics, want_grads = jax_train(
         kw, params, arrays)
     model = port_model(params, kw)
-    n_rows = arrays[2].shape[0] * arrays[2].shape[1]
-    losses, metrics = model.train_forward(port_batch(arrays),
-                                          draws=port_draws(n_rows))
+    b, p = arrays[2].shape[:2]
+    n_rows = b * min(p, kw["roi_batch_size"]) if "roi_batch_size" in kw \
+        else b * p
+    losses, metrics = model.train_forward(
+        port_batch(arrays), draws=port_draws(
+            n_rows, kw.get("cap_a", KW["cap_a"]),
+            (b, p) if kw.get("partial_labels", "none") != "none" else None))
     total = torch.stack(list(losses.values())).sum()
     total.backward()
 
