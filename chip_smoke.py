@@ -140,6 +140,37 @@ Phases (any failure ends the run with a non-zero exit code):
    training datasets (``coco_2014_train``, ``coco_2014_valminusminival``),
    ``SOLVER.CLASS_BATCH``, ``PARTIAL_LABELS point`` and ``scribble``
    (with ``ROI_LOSS_REFINE``) as in 7.
+14. (Run after 4.) The three ROIPool kernels at the FPN shapes, C = 256,
+   B = 2, P = 1000 rois of 16-800 px a image routed to P2-P5 by
+   ``assign_levels`` (each call pools all P rois under its level's mask,
+   about three quarters masked): on the eval pyramid of an 800x1344 canvas
+   (P2-P5 200x336, 100x168, 50x84, 25x42) #1 bit-exact (atol 0) against
+   ``roi_pool_plain`` at each level's scale, f32 and bf16, and
+   ``roi_pool_argmax`` on its P2 (67,200 cells) must raise naming P2 and
+   the 65,535 limit; on the training pyramid of a 640x1088 canvas (P2
+   160x272) both forward instantiations bit-exact and the backward as in
+   3. Then, bf16, in turns: each eval level's #1 and the four-call pool,
+   each training level's #1[argmax], #2 and #2's ``index_add_``
+   yardstick, with their byte bounds; the plain versions once.
+15. (Run after 6.) Card against CPU, f32, TF32 off, at the published
+   widths: R-50-FPN Mask R-CNN (81 classes, MLP 1024, mask convs 4x256)
+   and R-50 RetinaNet (81 classes), seeded, on a 256x384 canvas with
+   P = 512 rois and 8 GT instances with bitmasks: the eval forward (and
+   the mask pass), then one train step with the same sampler draws; the
+   matches, sampled rois and anchor labels equal, the losses and the
+   gradients (outside the ResNet body) within the bounds of 6.
+16. (Run after 13.) Drive configs/coco/coco_retinanet_smoke.yaml and
+   coco_mask_rcnn_smoke.yaml as shipped (only the paths on the command
+   line) on a synthetic ``coco17`` layout with polygon and RLE masks:
+   ``train_net`` (5 iterations, the configs' own) and ``test_net`` on its
+   checkpoint (bbox; bbox and segm for the Mask R-CNN). Every loss
+   finite, the APs in [0, 1]; each Mask R-CNN step launches #1[argmax] 4
+   times and #2 4 times, each of its eval batches #1 8 times (4 for the
+   boxes, 4 for the mask pass); RetinaNet launches none.
+17. The full-size eval forward in bf16 (R-50-FPN Mask R-CNN with 1000
+   proposals an image, R-50 RetinaNet; seeded) on an 800x1344 batch of
+   2: ms per image, peak memory, the four-level pool's share of the
+   forward, the mask pass and the decode / NMS times.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -2109,6 +2140,577 @@ def phase_int8_eval(rp, q, tmp, config, weights):
             for k in stats}
 
 
+# phases 14-17: the supervised stack (FPN Mask R-CNN, RetinaNet). The FPN
+# pooler's levels (P2-P5) and the canvases of phase 14: the eval canvas of
+# an 800x1333 image padded to 800x1344 (P2 200x336 = 67,200 cells, over
+# the argmax codes' 65,535) and a training canvas of 640x1088 (P2 160x272 =
+# 43,520 cells, under it)
+FPN_SCALES = (0.25, 0.125, 0.0625, 0.03125)
+FPN_EVAL_HW = (800, 1344)
+FPN_TRAIN_HW = (640, 1088)
+FPN_ROIS = 1000
+SUP_CONFIGS = (("RetinaNet", "coco_retinanet_smoke.yaml"),
+               ("Mask R-CNN", "coco_mask_rcnn_smoke.yaml"))
+# phase 15: the mask probabilities card vs CPU, the box scores' bound
+MASK_PROB_ATOL = 1e-3
+
+
+def fpn_inputs(rng, hw, b=2, c=256, p=None):
+    """A random P2-P5 pyramid of an ``hw`` canvas (C channels) and P rois
+    a image of 16-800 px (log-uniform sides; a third on even pixel
+    coordinates, whose scaled edges fall on the kernel's half-way
+    rounding; the last 16 masked as padding), each level's mask the rois
+    that ``assign_levels`` sends there: [(level, feat, rois, mask,
+    scale)]."""
+    import torch
+    from odwscl_tpu_torch.models.fpn import assign_levels
+
+    h, w = hw
+    p = p or FPN_ROIS
+    wh = np.exp(rng.uniform(np.log(16), np.log(800), (b, p, 2)))
+    x1y1 = rng.uniform(size=(b, p, 2)) * np.maximum(np.array([w, h]) - wh, 1)
+    rois = np.concatenate([x1y1, np.minimum(x1y1 + wh, [w - 1, h - 1])], -1)
+    even = rng.uniform(size=(b, p)) < 1 / 3
+    rois[even] = np.round(rois[even] / 2) * 2
+    rois = rois.astype(np.float32)
+    mask = np.ones((b, p), bool)
+    mask[:, -16:] = False
+    levels = assign_levels(torch.from_numpy(rois), 2, 5).numpy()
+    return [(f"P{k}", rng.randn(b, int(h * s), int(w * s), c).astype(
+        np.float32), rois, mask & (levels == k), s)
+        for k, s in zip(range(2, 6), FPN_SCALES)]
+
+
+def phase_fpn_kernels(dev, rp):
+    """#1, #1[argmax] and #2 at the FPN shapes (C = 256, B = 2, P = 1000
+    rois routed to P2-P5, each call with its level's mask and scale):
+    both forward instantiations bit-exact (atol 0) against their plain
+    versions in f32 and bf16 on the training pyramid, #1 on the eval
+    pyramid (whose P2 is over the argmax limit: ``roi_pool_argmax`` must
+    raise there, naming the level); #2 routing exact and within phase 3's
+    bound on the training pyramid. Then, bf16, in turns (3 rounds of 10):
+    each eval level's #1 and the four-call pool, each training level's
+    #1[argmax], #2 and #2's index_add_ yardstick; the plain versions once.
+    Returns {kernel: {level: readings}} and the worst errors."""
+    import torch
+    from odwscl_tpu_torch.models.fpn import multilevel_roi_pool
+    from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound, stage_work
+    from odwscl_tpu_torch.utils.profiling import MEM_BYTES_PER_S, card_rate
+
+    name = torch.cuda.get_device_name(dev)
+    rate = card_rate(name, MEM_BYTES_PER_S)
+    rng = np.random.RandomState(14)
+    ev = fpn_inputs(rng, FPN_EVAL_HW)
+    tr = fpn_inputs(rng, FPN_TRAIN_HW)
+    print(f"[fpn] rois per level (eval, train; B=2, P={FPN_ROIS}, 16 "
+          "masked): "
+          + ", ".join(f"{lv} {int(m.sum())}, {int(mt.sum())}"
+                      for (lv, _, _, m, _), (_, _, _, mt, _) in zip(ev, tr)))
+    lv2, f2, r2, m2, s2 = ev[0]
+    r, m = torch.from_numpy(r2).to(dev), torch.from_numpy(m2).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        f = torch.from_numpy(f2).to(dev, dtype)
+        got, want = rp.roi_pool(f, r, m, s2), rp.roi_pool_plain(f, r, m, s2)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"roi_pool kernel != plain (eval {lv2}, "
+                                 f"{dtype})")
+        print(f"[fpn] eval {lv2} {str(dtype)[6:]} feat {list(f.shape)}: "
+              "#1 bit-exact vs plain")
+    try:
+        rp.roi_pool_argmax(f, r, m, s2, level=lv2)
+    except ValueError as e:
+        if lv2 not in str(e) or str(rp.MAX_MAP_CELLS) not in str(e):
+            raise AssertionError(f"the argmax limit's message: {e}") from e
+        print(f"[fpn] eval {lv2} argmax refused: {e}")
+    else:
+        raise AssertionError(f"roi_pool_argmax took the {lv2} map of "
+                             f"{f.shape[1]}x{f.shape[2]} cells")
+    del f, got, want
+    fwd_err = phase_kernel(dev, rp, [
+        (f"fpn {kind} {lv}", (f, rr, mm), s)
+        for kind, pyr in (("eval", ev[1:]), ("train", tr))
+        for lv, f, rr, mm, s in pyr])
+    bwd_err = phase_bwd_kernel(dev, rp, [
+        (f"fpn train {lv}", (f, rr, mm), (torch.float32, torch.bfloat16), s)
+        for lv, f, rr, mm, s in tr])
+
+    def on_card(pyr):
+        return [(lv, torch.from_numpy(f).to(dev, torch.bfloat16),
+                 torch.from_numpy(rr).to(dev), torch.from_numpy(mm).to(dev),
+                 s) for lv, f, rr, mm, s in pyr]
+
+    evc, trc = on_card(ev), on_card(tr)
+    feats = [f for _, f, _, _, _ in evc]
+    boxes = evc[0][2]
+    box_mask = torch.from_numpy(ev[0][3] | ev[1][3] | ev[2][3]
+                                | ev[3][3]).to(dev)
+    fns, plain, bounds, extra = {}, {}, {}, {}
+    for lv, f, rr, mm, s in evc:
+        fns[f"fwd {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: rp.roi_pool(
+            f, rr, mm, s)
+        plain[f"fwd {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: \
+            rp.roi_pool_plain(f, rr, mm, s)
+        ms_, by, nbytes, _ = stage_bound("roi_pool", f, rr, mm, s, name)
+        bounds[f"fwd {lv}"] = (ms_, by, nbytes)
+
+    def four_call():
+        with torch.no_grad():
+            return multilevel_roi_pool(
+                lambda f, b, m, s, lv: rp.RoIPoolFunction.apply(f, b, m, s,
+                                                                lv),
+                feats, FPN_SCALES, boxes, box_mask)
+
+    fns["fwd 4-call"] = four_call
+    out_bytes = boxes.shape[0] * boxes.shape[1] * 49 * 256 * 2
+    four_bytes = sum(bounds[f"fwd P{k}"][2] for k in range(2, 6)) \
+        - 3 * out_bytes
+    bounds["fwd 4-call"] = (four_bytes / rate * 1e3, "bytes", four_bytes)
+    for lv, f, rr, mm, s in trc:
+        hw = tuple(f.shape[1:3])
+        _, codes = rp.roi_pool_argmax(f, rr, mm, s)
+        g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+        cells, vals = argmax_cells(rp, codes, rr, mm, g, hw, s)
+        n = f.numel()
+
+        def yardstick(cells=cells, vals=vals, n=n):
+            d = torch.zeros(n, dtype=torch.float32, device=dev)
+            d.index_add_(0, cells, vals)
+            return d.to(torch.bfloat16)
+
+        got = rp.roi_pool_backward(codes, rr, mm, g, s, hw)
+        if not torch.equal(got != 0, yardstick().reshape(f.shape) != 0):
+            raise AssertionError(f"roi_pool_bwd and its index_add_ "
+                                 f"yardstick route differently (fpn {lv})")
+        fns[f"fwd_argmax {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: \
+            rp.roi_pool_argmax(f, rr, mm, s)
+        fns[f"bwd {lv}"] = lambda c=codes, rr=rr, mm=mm, g=g, s=s, hw=hw: \
+            rp.roi_pool_backward(c, rr, mm, g, s, hw)
+        fns[f"bwd_library {lv}"] = yardstick
+        plain[f"fwd_argmax {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: \
+            rp.roi_pool_argmax_plain(f, rr, mm, s)
+        plain[f"bwd {lv}"] = lambda c=codes, rr=rr, mm=mm, g=g, s=s, hw=hw: \
+            rp.roi_pool_backward_argmax_plain(c, rr, mm, g, s, hw)
+        arg_bytes = (stage_work("roi_pool", f, rr, mm, s)[0]
+                     + codes.numel() * codes.element_size())
+        bounds[f"fwd_argmax {lv}"] = (arg_bytes / rate * 1e3, "bytes",
+                                      arg_bytes)
+        bounds[f"bwd {lv}"] = bwd_bound(f, rr, mm, g, name, s)
+        extra[lv] = int(cells.numel())
+    times = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, iters=10))
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    plain_ms = {k: cuda_ms(fn, iters=1, warmup=0) for k, fn in plain.items()}
+    plain_ms["fwd 4-call"] = sum(plain_ms[f"fwd P{k}"] for k in range(2, 6))
+    for k in bounds:
+        lib = (f"; index_add_ yardstick {ms['bwd_library ' + k[4:]]:.4f} ms "
+               f"({extra[k[4:]]} routed)" if k.startswith("bwd ") else "")
+        print(f"[fpn] {k} bf16: {ms[k]:.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in times[k])}), bound "
+              f"{bounds[k][0]:.4f} ms ({bounds[k][1]}, "
+              f"{bounds[k][2] / 1e9:.4f} GB), plain {plain_ms[k]:.3f} ms"
+              f"{lib}")
+    SUMMARY.append("fpn c256 ms " + ", ".join(
+        f"{k} {ms[k]:.4f}" for k in bounds))
+    out = {"fwd": {}, "fwd_argmax": {}, "bwd": {}}
+    for k in bounds:
+        kernel, lv = k.split(" ")
+        out[kernel][lv] = {
+            "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1],
+            "library_ms": ms.get(f"bwd_library {lv}")
+            if kernel == "bwd" else None}
+    errs = {"fwd": fwd_err["eval"], "fwd_argmax": fwd_err["argmax"],
+            "bwd": bwd_err}
+    return out, errs
+
+
+def sup_batch(rng, b=2, h=256, w=384, p=128, g=8, stride=4, scale=1.0):
+    """A seeded supervised batch (CPU): images (normals times ``scale``),
+    P rois of 16-160 px (the last 12 of the second image masked), G GT
+    boxes (near the first rois) with labels 1-80 and their rectangles as
+    bitmasks at 1/stride."""
+    import torch
+    from odwscl_tpu_torch.models import Batch
+
+    sizes = np.float32([[h, w], [h - 16, w - 32]])
+    images = (rng.randn(b, h, w, 3) * scale).astype(np.float32)
+    x1y1 = rng.uniform(0, 1, (b, p, 2)) * [w - 40, h - 40]
+    wh = rng.uniform(16, 160, (b, p, 2))
+    boxes = np.concatenate([x1y1, np.minimum(x1y1 + wh, [w - 1, h - 1])],
+                           -1).astype(np.float32)
+    box_mask = np.ones((b, p), bool)
+    box_mask[1, -12:] = False
+    gt = boxes[:, :g] + rng.uniform(-4, 4, (b, g, 4)).astype(np.float32)
+    gt = np.clip(gt, 0, [w - 1, h - 1, w - 1, h - 1]).astype(np.float32)
+    gt[..., 2:] = np.maximum(gt[..., 2:], gt[..., :2] + 8)
+    bit = np.zeros((b, g, h // stride, w // stride), np.float32)
+    for i in range(b):
+        for j in range(g):
+            x1, y1, x2, y2 = (gt[i, j] / stride).astype(int)
+            bit[i, j, y1:y2 + 1, x1:x2 + 1] = 1.0
+    return Batch(images=torch.from_numpy(images),
+                 image_sizes=torch.from_numpy(sizes),
+                 boxes=torch.from_numpy(boxes),
+                 box_mask=torch.from_numpy(box_mask),
+                 labels=torch.ones(b, 81),
+                 gt_boxes=torch.from_numpy(gt),
+                 gt_labels=torch.from_numpy(rng.randint(1, 81, (b, g))),
+                 gt_mask=torch.ones(b, g, dtype=torch.bool),
+                 gt_bitmasks=torch.from_numpy(bit))
+
+
+def _rel_gap(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item()
+
+
+def phase_supervised_card_vs_cpu(dev, rp):
+    """Card against CPU, f32 with TF32 off, at the published widths: R-50-
+    FPN Mask R-CNN (81 classes, MLP 1024, mask convs 4x256) and R-50
+    RetinaNet (81 classes), seeded weights, a 256x384 canvas, P = 128
+    rois an image (512 took the CPU 77 s) and 8 GT instances with
+    bitmasks. The images are unit normals: with frozen norms at identity
+    and zero biases the random network is homogeneous, so BGR-255-sized
+    inputs put every head at O(100) (box deltas past the clip, decoded
+    boxes past the image, saturated probabilities whose bounds would read
+    100 times the f32 drift); at unit scale the heads are O(1). Eval:
+    scores within SCORE_ATOL,
+    boxes within BOX_ATOL_PX, mask probabilities within MASK_PROB_ATOL;
+    RetinaNet's dense logits and deltas within 1e-3 of their largest and
+    its valid count equal. One train step each with the same sampler
+    draws: the Fast R-CNN matches, labels and sampled rois and the anchor
+    labels equal; losses within TRAIN_LOSS_RTOL, the gradients of every
+    trainable tensor outside the ResNet body within TRAIN_GRAD_REL of its
+    largest (a body ReLU within the drift of 0 may flip, phase 6)."""
+    import torch
+    from odwscl_tpu_torch.losses.fast_rcnn import prepare_fast_rcnn_targets
+    from odwscl_tpu_torch.models import RetinaNetDetector, SupervisedRCNN
+    from odwscl_tpu_torch.models.retinanet import retinanet_targets
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(15)
+    batch = sup_batch(rng)
+    b, p = batch.boxes.shape[:2]
+    uniform = torch.from_numpy(rng.uniform(size=(b, 2, p)).astype(
+        np.float32))
+    gaps = {}
+    try:
+        for label, model in (
+                ("Mask R-CNN", SupervisedRCNN(
+                    81, "R-50-FPN", mask_on=True, mlp_dim=1024,
+                    compute_dtype="float32")),
+                ("RetinaNet", RetinaNetDetector(81, "R-50",
+                                                compute_dtype="float32"))):
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            res = {}
+            for device in ("cpu", dev):
+                model.to(device).zero_grad(set_to_none=True)
+                bt = batch.to(device)
+                t0 = time.perf_counter()
+                r = {}
+                if label == "Mask R-CNN":
+                    out = model.eval_forward(bt)
+                    r["scores"], r["boxes"] = out["scores"], out["boxes"]
+                    det = bt.boxes[:, :100].contiguous()
+                    k = det.shape[1]
+                    lab = bt.gt_labels.repeat(1, k)[:, :k]
+                    r["masks"] = model.predict_masks(bt, det, lab,
+                                                     out["features"])
+                    tgt = prepare_fast_rcnn_targets(
+                        bt.boxes, bt.box_mask, bt.gt_boxes, bt.gt_labels,
+                        bt.gt_mask, uniform=uniform.to(device))
+                    for k in ("labels", "pos_mask", "neg_mask", "matched"):
+                        r[k] = getattr(tgt, k)
+                    draws = {"fast_rcnn": uniform.to(device)}
+                else:
+                    out = model.eval_forward(bt)
+                    r["valid"] = out["valid"].sum()
+                    with torch.no_grad():
+                        anchors, r["logits"], r["deltas"] = model.dense(
+                            bt.images)
+                    r["anchor_labels"] = retinanet_targets(
+                        anchors, bt.gt_boxes, bt.gt_labels, bt.gt_mask)[0]
+                    draws = None
+                losses, _ = model.train_forward(bt, draws=draws)
+                sum(losses.values()).backward()
+                r.update({"loss " + k: v.detach() for k, v in
+                          losses.items()})
+                r.update({"grad " + n: q.grad for n, q in
+                          model.named_parameters()
+                          if q.requires_grad and q.grad is not None
+                          and not n.startswith("backbone.body.")})
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                r = {k: v.detach().float().cpu() if v.is_floating_point()
+                     else v.cpu() for k, v in r.items()}
+                res[str(device)] = (r, time.perf_counter() - t0)
+            (c, t_cpu), (g, t_gpu) = res["cpu"], res[str(dev)]
+            exact = [k for k in c if k in ("labels", "pos_mask", "neg_mask",
+                                           "matched", "anchor_labels",
+                                           "valid")]
+            for k in exact:
+                if not torch.equal(c[k], g[k]):
+                    raise AssertionError(f"{label}: {k} differ card vs CPU")
+            loss_gap = max(abs(float(g[k]) - float(c[k]))
+                           / max(abs(float(c[k])), 1e-12)
+                           for k in c if k.startswith("loss "))
+            grad_keys = [k for k in c if k.startswith("grad ")]
+            grad_gap, worst = max((_rel_gap(g[k], c[k]), k[5:])
+                                  for k in grad_keys)
+            bounds = {"scores": SCORE_ATOL, "boxes": BOX_ATOL_PX,
+                      "masks": MASK_PROB_ATOL}
+            evals = {k: (g[k] - c[k]).abs().max().item() for k in bounds
+                     if k in c}
+            dense = {k: _rel_gap(g[k], c[k]) for k in ("logits", "deltas")
+                     if k in c}
+            print(f"[sup] {label} f32 card vs CPU, B={b} "
+                  f"{bt.images.shape[1]}x{bt.images.shape[2]} P={p}: "
+                  f"{', '.join(exact)} equal"
+                  + (f" ({int(c['pos_mask'].sum())} fg, "
+                     f"{int(c['neg_mask'].sum())} bg sampled)"
+                     if "pos_mask" in c else
+                     f" ({int((c['anchor_labels'] > 0).sum())} positive "
+                     f"anchors, {int(c['valid'])} valid detections)")
+                  + "; eval max |d| " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in {**evals, **dense}.items())
+                  + f"; losses {sorted(k[5:] for k in c if k[:5] == 'loss ')}"
+                  f" max rel diff {loss_gap:.3e} (tol {TRAIN_LOSS_RTOL}); "
+                  f"max grad diff {grad_gap:.3e} of the largest ({worst};"
+                  f" tol {TRAIN_GRAD_REL}, {len(grad_keys)} tensors); CPU "
+                  f"{t_cpu:.2f} s, card {t_gpu:.2f} s")
+            if any(v > bounds[k] for k, v in evals.items()) or any(
+                    v > 1e-3 for v in dense.values()):
+                raise AssertionError(f"{label}: eval card vs CPU {evals} "
+                                     f"{dense}")
+            if loss_gap > TRAIN_LOSS_RTOL or grad_gap > TRAIN_GRAD_REL:
+                raise AssertionError(f"{label}: train step card vs CPU "
+                                     "disagree")
+            gaps[label] = loss_gap
+            model.to("cpu")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return gaps
+
+
+def phase_supervised_cli(rp, tmp):
+    """Both shipped supervised configs as shipped (only the paths on the
+    command line) on a synthetic ``coco17`` layout with polygon and RLE
+    masks: ``train_net`` (SOLVER.MAX_ITER 5, the configs' own) and
+    ``test_net`` on the checkpoint it writes. Every loss finite; bbox AP
+    (and segm AP) in [0, 1]. Each Mask R-CNN training step launches
+    #1[argmax] 4 times and #2 4 times, and #1 never; each eval batch #1 8
+    times (4 for the boxes, 4 for the mask pass) and nothing else;
+    RetinaNet launches none. Returns {path: (fwd, fwd[argmax], bwd)}."""
+    import torch
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.data.synthetic import write_synthetic_coco
+    from odwscl_tpu_torch.tools import test_net, train_net
+
+    root = os.path.join(tmp, "coco17")
+    t0 = time.perf_counter()
+    write_synthetic_coco(root, n_train=16, n_val=8, seed=3, img_hw=(240, 320),
+                         n_props=128, layout="coco17")
+    print(f"[data] synthetic COCO (coco17 layout, 6 categories, polygon and "
+          f"RLE masks): 16 train + 8 val images 240x320, 128 proposals each,"
+          f" written in {time.perf_counter() - t0:.2f} s")
+
+    def counts():
+        return (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+                rp.roi_pool_backward.launches)
+
+    def reset():
+        rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+        rp.roi_pool_backward.launches = 0
+
+    launches = {}
+    for label, name in SUP_CONFIGS:
+        config = os.path.join(ROOT, "configs", "coco", name)
+        cfg = get_default_cfg()
+        cfg.merge_from_file(config)
+        out = os.path.join(tmp, "sup_" + name[:-5])
+        steps = cfg.SOLVER.MAX_ITER
+        per_level = 4 if cfg.MODEL.MASK_ON else 0
+        reset()
+        timing = {}
+        t0 = time.perf_counter()
+        train_net.main(["--config-file", config, "--data-root", root,
+                        "--device", "cuda", "--skip-test", "OUTPUT_DIR", out],
+                       timing_out=timing)
+        wall = time.perf_counter() - t0
+        train = counts()
+        steps_log = timing["train"]["steps"]
+        if len(steps_log) != steps:
+            raise AssertionError(f"{label}: {len(steps_log)} steps")
+        for st in steps_log:
+            bad = [k for k, v in st.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{label} iteration {st['iter']}: "
+                                     f"non-finite {bad}")
+        if train != (0, per_level * steps, per_level * steps):
+            raise AssertionError(f"{label} train: kernel launches (fwd, "
+                                 f"fwd[argmax], bwd) {train} for {steps} "
+                                 "steps")
+        loss_keys = [k for k in steps_log[0] if k.startswith("loss")]
+        print(f"[sup] {label} train ({name}, as shipped): {steps} steps, "
+              + ", ".join(f"{k} {steps_log[0][k]:.4f} -> "
+                          f"{steps_log[-1][k]:.4f}" for k in loss_keys)
+              + f"; median step {statistics.median(st['step_s'] for st in steps_log) * 1e3:.1f} ms;"
+              f" kernel launches (fwd, fwd[argmax], bwd) {train}; CLI wall "
+              f"{wall:.2f} s")
+        reset()
+        timing = {}
+        res = test_net.main(["--config-file", config, "--data-root", root,
+                             "--device", "cuda", "--weights",
+                             os.path.join(out, "model_final.pt"),
+                             "OUTPUT_DIR", out + "_eval"], timing_out=timing)
+        evals = counts()
+        (t,), (r,) = timing.values(), res.values()
+        n_batches = math.ceil(t["n_images"] / cfg.TEST.IMS_PER_BATCH)
+        if evals != (2 * per_level * n_batches, 0, 0):
+            raise AssertionError(f"{label} eval: kernel launches {evals} for "
+                                 f"{n_batches} batches")
+        keys = ("AP", "segm_AP") if cfg.MODEL.MASK_ON else ("AP",)
+        if not all(0.0 <= r[k] <= 1.0 for k in keys):
+            raise AssertionError(f"{label}: {[(k, r[k]) for k in keys]}")
+        print(f"[sup] {label} eval: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items())
+            + f"; {t['n_images']} images in {t['wall_s']:.2f} s; kernel "
+            f"launches {evals} for {n_batches} batches")
+        SUMMARY.append(f"{label} smoke: " + ", ".join(
+            f"{k} {r[k]:.4f}" for k in keys))
+        launches[label + " train"] = train
+        launches[label + " eval"] = evals
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_fullsize_eval(dev, rp, canvas=FPN_EVAL_HW,
+                        image_hw=((800, 1333), (800, 1200)),
+                        n_props=FPN_ROIS):
+    """The eval forward at COCO size, bf16, seeded weights: R-50-FPN Mask
+    R-CNN with 1000 proposals an image and R-50 RetinaNet (81 classes
+    each) on an 800x1344 batch of 2 (800x1333 and 800x1200 images). Per
+    model, 3 timed repeats after a warm-up (CUDA events): ms per image of
+    the eval forward, peak memory; the four-level pool alone on the same
+    features and its share of the forward; the mask pass on the 100 kept
+    detections; the NMS + top-K (RetinaNet: its decode, then the NMS).
+    Every Mask R-CNN repeat launches #1 8 times; RetinaNet none. Returns
+    the Mask R-CNN's launches."""
+    import torch
+    from odwscl_tpu_torch.engine.postprocess import finalize_detections_device
+    from odwscl_tpu_torch.models import (Batch, RetinaNetDetector,
+                                         SupervisedRCNN)
+    from odwscl_tpu_torch.models.fpn import multilevel_roi_pool
+    from odwscl_tpu_torch.models.retinanet import retinanet_decode
+    from odwscl_tpu_torch.models.supervised import FPN_SCALES as SCALES
+
+    rng = np.random.RandomState(17)
+    b, (h, w) = 2, canvas
+    sizes = np.float32(image_hw)
+    images = np.zeros((b, h, w, 3), np.float32)
+    for i, (ih, iw) in enumerate(sizes.astype(int)):
+        images[i, :ih, :iw] = rng.randn(ih, iw, 3) * 50
+    wh = np.exp(rng.uniform(np.log(16), np.log(800), (b, n_props, 2)))
+    x1y1 = rng.uniform(size=(b, n_props, 2)) * np.maximum(
+        sizes[:, None, ::-1] - wh, 1)
+    boxes = np.concatenate([x1y1, np.minimum(x1y1 + wh,
+                                             sizes[:, None, ::-1] - 1)], -1)
+    batch = Batch(images=torch.from_numpy(images).to(dev),
+                  image_sizes=torch.from_numpy(sizes).to(dev),
+                  boxes=torch.from_numpy(boxes.astype(np.float32)).to(dev),
+                  box_mask=torch.ones(b, n_props, dtype=torch.bool,
+                                      device=dev))
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    rows = {}
+    for label, model in (
+            ("Mask R-CNN", SupervisedRCNN(81, "R-50-FPN", mask_on=True,
+                                          mlp_dim=1024,
+                                          compute_dtype="bfloat16")),
+            ("RetinaNet", RetinaNetDetector(81, "R-50",
+                                            compute_dtype="bfloat16"))):
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+
+        def run():
+            if label == "RetinaNet":
+                (anchors, logits, deltas), t_dense = timed(
+                    lambda: model.dense(batch.images))
+                dec, t_dec = timed(lambda: retinanet_decode(
+                    anchors, logits, deltas, batch.image_sizes.flip(-1),
+                    model.score_thresh, model.pre_nms_top_n))
+                boxes_k, scores_k, labels_k, valid_k = dec
+                sc = torch.zeros(b, scores_k.shape[1], 81, device=dev)
+                sc.scatter_(2, labels_k[..., None],
+                            torch.where(valid_k, scores_k, 0.0)[..., None])
+                _, t_nms = timed(lambda: finalize_detections_device(
+                    boxes_k, sc, valid_k, 0.4, 0.05, 100))
+                return {"forward": t_dense + t_dec, "decode": t_dec,
+                        "nms": t_nms}
+            out, t_fwd = timed(lambda: model.eval_forward(batch))
+            feats = out["features"]
+            before = rp.roi_pool.launches
+            _, t_pool = timed(lambda: multilevel_roi_pool(
+                model.pool, feats[:4], SCALES, batch.boxes, batch.box_mask))
+            # the pool timed alone is a measurement, not the path
+            rp.roi_pool.launches = before
+            b_, p_ = out["scores"].shape[:2]
+            dets, t_nms = timed(lambda: finalize_detections_device(
+                out["boxes"].reshape(b_, p_, -1, 4), out["scores"],
+                batch.box_mask, 0.5, 0.05, 100))
+            _, t_masks = timed(lambda: model.predict_masks(
+                batch, dets[0], dets[2], feats))
+            return {"forward": t_fwd, "pool": t_pool, "nms": t_nms,
+                    "masks": t_masks}
+
+        with torch.no_grad():
+            run()                                          # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+            rp.roi_pool_backward.launches = 0
+            reps = [run() for _ in range(3)]
+        launches = (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+                    rp.roi_pool_backward.launches)
+        # each repeat: the forward's 4 and the mask pass's 4
+        want = (8 * 3, 0, 0) if label == "Mask R-CNN" else (0, 0, 0)
+        if launches != want:
+            raise AssertionError(f"{label} full-size eval: kernel launches "
+                                 f"{launches}, expected {want}")
+        mean = {k: statistics.mean(r[k] for r in reps) for k in reps[0]}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        parts = ", ".join(f"{k} {v:.2f} ms" for k, v in mean.items()
+                          if k != "forward")
+        share = (f"; the four-level pool {mean['pool'] / mean['forward']:.3f}"
+                 " of the forward" if "pool" in mean else "")
+        print(f"[full] {label} bf16 eval, B=2 {h}x{w}"
+              + (f", {n_props} proposals an image" if "pool" in mean
+                 else "")
+              + f": forward {mean['forward']:.2f} ms = "
+              f"{mean['forward'] / b:.2f} ms per image ({', '.join(f'{r['forward']:.2f}' for r in reps)});"
+              f" {parts}{share}; peak memory {peak:.2f} GB")
+        SUMMARY.append(f"{label} full-size bf16 eval {mean['forward'] / b:.2f}"
+                       f" ms/image, peak {peak:.2f} GB")
+        rows[label] = launches
+        model.to("cpu")
+        del model
+        torch.cuda.empty_cache()
+    return rows["Mask R-CNN"][0]
+
+
 def build(rp, q):
     """Build the four kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2171,6 +2773,8 @@ def main():
     err_c, plain_c = timed("kernel checks at the C=2048 timed shape",
                            phase_check_c2048, dev, rp, r50_timed)
     del r50_timed
+    fpn_tm, fpn_err = timed("FPN kernel checks and timing, C=256",
+                            phase_fpn_kernels, dev, rp)
     stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
     int8_err = timed("int8 conv kernel checks", phase_int8_kernel, dev, q)
     quant_err = timed("quantize kernel checks", phase_quant_kernel, dev, q)
@@ -2187,6 +2791,8 @@ def main():
     variant_gaps["81 classes"] = timed(
         "train card vs CPU, 81 classes", phase_train_card_vs_cpu, dev,
         "VGG16-OICR", "VGG16-OICR 81 classes", 81)
+    variant_gaps.update(timed("supervised card vs CPU",
+                              phase_supervised_card_vs_cpu, dev, rp))
     SUMMARY.append("variants f32 card vs CPU loss gaps " + ", ".join(
         f"{k} {v:.1e}" for k, v in variant_gaps.items()))
     cfg, cfg_r50 = get_default_cfg(), get_default_cfg()
@@ -2224,25 +2830,39 @@ def main():
         variants = timed("training variants", phase_variants, rp, tmp, cfg)
         write_coco_data(tmp)
         coco = timed("COCO train, eval and variants", phase_coco, rp, tmp)
+        sup = timed("supervised configs train and eval", phase_supervised_cli,
+                    rp, tmp)
+        sup_full = timed("full-size supervised eval", phase_fullsize_eval,
+                         dev, rp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if any(rs.roi_pool_stage.launches.values()):
         raise AssertionError(f"the train and eval paths launched stage "
                              f"kernels: {rs.roi_pool_stage.launches}")
     # each path's launches, read right after it ran
+    # the supervised paths: Mask R-CNN train and eval, its full-size eval,
+    # RetinaNet (which pools nothing: 0 of each)
+    sup_paths = {"Mask R-CNN train": sup["Mask R-CNN train"],
+                 "Mask R-CNN eval": sup["Mask R-CNN eval"],
+                 "Mask R-CNN full-size eval": (sup_full, 0, 0),
+                 "RetinaNet": tuple(map(sum, zip(sup["RetinaNet train"],
+                                                 sup["RetinaNet eval"])))}
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
                        **{f"VGG16-OICR int8 eval {k}": v[2]
                           for k, v in int8_eval.items()},
                        **{f"{k} eval": v["eval"] for k, v in variants.items()
                           if "eval" in v},
-                       "COCO14 eval": coco["COCO14"]["eval"]},
+                       "COCO14 eval": coco["COCO14"]["eval"],
+                       **{k: v[0] for k, v in sup_paths.items()}},
                "fwd_argmax": {"VGG16-OICR": train_fwd, "R-50-C5": r50_fwd,
                               **{k: v["train"][0]
                                  for k, v in variants.items()},
-                              **{k: v["train"][0] for k, v in coco.items()}},
+                              **{k: v["train"][0] for k, v in coco.items()},
+                              **{k: v[1] for k, v in sup_paths.items()}},
                "bwd": {"VGG16-OICR": train_bwd, "R-50-C5": r50_bwd,
                        **{k: v["train"][1] for k, v in variants.items()},
-                       **{k: v["train"][1] for k, v in coco.items()}}}
+                       **{k: v["train"][1] for k, v in coco.items()},
+                       **{k: v[2] for k, v in sup_paths.items()}}}
 
     src = "odwscl_tpu_torch/csrc/"
     no_lib = ("no single PyTorch call computes ROIPool; torchvision is not "
@@ -2252,9 +2872,17 @@ def main():
 
     def c2048(k, err, launches):
         """The R-50-C5 readings: the worst error over both C = 2048 checks,
-        the plain time over the timed shape's chunks (bf16)."""
+        the plain time over the timed shape's chunks (bf16); and the FPN
+        readings (C = 256, each level's and, for #1, the four-call pool's),
+        with the supervised paths' launches."""
+        fpn_paths = {"fwd": ("Mask R-CNN eval", 0),
+                     "fwd_argmax": ("Mask R-CNN train", 1),
+                     "bwd": ("Mask R-CNN train", 2)}[k]
         return {"c2048": {"library_ms": None, **tm_c[k], "max_abs_err": err,
-                          "plain_ms": plain_c.get(k), "launches": launches}}
+                          "plain_ms": plain_c.get(k), "launches": launches},
+                "fpn_c256": {"max_abs_err": fpn_err[k],
+                             "launches": sup[fpn_paths[0]][fpn_paths[1]],
+                             "levels": fpn_tm[k]}}
 
     kernels = [
         {"name": "roi_pool_fwd", **fwd_src, "launches": eval_fwd,

@@ -12,9 +12,11 @@ clicks and scribble boxes (an empty scribble becomes the box [1, 2, 3, 4],
 as in the reference). Host-side numpy; PIL is imported where images are
 read.
 
-Instance masks and keypoints belong to the supervised stack, which is not
-ported (ROADMAP Queue 1 item 12): ``load_masks`` / ``load_keypoints``
-raise.
+``load_masks`` (``MODEL.MASK_ON``) gives each sample the non-crowd
+annotations' ``segmentation`` as ``structures/masks.py`` ``Masks``: polygon
+mode, or raster mode with every instance decoded when any of the image's
+segmentations is RLE. Keypoints belong to the next slice of the port:
+``load_keypoints`` raises.
 """
 
 from __future__ import annotations
@@ -70,11 +72,11 @@ class COCODataset:
                  remove_images_without_annotations: bool = True,
                  proposal_file: Optional[str] = None, min_size: float = 2.0,
                  load_masks: bool = False, load_keypoints: bool = False):
-        if load_masks or load_keypoints:
+        if load_keypoints:
             raise NotImplementedError(
-                "COCO instance masks and keypoints (MODEL.MASK_ON / "
-                "KEYPOINT_ON) belong to the supervised stack, which is not "
-                "ported yet (ROADMAP Queue 1 item 12)")
+                "COCO keypoints (MODEL.KEYPOINT_ON) belong to the next slice "
+                "of the port (ROADMAP Queue 1)")
+        self.load_masks = load_masks
         self.coco = MiniCOCO(ann_file)
         self.root = img_dir
         ids = self.coco.getImgIds()
@@ -155,13 +157,30 @@ class COCODataset:
         gt_boxes[:, 1::2] = gt_boxes[:, 1::2].clip(0, h - 1)
         rois = (self.proposals.get(int(img_id), img.size)
                 if self.proposals is not None else None)
+        anns = self._annotations(index)
         clicks, click_labels, scribbles, scribble_labels = \
-            self._partial_labels(self._annotations(index))
+            self._partial_labels(anns)
         return Sample(image=img, size=img.size, gt_boxes=gt_boxes,
                       gt_labels=gt_labels, gt_difficult=gt_diff, rois=rois,
                       image_id=index, clicks=clicks,
                       click_labels=click_labels, scribbles=scribbles,
-                      scribble_labels=scribble_labels)
+                      scribble_labels=scribble_labels,
+                      gt_masks=(self._masks(anns, w, h) if self.load_masks
+                                else None))
+
+    @staticmethod
+    def _masks(anns, w: int, h: int):
+        """The annotations' segmentations as one ``Masks``."""
+        from ..structures.masks import Masks, rasterize_polygons
+        from ..structures.rle import is_rle, rle_decode
+
+        segs = [a.get("segmentation") or [] for a in anns]
+        if not any(is_rle(s) for s in segs):
+            return Masks(segs, (w, h), mode="poly")
+        bit = [rle_decode(s) if is_rle(s) else rasterize_polygons(
+            [np.asarray(p, np.float64) for p in s], h, w) for s in segs]
+        return Masks(np.stack(bit) if bit else np.zeros((0, h, w)), (w, h),
+                     mode="mask")
 
     def map_class_id_to_class_name(self, class_id):
         json_id = self.contiguous_category_id_to_json_id.get(class_id)

@@ -6,8 +6,12 @@ the batch's largest size rounded up to ``SIZE_DIVISIBILITY`` and then to
 ``IMAGE_PAD_MULTIPLE``; proposals pad to the smallest ``PROPOSAL_BUCKETS``
 size that holds them (the largest bucket truncates). Clicks and scribbles,
 when any sample has them, pad to ``PARTIAL_CAP`` slots with a mask (the
-first ``PARTIAL_CAP`` of an image are kept). The batch is built on the
-CPU; the caller moves it to its device.
+first ``PARTIAL_CAP`` of an image are kept). With ``include_gt`` (the
+supervised families: ``WSOD_ON False`` or ``RETINANET_ON``) the instance
+GT pads to ``GT_PAD`` slots, and the GT masks, when any sample has them,
+are rasterized at 1/``MASK_RASTER_STRIDE`` of the padded canvas
+(``gt_bitmasks``). The batch is built on the CPU; the caller moves it to
+its device.
 """
 
 from __future__ import annotations
@@ -51,11 +55,16 @@ class BatchCollator:
 
     def __init__(self, num_classes: int, size_divisibility: int = 32,
                  image_pad_multiple: int = 128,
-                 proposal_buckets: Sequence[int] = (512, 1024, 2048, 4096)):
+                 proposal_buckets: Sequence[int] = (512, 1024, 2048, 4096),
+                 include_gt: bool = False, gt_pad: int = 32,
+                 mask_raster_stride: int = 4):
         self.num_classes = num_classes
         self.size_div = size_divisibility
         self.image_pad_multiple = image_pad_multiple
         self.proposal_buckets = tuple(proposal_buckets)
+        self.include_gt = include_gt
+        self.gt_pad = gt_pad
+        self.mask_raster_stride = mask_raster_stride
 
     def __call__(self, samples: List[Sample]) -> Batch:
         b = len(samples)
@@ -87,11 +96,46 @@ class BatchCollator:
             if any(getattr(s, name + "s") is not None
                    and len(getattr(s, name + "s")) for s in samples):
                 extra.update(_pad_partial(samples, name, width))
+        if self.include_gt:
+            extra.update(self._pad_gt(samples, ph, pw))
         return Batch(images=torch.from_numpy(images),
                      image_sizes=torch.from_numpy(sizes),
                      boxes=torch.from_numpy(boxes),
                      box_mask=torch.from_numpy(mask),
                      labels=torch.from_numpy(labels), **extra)
+
+    def _pad_gt(self, samples: List[Sample], ph: int, pw: int) -> dict:
+        """``gt_boxes`` [B, G, 4], ``gt_labels`` [B, G] int64, ``gt_mask``
+        [B, G] and, when a sample has masks, ``gt_bitmasks`` [B, G, ph //
+        s, pw // s]: each sample's masks resized to its image's size // s,
+        thresholded, in the raster's top-left corner (where the image
+        lies on the canvas)."""
+        b, g = len(samples), self.gt_pad
+        boxes = np.zeros((b, g, 4), np.float32)
+        labels = np.zeros((b, g), np.int64)
+        valid = np.zeros((b, g), bool)
+        for i, s in enumerate(samples):
+            if s.gt_boxes is None or not len(s.gt_boxes):
+                continue
+            n = min(len(s.gt_boxes), g)
+            boxes[i, :n], labels[i, :n], valid[i, :n] = \
+                s.gt_boxes[:n], s.gt_labels[:n], True
+        out = {"gt_boxes": torch.from_numpy(boxes),
+               "gt_labels": torch.from_numpy(labels),
+               "gt_mask": torch.from_numpy(valid)}
+        if any(s.gt_masks is not None for s in samples):
+            st = self.mask_raster_stride
+            bit = np.zeros((b, g, ph // st, pw // st), np.float32)
+            for i, s in enumerate(samples):
+                if s.gt_masks is None or not len(s.gt_masks):
+                    continue
+                raster = s.gt_masks.resize(
+                    (s.image.shape[1] // st, s.image.shape[0] // st)
+                ).to_bitmasks().astype(np.float32)
+                n = min(len(raster), g)
+                bit[i, :n, :raster.shape[1], :raster.shape[2]] = raster[:n]
+            out["gt_bitmasks"] = torch.from_numpy(bit)
+        return out
 
 
 def _pad_partial(samples: List[Sample], name: str, width: int) -> dict:
@@ -118,4 +162,7 @@ def collator_from_cfg(cfg) -> BatchCollator:
         size_divisibility=cfg.DATALOADER.SIZE_DIVISIBILITY,
         image_pad_multiple=cfg.TPU.IMAGE_PAD_MULTIPLE,
         proposal_buckets=tuple(cfg.TPU.PROPOSAL_BUCKETS),
+        include_gt=(not cfg.MODEL.WSOD_ON) or cfg.MODEL.RETINANET_ON,
+        gt_pad=cfg.TPU.GT_PAD,
+        mask_raster_stride=cfg.TPU.MASK_RASTER_STRIDE,
     )

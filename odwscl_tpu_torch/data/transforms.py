@@ -1,9 +1,10 @@
 """Host-side (CPU) transforms: colour jitter, PIL resize, flip, PCA
 lighting, normalize.
 
-Counterpart of ``odwscl_tpu/data/transforms.py`` (the WSOD and
-partial-label fields; the supervised stack's masks and keypoints are not
-ported). Images
+Counterpart of ``odwscl_tpu/data/transforms.py`` (the WSOD,
+partial-label and instance-mask fields; keypoints belong to the next
+slice of the port). GT masks (``structures/masks.py``) resize and flip
+with the image. Images
 are PIL images until ``to_array``, then numpy HWC float32; boxes are numpy
 [N, 4] xyxy. The train transform draws from a per-sample
 ``np.random.RandomState`` in the JAX package's order, so the same seed
@@ -16,6 +17,8 @@ import dataclasses
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..structures.masks import FLIP_LEFT_RIGHT, FLIP_TOP_BOTTOM
 
 
 @dataclasses.dataclass
@@ -36,6 +39,8 @@ class Sample:
     click_labels: Optional[np.ndarray] = None     # [K]
     scribbles: Optional[np.ndarray] = None        # [S, 4] xyxy
     scribble_labels: Optional[np.ndarray] = None  # [S]
+    # supervised instance GT: structures.masks.Masks, one per GT box
+    gt_masks: Optional[Any] = None
 
 
 def get_resize_size(size_wh: Tuple[int, int], min_size: int,
@@ -94,7 +99,10 @@ def resize(sample: Sample, min_size, max_size: Optional[int],
                                gt_boxes=scale(sample.gt_boxes),
                                rois=scale(sample.rois),
                                clicks=scale(sample.clicks),
-                               scribbles=scale(sample.scribbles))
+                               scribbles=scale(sample.scribbles),
+                               gt_masks=(None if sample.gt_masks is None
+                                         else sample.gt_masks.resize(
+                                             (ow, oh))))
 
 
 def _flip_points(pts: Optional[np.ndarray], axis: int, extent: int):
@@ -105,6 +113,10 @@ def _flip_points(pts: Optional[np.ndarray], axis: int, extent: int):
     out = pts.copy()
     out[:, axis] = extent - pts[:, axis] - 1
     return out
+
+
+def _flip_masks(masks, method):
+    return None if masks is None else masks.transpose(method)
 
 
 def hflip(sample: Sample) -> Sample:
@@ -130,7 +142,9 @@ def hflip(sample: Sample) -> Sample:
                                gt_boxes=flip(sample.gt_boxes),
                                rois=flip(sample.rois),
                                clicks=_flip_points(sample.clicks, 0, w),
-                               scribbles=flip(sample.scribbles))
+                               scribbles=flip(sample.scribbles),
+                               gt_masks=_flip_masks(sample.gt_masks,
+                                                    FLIP_LEFT_RIGHT))
 
 
 def to_array(sample: Sample) -> Sample:
@@ -200,7 +214,9 @@ def vflip(sample: Sample) -> Sample:
                                gt_boxes=flip(sample.gt_boxes),
                                rois=flip(sample.rois),
                                clicks=_flip_points(sample.clicks, 1, h),
-                               scribbles=flip(sample.scribbles))
+                               scribbles=flip(sample.scribbles),
+                               gt_masks=_flip_masks(sample.gt_masks,
+                                                    FLIP_TOP_BOTTOM))
 
 
 def pca_lighting(sample: Sample, rng: np.random.RandomState,

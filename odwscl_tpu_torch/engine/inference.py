@@ -27,6 +27,15 @@ package reads and writes too (``save_int8_scales``, ``load_int8_scales``).
 Several processes (``torch.distributed`` initialized, one eval shard a
 rank): each rank writes its predictions to a shard file in the output
 folder and rank 0 merges them (``gather_predictions``) and evaluates.
+
+The supervised families (``models.build_model``) return a dict from
+``eval_forward`` and take the non-TTA path: RetinaNet's decoded top-K
+goes through the per-class NMS with ``MODEL.RETINANET.NMS_TH`` and
+``INFERENCE_TH``; the Fast / Mask R-CNN's softmax scores and per-class
+boxes through the ``ROI_HEADS`` NMS, after which a ``MASK_ON`` model runs
+``predict_masks`` on the kept detections and the Masker pastes the
+probabilities at the original image size; COCO then scores bbox and
+segm.
 """
 
 from __future__ import annotations
@@ -49,6 +58,9 @@ from ..data.voc import PascalVOCDataset
 from ..evaluation.coco_eval import do_coco_evaluation
 from ..evaluation.voc_eval import do_corloc_evaluation, do_voc_evaluation
 from ..models.detector import Batch
+from ..models.mask_head import Masker
+from ..models.retinanet import RetinaNetDetector
+from ..models.supervised import SupervisedRCNN
 from ..ops.device_resize import resize_image_batch, scale_boxes_batch
 from ..utils.device import resolve_device
 from ..utils.dist import process_count_and_index
@@ -248,6 +260,13 @@ class Inferencer:
         self.nms_thresh = cfg.MODEL.ROI_HEADS.NMS
         self.score_thresh = cfg.MODEL.ROI_HEADS.SCORE_THRESH
         self.det_per_img = cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
+        self.retinanet = isinstance(model, RetinaNetDetector)
+        self.supervised = isinstance(model, (RetinaNetDetector,
+                                             SupervisedRCNN))
+        if self.retinanet:
+            self.nms_thresh = cfg.MODEL.RETINANET.NMS_TH
+            self.score_thresh = cfg.MODEL.RETINANET.INFERENCE_TH
+        self.mask_on = bool(getattr(model, "mask_on", False))
         self.collator = collator_from_cfg(cfg)
         self.device_resize = bool(cfg.TPU.EVAL_DEVICE_RESIZE)
         self._pad_multiple = cfg.TPU.IMAGE_PAD_MULTIPLE
@@ -369,6 +388,11 @@ class Inferencer:
         a future of ``prep_base(samples)`` for the device-resize path."""
         if not self.tta.enabled:
             return self.predict_batch(self.collator(samples).to(self.device))
+        if self.supervised:
+            raise NotImplementedError(
+                "TEST.BBOX_AUG (TTA) covers the WSOD detector only, as in "
+                "the JAX package; evaluate the supervised families without "
+                "it")
         transforms = self.tta.transforms()
         groups = _tta_groups(transforms)
         union = self.tta.heur == "UNION"
@@ -418,13 +442,42 @@ class Inferencer:
         return self._finalize(scores, boxes, mask)
 
     def predict_batch(self, batch: Batch) -> List[Dict[str, np.ndarray]]:
-        """Non-TTA batch -> per-image detections."""
+        """Non-TTA batch -> per-image detections, by the family's eval
+        output: (scores, boxes) of the WSOD detector; RetinaNet's decoded
+        dict (with "valid"); the supervised R-CNN's dict, whose mask pass
+        adds each detection's ``mask_probs`` [M, M] (the batch's frame)."""
         t0 = time.perf_counter()
-        scores, boxes = self.forward_batch(batch)
+        out = self.forward_batch(batch)
         self._sync()
         self.timings["forward_s"] += time.perf_counter() - t0
-        return self._finalize(scores, boxes,
-                              _match_mask(scores, batch.box_mask))
+        if not isinstance(out, dict):
+            scores, boxes = out
+            return self._finalize(scores, boxes,
+                                  _match_mask(scores, batch.box_mask))
+        if self.retinanet:
+            # each kept (anchor, class) as a one-class score row
+            b, k = out["scores"].shape
+            scores = torch.zeros((b, k, self.model.num_classes),
+                                 dtype=torch.float32, device=self.device)
+            scores.scatter_(2, out["labels"][..., None],
+                            torch.where(out["valid"], out["scores"],
+                                        0.0)[..., None])
+            return self._finalize(scores, out["boxes"], out["valid"])
+        t0 = time.perf_counter()
+        b, p = out["scores"].shape[:2]
+        tb, ts, tl, tv = finalize_detections_device(
+            out["boxes"].reshape(b, p, -1, 4), out["scores"],
+            batch.box_mask, self.nms_thresh, self.score_thresh,
+            self.det_per_img)
+        dets = detections_to_host(tb, ts, tl, tv)
+        self.timings["finalize_s"] += time.perf_counter() - t0
+        if self.mask_on:
+            probs = self.model.predict_masks(batch, tb, tl, out["features"])
+            probs = probs.to("cpu", torch.float32).numpy()
+            tvn = tv.cpu().numpy()
+            for i, d in enumerate(dets):
+                d["mask_probs"] = probs[i][tvn[i]]
+        return dets
 
     def _finalize(self, scores, boxes, box_mask):
         t0 = time.perf_counter()
@@ -534,8 +587,14 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
                     else:
                         from_wh = s.size
                     info = dataset.get_img_info(int(idx))
-                    predictions[int(idx)] = resize_detections(
-                        d, from_wh, (info["width"], info["height"]))
+                    d = resize_detections(d, from_wh,
+                                          (info["width"], info["height"]))
+                    if "mask_probs" in d:
+                        # full-image masks at the original size
+                        d["masks"] = Masker()(d.pop("mask_probs"),
+                                              d["boxes"], info["height"],
+                                              info["width"])
+                    predictions[int(idx)] = d
                 n_images += len(samples)
         wall = time.perf_counter() - t0
         logger.info("Inference: %d images in %.1fs (%.4f s/img)", n_images,
@@ -560,7 +619,9 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
     elif isinstance(dataset, PascalVOCDataset):
         result = do_voc_evaluation(dataset, predictions, output_folder)
     else:       # COCO AP; predictions[i] is dataset index i's
-        result = do_coco_evaluation(dataset, predictions, output_folder)
+        result = do_coco_evaluation(
+            dataset, predictions, output_folder,
+            iou_types=("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",))
     timing["eval_s"] = time.perf_counter() - t0
     if timing_out is not None:
         timing_out.update(timing)

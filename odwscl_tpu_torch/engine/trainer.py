@@ -2,7 +2,9 @@
 
 Counterpart of ``odwscl_tpu/engine/trainer.py`` (``make_train_step``,
 ``do_train``): one step is the train forward, the sum of the loss dict,
-the backward and the optimizer step. The loop skips batches without any
+the backward and the optimizer step, for any family of
+``models.build_model`` (each has ``train_forward(batch, generator,
+draws)``). The loop skips batches without any
 image label, logs, checkpoints every ``checkpoint_period`` iterations and
 at the end, and can start from a resumed iteration.
 """
@@ -16,12 +18,12 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from ..models.detector import Batch, WSODDetector
+from ..models.detector import Batch
 
 logger = logging.getLogger("odwscl_tpu_torch.trainer")
 
 
-def train_step(model: WSODDetector, optimizer, batch: Batch,
+def train_step(model, optimizer, batch: Batch,
                generator: Optional[torch.Generator] = None,
                draws: Optional[Dict[str, torch.Tensor]] = None
                ) -> Dict[str, torch.Tensor]:
@@ -41,7 +43,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def do_train(model: WSODDetector, optimizer, batches: Iterable[Batch],
+def do_train(model, optimizer, batches: Iterable[Batch],
              max_iter: int, device, generator: torch.Generator,
              checkpointer=None, checkpoint_period: int = 0,
              log_period: int = 20, start_iter: int = 0,

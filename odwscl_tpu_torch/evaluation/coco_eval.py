@@ -11,8 +11,12 @@ each detection's x2, y2 gain 1 before matching. ``do_coco_evaluation``
 returns AP, AP50, AP75, AP_s, AP_m, AP_l and AR (over all areas);
 ``check_expected_results`` checks ``TEST.EXPECTED_RESULTS``.
 
-The segm task needs the supervised stack's masks, which are not ported
-(ROADMAP Queue 1 item 12): ``iou_types`` with "segm" raises.
+``iou_types`` ("bbox", "segm") adds the segm task (keys ``segm_AP`` ...):
+the same protocol with the mask IoU of full-image instance masks (crowd GT
+by intersection over the detection's area, pycocotools' ``maskUtils.iou``
+rule). Each prediction then carries ``masks`` [N, H, W] bool at the
+original size (the Masker's output); the GT rasterizes from the
+annotations' polygons or RLE (``structures/rle.py``).
 """
 
 from __future__ import annotations
@@ -53,11 +57,30 @@ def _iou_xyxy(det: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray
     return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
-def _match_image(det_boxes, det_scores, gt_boxes, gt_crowd, gt_ignore_area):
+def _mask_iou(det_masks, gt_masks, iscrowd) -> np.ndarray:
+    """[D][H, W] x [G][H, W] bool -> [D, G]; crowd GT uses intersection /
+    det area."""
+    d, g = len(det_masks), len(gt_masks)
+    out = np.zeros((d, g))
+    areas_d = [int(m.sum()) for m in det_masks]
+    areas_g = [int(m.sum()) for m in gt_masks]
+    for di in range(d):
+        for gi in range(g):
+            inter = int((det_masks[di] & gt_masks[gi]).sum())
+            union = (areas_d[di] if iscrowd[gi]
+                     else areas_d[di] + areas_g[gi] - inter)
+            out[di, gi] = inter / union if union > 0 else 0.0
+    return out
+
+
+def _match_image(det_boxes, det_scores, gt_boxes, gt_crowd, gt_ignore_area,
+                 det_masks=None, gt_masks=None):
     """COCOeval's greedy matching for one (image, category): the top
-    MAX_DETS detections by score (stable), GT sorted non-ignored first.
-    Returns (detection order, [T, D] matched GT index or -1, [T, D]
-    ignored flags, number of non-ignored GT)."""
+    MAX_DETS detections by score (stable), GT sorted non-ignored first;
+    by mask IoU when ``det_masks`` and ``gt_masks`` (lists of [H, W]
+    bool) are given, else by box IoU. Returns (detection order, [T, D]
+    matched GT index or -1, [T, D] ignored flags, number of non-ignored
+    GT)."""
     order = np.argsort(-det_scores, kind="mergesort")[:MAX_DETS]
     det_boxes = det_boxes[order]
     d, g = len(det_boxes), len(gt_boxes)
@@ -66,8 +89,13 @@ def _match_image(det_boxes, det_scores, gt_boxes, gt_crowd, gt_ignore_area):
     gt_boxes = gt_boxes[gt_order]
     gt_ig = gt_ignore[gt_order]
     crowd = gt_crowd[gt_order]
-    ious = (_iou_xyxy(det_boxes, gt_boxes, crowd) if d and g
-            else np.zeros((d, g)))
+    if not (d and g):
+        ious = np.zeros((d, g))
+    elif det_masks is not None:
+        ious = _mask_iou([det_masks[i] for i in order],
+                         [gt_masks[i] for i in gt_order], crowd)
+    else:
+        ious = _iou_xyxy(det_boxes, gt_boxes, crowd)
 
     t = len(IOU_THRS)
     dt_m = -np.ones((t, d), int)
@@ -100,8 +128,8 @@ def evaluate_coco_bbox(gt_by_img_cat, det_by_img_cat, cat_ids, img_ids,
                        area_name: str = "all") -> Dict[str, float]:
     """AP, AP50, AP75, AR and the [T, R, K] precisions of one area range.
     ``gt_by_img_cat[(img, cat)]`` = (boxes xyxy continuous, iscrowd,
-    areas); ``det_by_img_cat[(img, cat)]`` = (boxes xyxy continuous,
-    scores)."""
+    areas[, masks]); ``det_by_img_cat[(img, cat)]`` = (boxes xyxy
+    continuous, scores[, masks]): with masks, matching is by mask IoU."""
     lo, hi = AREA_RANGES[area_name]
     t = len(IOU_THRS)
     precisions = -np.ones((t, len(RECALL_THRS), len(cat_ids)))
@@ -111,13 +139,16 @@ def evaluate_coco_bbox(gt_by_img_cat, det_by_img_cat, cat_ids, img_ids,
         scores_all, matched_all, ignored_all = [], [], []
         npig = 0
         for img in img_ids:
-            gt_boxes, gt_crowd, gt_areas = gt_by_img_cat.get(
+            gt_boxes, gt_crowd, gt_areas, *gt_masks = gt_by_img_cat.get(
                 (img, cat), (np.zeros((0, 4)), np.zeros(0, bool), np.zeros(0)))
-            det_boxes, det_scores = det_by_img_cat.get(
+            det_boxes, det_scores, *det_masks = det_by_img_cat.get(
                 (img, cat), (np.zeros((0, 4)), np.zeros(0)))
             gt_ignore_area = (gt_areas < lo) | (gt_areas > hi)
+            masks = ((det_masks[0], gt_masks[0]) if det_masks and gt_masks
+                     else (None, None))
             order, dt_m, dt_ig, n_pig = _match_image(
-                det_boxes, det_scores, gt_boxes, gt_crowd, gt_ignore_area)
+                det_boxes, det_scores, gt_boxes, gt_crowd, gt_ignore_area,
+                *masks)
             npig += n_pig
             if len(order):
                 det_area = ((det_boxes[order][:, 2] - det_boxes[order][:, 0])
@@ -172,30 +203,40 @@ def do_coco_evaluation(dataset, predictions: List[Dict], output_folder=None,
                        expected_results=None, sigma_tol: float = 4.0,
                        iou_types=("bbox",)) -> Dict:
     """``predictions[i]`` (boxes in the original image's coordinates,
-    contiguous labels) belongs to dataset index ``i``, whose json image id
-    is ``dataset.id_to_img_map[i]``. Every annotation of the image counts,
-    crowds included. Returns the metrics dict; writes
-    ``coco_results.txt`` to ``output_folder``."""
-    if "segm" in iou_types:
-        raise NotImplementedError(
-            "the COCO segm task needs the supervised stack's masks, which "
-            "are not ported yet (ROADMAP Queue 1 item 12)")
-    gt_by, det_by = {}, {}
+    contiguous labels; with "segm" also ``masks``) belongs to dataset
+    index ``i``, whose json image id is ``dataset.id_to_img_map[i]``.
+    Every annotation of the image counts, crowds included. Returns the
+    metrics dict; writes ``coco_results.txt`` to ``output_folder``."""
+    from ..structures.rle import rasterize_segmentation
+
+    do_segm = "segm" in iou_types
+    gt_by, det_by, gt_segm, det_segm = {}, {}, {}, {}
     img_ids = []
     for idx, pred in enumerate(predictions):
         img_id = dataset.id_to_img_map[idx]
         img_ids.append(img_id)
-        by_cat = defaultdict(lambda: ([], [], []))
+        if do_segm:
+            if "masks" not in pred:
+                raise ValueError(f"the segm task needs each prediction's "
+                                 f"'masks' (image index {idx} has none)")
+            info = dataset.get_img_info(idx)
+        by_cat = defaultdict(lambda: ([], [], [], []))
         for a in dataset.coco.img_to_anns[img_id]:
             x, y, w, h = a["bbox"]
             c = dataset.json_category_id_to_contiguous_id[a["category_id"]]
-            bl, cl, al = by_cat[c]
+            bl, cl, al, ml = by_cat[c]
             bl.append([x, y, x + w, y + h])
             cl.append(bool(a.get("iscrowd", 0)))
             al.append(a.get("area", w * h))
-        for c, (bl, cl, al) in by_cat.items():
+            if do_segm:
+                ml.append(rasterize_segmentation(
+                    a.get("segmentation") or [], info["height"],
+                    info["width"]).astype(bool))
+        for c, (bl, cl, al, ml) in by_cat.items():
             gt_by[(img_id, c)] = (np.asarray(bl, float),
                                   np.asarray(cl, bool), np.asarray(al, float))
+            if do_segm:
+                gt_segm[(img_id, c)] = gt_by[(img_id, c)] + (ml,)
         boxes = np.asarray(pred["boxes"], float).reshape(-1, 4)
         labels = np.asarray(pred["labels"], int)
         scores = np.asarray(pred["scores"], float)
@@ -204,17 +245,30 @@ def do_coco_evaluation(dataset, predictions: List[Dict], output_folder=None,
             bb = boxes[sel].copy()
             bb[:, 2:] += 1.0      # +1 convention -> continuous xywh extent
             det_by[(img_id, int(c))] = (bb, scores[sel])
+            if do_segm:
+                det_segm[(img_id, int(c))] = (
+                    bb, scores[sel],
+                    [m.astype(bool) for m in np.asarray(pred["masks"])[sel]])
 
     cat_ids = sorted({c for (_, c) in list(gt_by) + list(det_by)})
     results = {}
-    for area in ("all", "small", "medium", "large"):
-        r = evaluate_coco_bbox(gt_by, det_by, cat_ids, img_ids, area)
-        if area == "all":
-            results.update({k: r[k] for k in ("AP", "AP50", "AP75", "AR")})
-        else:
-            results[f"AP_{area[0]}"] = r["AP"]
-    line = ("AP {AP:.4f} | AP50 {AP50:.4f} | AP75 {AP75:.4f} | APs {AP_s:.4f} "
-            "| APm {AP_m:.4f} | APl {AP_l:.4f}").format(**results)
+    tasks = [("", gt_by, det_by)] + ([("segm_", gt_segm, det_segm)]
+                                     if do_segm else [])
+    for prefix, g_by, d_by in tasks:
+        for area in ("all", "small", "medium", "large"):
+            r = evaluate_coco_bbox(g_by, d_by, cat_ids, img_ids, area)
+            if area == "all":
+                results.update({prefix + k: r[k]
+                                for k in ("AP", "AP50", "AP75", "AR")})
+            else:
+                results[f"{prefix}AP_{area[0]}"] = r["AP"]
+    line = "\n".join(
+        (("segm: " if prefix else "") + "AP {AP:.4f} | AP50 {AP50:.4f} | "
+         "AP75 {AP75:.4f} | APs {AP_s:.4f} | APm {AP_m:.4f} | "
+         "APl {AP_l:.4f}").format(**{k[len(prefix):]: v
+                                     for k, v in results.items()
+                                     if k.startswith(prefix)})
+        for prefix, _, _ in tasks)
     logger.info(line)
     if output_folder:
         with open(os.path.join(output_folder, "coco_results.txt"), "w") as f:

@@ -62,8 +62,10 @@ logger = logging.getLogger("odwscl_tpu_torch.detector")
 
 @dataclasses.dataclass
 class Batch:
-    """One padded batch: image-level fields and, with partial labels, the
-    padded clicks and scribbles (None when the data has none)."""
+    """One padded batch: image-level fields; with partial labels, the
+    padded clicks and scribbles; for the supervised families the padded
+    instance GT and, with masks, the GT rasters at 1/MASK_RASTER_STRIDE of
+    the padded canvas (None when the batch has none)."""
 
     images: torch.Tensor       # [B, H, W, 3] normalized (BGR*255 - mean)
     image_sizes: torch.Tensor  # [B, 2] (h, w) before padding, f32
@@ -76,6 +78,10 @@ class Batch:
     scribbles: Optional[torch.Tensor] = None        # [B, S, 4] xyxy f32
     scribble_labels: Optional[torch.Tensor] = None  # [B, S] int64
     scribble_mask: Optional[torch.Tensor] = None    # [B, S] bool
+    gt_boxes: Optional[torch.Tensor] = None         # [B, G, 4] xyxy f32
+    gt_labels: Optional[torch.Tensor] = None        # [B, G] int64
+    gt_mask: Optional[torch.Tensor] = None          # [B, G] bool
+    gt_bitmasks: Optional[torch.Tensor] = None      # [B, G, Hr, Wr] f32
 
     def replace(self, **changes) -> "Batch":
         return dataclasses.replace(self, **changes)

@@ -133,22 +133,28 @@ class BasicBlock(_Block):
 
 class ResNetBackbone(nn.Module):
     """NHWC images [B, H, W, 3] -> NHWC features of the last stage,
-    contiguous: R-{18,50,101}-C{4,5}, C5 with layer4 at stride 1."""
+    contiguous: R-{18,50,101}-C{4,5}, C5 with layer4 at stride 1 unless
+    ``c5_stride_one`` is False. ``return_stages`` returns every stage's
+    output instead (C2, C3, ...), each NHWC and contiguous."""
 
     def __init__(self, depth: str = "R-50", stages_out: int = 5,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 freeze_at: int = 0):
+                 freeze_at: int = 0, c5_stride_one: bool = True,
+                 return_stages: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.return_stages = return_stages
         basic = depth == "R-18"
         channels = [64, 128, 256, 512] if basic else [256, 512, 1024, 2048]
         bott = [64, 128, 256, 512]
         self.stem_conv = _conv(3, 64, 7, 2, 3)
         self.stem_bn = FrozenBatchNorm(64)
         self.blocks = []
+        self.stage_ends = []        # the last block of each stage
         cin = 64
         for stage in range(stages_out - 1):
-            stride = 1 if stage == 0 or (stage == 3 and stages_out == 5) else 2
+            stride = (1 if stage == 0 or (stage == 3 and stages_out == 5
+                                          and c5_stride_one) else 2)
             for b in range(RESNET_STAGES[depth][stage]):
                 s = stride if b == 0 else 1
                 block = (BasicBlock(cin, channels[stage], s) if basic else
@@ -157,6 +163,7 @@ class ResNetBackbone(nn.Module):
                 self.add_module(name, block)
                 self.blocks.append(name)
                 cin = channels[stage]
+            self.stage_ends.append(self.blocks[-1])
         self.out_channels = cin
         if freeze_at > 0:
             self.stem_conv.requires_grad_(False)
@@ -180,9 +187,13 @@ class ResNetBackbone(nn.Module):
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = F.relu(self.stem_bn(_apply(self.stem_conv, x)))
         x = F.max_pool2d(x, 3, 2, 1)
+        stages = []
         for name in self.blocks:
             x = getattr(self, name)(x)
-        return x.permute(0, 2, 3, 1).contiguous()
+            if self.return_stages and name in self.stage_ends:
+                stages.append(x.permute(0, 2, 3, 1).contiguous())
+        return tuple(stages) if self.return_stages else \
+            x.permute(0, 2, 3, 1).contiguous()
 
 
 class ResNetRoINeck(VGGRoINeck):

@@ -35,3 +35,22 @@ def cross_entropy_with_logits(logits: torch.Tensor,
     logsumexp = logz[..., 0] + torch.log(torch.exp(logits - logz).sum(dim=-1))
     picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return logsumexp - picked
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       gamma: float = 2.0, alpha: float = 0.25
+                       ) -> torch.Tensor:
+    """RetinaNet's focal loss, elementwise: logits [N, C] over the C
+    foreground classes, targets [N] int in [0, C] (0 background, c > 0
+    foreground class c, < 0 ignored) -> [N, C]. The logs are clamped at
+    1e-20 as in the JAX package."""
+    num_classes = logits.shape[-1]
+    class_range = torch.arange(1, num_classes + 1, device=logits.device,
+                               dtype=targets.dtype)[None, :]
+    t = targets[:, None]
+    p = torch.sigmoid(logits)
+    term1 = (1.0 - p) ** gamma * torch.log(p.clamp(min=1e-20))
+    term2 = p ** gamma * torch.log((1.0 - p).clamp(min=1e-20))
+    pos = (t == class_range).to(logits.dtype)
+    neg = ((t != class_range) & (t >= 0)).to(logits.dtype)
+    return -pos * term1 * alpha - neg * term2 * (1.0 - alpha)

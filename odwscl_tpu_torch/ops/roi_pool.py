@@ -36,6 +36,7 @@ from the map (the argmax rescanned), the oracle of both paths.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -217,12 +218,14 @@ def _first_maxima(geo: _Windows, pooled: int):
                        key.clamp(max=big - 1), live)
 
 
-def check_map_cells(h: int, w: int) -> None:
-    """Raise unless every bin offset of an [h, w] map fits a 16-bit code."""
+def check_map_cells(h: int, w: int, level: Optional[str] = None) -> None:
+    """Raise unless every bin offset of an [h, w] map fits a 16-bit code;
+    ``level`` (an FPN level's name) goes into the message."""
     if h * w > MAX_MAP_CELLS:
-        raise ValueError(f"roi_pool argmax: a bin of a {h}x{w} map may hold "
-                         f"{h * w} cells, more than the {MAX_MAP_CELLS} "
-                         "that a 16-bit code addresses")
+        where = f" at FPN level {level}" if level else ""
+        raise ValueError(f"roi_pool argmax{where}: a bin of a {h}x{w} map "
+                         f"may hold {h * w} cells, more than the "
+                         f"{MAX_MAP_CELLS} that a 16-bit code addresses")
 
 
 def encode_cells(code: torch.Tensor) -> torch.Tensor:
@@ -410,16 +413,16 @@ roi_pool.launches = 0
 
 def roi_pool_argmax(feat: torch.Tensor, rois: torch.Tensor,
                     mask: torch.Tensor, spatial_scale: float,
-                    pooled: int = POOLED):
+                    pooled: int = POOLED, level: Optional[str] = None):
     """The training forward: (``roi_pool``'s output, the int16 argmax codes
     [B, P, pooled, pooled, C]; see the module docstring). Raises if H * W >
-    ``MAX_MAP_CELLS``.
+    ``MAX_MAP_CELLS``, naming ``level`` (an FPN level) when given.
 
     CPU tensors take ``roi_pool_argmax_plain``. CUDA tensors launch the
     kernel with the argmax from the same scan, or raise; each launch adds
     one to ``roi_pool_argmax.launches``.
     """
-    check_map_cells(*feat.shape[1:3])
+    check_map_cells(*feat.shape[1:3], level)
     if feat.device.type == "cpu":
         return roi_pool_argmax_plain(feat, rois, mask, spatial_scale, pooled)
     out = _launch_fwd(feat, rois, mask, spatial_scale, pooled, True)
@@ -492,18 +495,21 @@ class RoIPoolFunction(torch.autograd.Function):
     (``torch.is_grad_enabled()`` and ``feat.requires_grad``, decided in
     ``apply``) the training forward ``roi_pool_argmax``, whose int16 argmax
     is saved and routes the cotangent in ``roi_pool_backward``. Under
-    ``no_grad`` nothing is saved. rois and mask get no gradient."""
+    ``no_grad`` nothing is saved. rois and mask get no gradient. ``level``
+    names the FPN level in the argmax's map-size error."""
 
     @classmethod
-    def apply(cls, feat, rois, mask, spatial_scale):
+    def apply(cls, feat, rois, mask, spatial_scale, level=None):
         return super().apply(feat, rois, mask, spatial_scale,
-                             torch.is_grad_enabled() and feat.requires_grad)
+                             torch.is_grad_enabled() and feat.requires_grad,
+                             level)
 
     @staticmethod
-    def forward(ctx, feat, rois, mask, spatial_scale, keep_argmax):
+    def forward(ctx, feat, rois, mask, spatial_scale, keep_argmax, level):
         if not keep_argmax:
             return roi_pool(feat, rois, mask, spatial_scale)
-        out, argmax = roi_pool_argmax(feat, rois, mask, spatial_scale)
+        out, argmax = roi_pool_argmax(feat, rois, mask, spatial_scale,
+                                      level=level)
         ctx.save_for_backward(argmax, rois, mask)
         ctx.spatial_scale = spatial_scale
         ctx.map_hw = tuple(feat.shape[1:3])
@@ -514,4 +520,4 @@ class RoIPoolFunction(torch.autograd.Function):
         argmax, rois, mask = ctx.saved_tensors
         dfeat = roi_pool_backward(argmax, rois, mask, grad.contiguous(),
                                   ctx.spatial_scale, ctx.map_hw)
-        return dfeat, None, None, None, None
+        return dfeat, None, None, None, None, None

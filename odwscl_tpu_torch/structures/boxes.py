@@ -46,6 +46,13 @@ def box_iou_async(boxes1: torch.Tensor, boxes2: torch.Tensor
     return inter / (area1[..., :, None] + 1e-10)
 
 
+def masked_iou(boxes1: torch.Tensor, mask1: torch.Tensor,
+               boxes2: torch.Tensor, mask2: torch.Tensor) -> torch.Tensor:
+    """``box_iou`` with the pairs of an invalid box zeroed."""
+    valid = mask1[..., :, None] & mask2[..., None, :]
+    return torch.where(valid, box_iou(boxes1, boxes2), 0.0)
+
+
 def clip_to_image(boxes: torch.Tensor, image_size_hw: torch.Tensor
                   ) -> torch.Tensor:
     """Clip xyxy boxes to [0, size-1]; ``image_size_hw`` broadcasts against

@@ -100,14 +100,13 @@ def is_rle(seg) -> bool:
 
 
 def rasterize_segmentation(seg, height: int, width: int) -> np.ndarray:
-    """A COCO ``segmentation`` RLE dict -> uint8 [H, W]. Polygon lists need
-    the polygon rasterizer of ``structures/masks.py``, which belongs to the
-    supervised stack (ROADMAP Queue 1 item 12) and is not ported: they
-    raise."""
+    """A COCO ``segmentation`` (an RLE dict, or a list of polygons) ->
+    uint8 [H, W]; polygons fill with ``structures/masks.py``'s
+    ``rasterize_polygons``."""
     if not is_rle(seg):
-        raise NotImplementedError(
-            "polygon segmentations need structures/masks.py, which is not "
-            "ported yet (ROADMAP Queue 1 item 12, the supervised stack)")
+        from .masks import rasterize_polygons
+        return rasterize_polygons([np.asarray(p) for p in (seg or [])],
+                                  height, width)
     m = rle_decode(seg)
     if m.shape != (height, width):
         raise ValueError(f"RLE size {m.shape} != image size "

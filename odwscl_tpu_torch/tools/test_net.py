@@ -12,7 +12,9 @@ package's Orbax checkpoint) is refused: its import is not ported. Without
 weights the model is a seeded random init (``cfg.SEED``) and a warning is
 logged. The ``TPU.INT8_*`` keys select int8 serving (VGG16;
 engine/inference.py), with no flag of their own.
-Results go to ``OUTPUT_DIR/inference/<dataset>/``. Needs Pillow.
+The model family follows the config (``models.build_model``); a
+``MODEL.MASK_ON`` model is evaluated on bbox and segm. Results go to
+``OUTPUT_DIR/inference/<dataset>/``. Needs Pillow.
 """
 
 from __future__ import annotations
@@ -39,9 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model(cfg, weights=None):
-    """The cfg's detector on the CPU, with ``weights`` or a random init
-    seeded by ``cfg.SEED``."""
-    from odwscl_tpu_torch.models.detector import detector_from_cfg
+    """The cfg's model (``models.build_model``) on the CPU, with
+    ``weights`` or a random init seeded by ``cfg.SEED``."""
+    from odwscl_tpu_torch.models import build_model
     from odwscl_tpu_torch.utils.checkpoint import load_model_weights
     from odwscl_tpu_torch.utils.from_jax import state_dict_from_jax
     from odwscl_tpu_torch.utils.weight_import import \
@@ -53,7 +55,7 @@ def load_model(cfg, weights=None):
             "checkpoints are: importing an Orbax checkpoint is not ported. "
             "Pass a flax-params .npz (odwscl_tpu_torch/utils/from_jax.py), a "
             "port .pt or a reference .pth")
-    model = detector_from_cfg(cfg)
+    model = build_model(cfg)
     if weights is None:
         logging.getLogger("odwscl_tpu_torch").warning(
             "No weights given; evaluating a random init (seed %d)", cfg.SEED)

@@ -16,9 +16,11 @@ missing. A port ``.pt`` loads as it is; a Caffe2 ``.pkl`` goes to
 ``import_reference_checkpoint`` (utils/weight_import.py). ``MODEL.WEIGHT
 ""`` keeps the random init. With ``DB.METHOD concrete`` the Concrete
 DropBlock trains adversarially on ``SOLVER_CDB``, scaled by ``DB.WEIGHT``
-(solver/build.py). Checkpoints go to
-``OUTPUT_DIR``; unless ``--skip-test`` the trained model is then evaluated
-as ``tools/test_net.py`` does.
+(solver/build.py). The model family follows the config
+(``models.build_model``: RetinaNet, the WSOD detector, or the supervised
+Fast / Mask R-CNN). Checkpoints go to ``OUTPUT_DIR``; unless
+``--skip-test`` the trained model is then evaluated as
+``tools/test_net.py`` does.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ def main(argv=None, timing_out=None):
     from odwscl_tpu_torch.config import get_default_cfg
     from odwscl_tpu_torch.data.build import make_train_loader
     from odwscl_tpu_torch.engine.trainer import do_train
-    from odwscl_tpu_torch.models.detector import detector_from_cfg
+    from odwscl_tpu_torch.models import build_model
     from odwscl_tpu_torch.solver import make_optimizer
     from odwscl_tpu_torch.tools.test_net import run_test
     from odwscl_tpu_torch.utils.checkpoint import Checkpointer
@@ -120,7 +122,7 @@ def main(argv=None, timing_out=None):
     with open(os.path.join(cfg.OUTPUT_DIR, "config.yml"), "w") as f:
         f.write(cfg.dump())
 
-    model = detector_from_cfg(cfg)
+    model = build_model(cfg)
     model.reset_parameters(torch.Generator().manual_seed(cfg.SEED))
     model.to(device)
     optimizer, _ = make_optimizer(

@@ -22,6 +22,15 @@ numpy arrays (with or without the outer ``params`` level) or as an
   Linear over the NHWC features: ``cam/cam_conv_kernel`` becomes
   ``cam.cam_conv.weight`` (transposed), ``cam/cam_conv_bias``
   ``cam.cam_conv.bias``.
+
+The supervised families keep the flax names as they are:
+``SupervisedRCNN`` holds ``backbone`` (a VGG16 or ResNet body, or an FPN
+body ``backbone/{body, fpn}``) and ``roi_heads/{neck, box, mask}``;
+``RetinaNetDetector`` holds ``backbone/{body, fpn}`` and ``head``. The
+mask head's ``conv5_mask`` is a flax ``ConvTranspose`` (kernel [kh, kw,
+in, out], applied without the spatial flip of a true transposed conv):
+torch's ``ConvTranspose2d`` weight [in, out, kh, kw] is that kernel
+flipped in both spatial axes.
 """
 
 from __future__ import annotations
@@ -31,7 +40,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_MODULES = ("backbone", "neck", "sim_net", "pred", "cdb", "cam")
+_MODULES = ("backbone", "neck", "sim_net", "pred", "cdb", "cam",
+            "roi_heads", "head")
+# flax ConvTranspose kernels (spatially flipped against torch's)
+_TRANSPOSED = ("conv5_mask",)
 _LEAVES = ("kernel", "bias", "scale", "mean", "var", "cam_conv_kernel",
            "cam_conv_bias")
 _CDB_CHILDREN = ("conv1", "conv2", "downsample", "bn1", "bn2")
@@ -92,7 +104,9 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
             raise KeyError(f"no port parameter for flax leaf {key!r}")
         v = np.asarray(v, np.float32)
         if parts[-1] == "kernel":
-            if v.ndim == 4:
+            if v.ndim == 4 and parts[-2] in _TRANSPOSED:
+                v = v[::-1, ::-1].transpose(2, 3, 0, 1)   # -> [in, out, H, W]
+            elif v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)      # HWIO -> OIHW
             elif v.ndim == 2:
                 v = v.T                          # (in, out) -> (out, in)
@@ -111,7 +125,10 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
         parts = key.split(".")
         v = t.detach().to("cpu", torch.float32).numpy()
         if parts[-1] == "weight":
-            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+            if v.ndim == 4 and parts[-2] in _TRANSPOSED:
+                v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
             parts[-1] = "kernel"
         if parts[0] == "pred":
             parts = [parts[0], parts[1], "linear", parts[2]]

@@ -153,8 +153,13 @@ def test_rle_count_strings_match_jax():
 
 
 def test_rle_polygon_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rle.rasterize_segmentation([[0, 0, 4, 0, 4, 4]], 8, 8)
+    """Polygon segmentations rasterize as the JAX package's; an RLE of
+    another size than the image still raises."""
+    poly = [[0, 0, 4, 0, 4, 4]]
+    np.testing.assert_array_equal(rle.rasterize_segmentation(poly, 8, 8),
+                                  jrle.rasterize_segmentation(poly, 8, 8))
+    with pytest.raises(ValueError, match="RLE size"):
+        rle.rasterize_segmentation(rle.rle_encode(np.ones((4, 4))), 8, 8)
 
 
 # -- the synthetic writer ----------------------------------------------------

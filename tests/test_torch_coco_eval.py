@@ -13,7 +13,9 @@ are the same float64 operations in the same order; observed equal).
 Goldens: every GT predicted exactly gives AP 1.0 in each populated area
 range; boxes shifted far off give AP 0. CorLoc on a COCO dataset: the JAX
 package raises an AttributeError (``dataset.CLASSES``), the port a
-ValueError; the segm task raises in the port (not ported).
+ValueError; the segm task without each prediction's ``masks`` raises in
+both (a KeyError in the JAX package, a ValueError in the port; the segm
+task itself is held in tests/test_torch_mask_rcnn.py).
 """
 
 import json
@@ -175,5 +177,7 @@ def test_corloc_and_segm_on_coco_raise(tmp_path):
         jvoc.do_corloc_evaluation(jds, preds)
     with pytest.raises(ValueError, match="CLASSES"):
         tvoc.do_corloc_evaluation(ds, preds)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(KeyError, match="masks"):
+        jeval.do_coco_evaluation(jds, preds, iou_types=("bbox", "segm"))
+    with pytest.raises(ValueError, match="masks"):
         teval.do_coco_evaluation(ds, preds, iou_types=("bbox", "segm"))

@@ -4,10 +4,13 @@ Every module of ``odwscl_tpu_torch`` (the training, ResNet, weight-import,
 device-resize, Concrete DropBlock, CAM, int8 serving, COCO, web data and
 partial-label modules named below among them)
 and ``chip_smoke.py``
-is imported in a subprocess where ``jax``, ``flax``, ``optax`` and
-``odwscl_tpu`` are blocked
+is imported in a subprocess where ``jax``, ``flax``, ``optax``,
+``odwscl_tpu``, ``cv2`` and ``triton`` are blocked
 (``sys.modules[name] = None`` makes their import fail); afterwards no
-``jax*`` or ``odwscl_tpu.*`` module may be loaded. No tolerance applies.
+``jax*`` or ``odwscl_tpu.*`` module may be loaded. The supervised
+families' modules (FPN, RetinaNet, the supervised R-CNN, its heads, the
+mask structures, roi_align and the Fast R-CNN loss) are among those
+named. No tolerance applies.
 """
 
 import os
@@ -18,7 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "odwscl_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "odwscl_tpu", "cv2",
+             "triton"):
     sys.modules[name] = None
 import odwscl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(odwscl_tpu_torch.__path__,
@@ -39,9 +43,11 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "ops.quant", "utils.dist", "data.coco_dataset",
                  "data.flickr", "evaluation.coco_eval", "structures.rle",
                  "models.matcher", "models.roi_sampler",
-                 "losses.partial_labels"):
+                 "losses.partial_labels", "models.fpn", "models.retinanet",
+                 "models.supervised", "models.roi_heads", "models.mask_head",
+                 "structures.masks", "ops.roi_align", "losses.fast_rcnn"):
     assert "odwscl_tpu_torch." + required in names, required
-assert len(names) >= 68, names
+assert len(names) >= 76, names
 """
 
 
