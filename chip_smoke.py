@@ -146,12 +146,13 @@ Phases (any failure ends the run with a non-zero exit code):
    about three quarters masked): on the eval pyramid of an 800x1344 canvas
    (P2-P5 200x336, 100x168, 50x84, 25x42) #1 bit-exact (atol 0) against
    ``roi_pool_plain`` at each level's scale, f32 and bf16, and
-   ``roi_pool_argmax`` on its P2 (67,200 cells) must raise naming P2 and
-   the 65,535 limit; on the training pyramid of a 640x1088 canvas (P2
-   160x272) both forward instantiations bit-exact and the backward as in
-   3. Then, bf16, in turns: each eval level's #1 and the four-call pool,
-   each training level's #1[argmax], #2 and #2's ``index_add_``
-   yardstick, with their byte bounds; the plain versions once.
+   ``roi_pool_argmax`` on its P2 (67,200 cells, past the int16 codes'
+   65,535) runs with int32 codes, output and codes bit-exact; on the
+   training pyramid of a 640x1088 canvas (P2 160x272, int16 codes) both
+   forward instantiations bit-exact and the backward as in 3. Then,
+   bf16, in turns: each eval level's #1 and the four-call pool, each
+   training level's #1[argmax], #2 and #2's ``index_add_`` yardstick,
+   with their byte bounds; the plain versions once.
 15. (Run after 6.) Card against CPU, f32, TF32 off, at the published
    widths: R-50-FPN Mask R-CNN (81 classes, MLP 1024, mask convs 4x256)
    and R-50 RetinaNet (81 classes), seeded, on a 256x384 canvas with
@@ -171,6 +172,32 @@ Phases (any failure ends the run with a non-zero exit code):
    proposals an image, R-50 RetinaNet; seeded) on an 800x1344 batch of
    2: ms per image, peak memory, the four-level pool's share of the
    forward, the mask pass and the decode / NMS times.
+18. (Run after 14.) The int32 argmax codes (maps of more than 65,535
+   cells): #1[argmax] and #2 on a 256x257 map (phase 2's grid, plus a roi
+   seven times the map so that codes past 65,535 occur) and on the eval
+   P2 (200x336), f32 and bf16: output and codes bit-exact, the backward
+   within phase 3's bound; the int16 codes still chosen at 255x257 and at
+   the training P2 (160x272). Then, bf16, in turns: both instantiations
+   of each kernel on the training P2's inputs, and the int32 pair with
+   #2's ``index_add_`` yardstick at the eval P2, with byte bounds.
+19. (Run after 15.) Card against CPU, f32, TF32 off, with phase 15's
+   bounds: R-50-FPN Keypoint R-CNN (2 classes, 17 keypoints, MLP 1024,
+   the 8x512 tower) and FBNet-default Fast R-CNN (81 classes) on a
+   256x384 canvas with P = 128 rois: the eval box pass, the keypoint pass
+   on 2 x 100 rois and its decode, one train step with the same draws;
+   then ``deform_conv2d`` v1 / v2 (3x3, 512 channels, 2 deformable
+   groups, offsets off the map) and ``deform_psroi_pooling``: outputs and
+   gradients.
+20. (Run after 17.) COCO size in bf16, B = 2 on 800x1344, 1000 proposals
+   an image: R-50-FPN Keypoint R-CNN trains 5 steps (step ms, the
+   device's idle share, peak GB; P2 pools with the int32 codes), then its
+   eval (box forward, NMS, the keypoint pass on 2 x 100 detections, the
+   decode); FBNet-default Fast R-CNN 5 steps and its eval forward.
+21. (Run after 16, on its data.) configs/coco/coco_mask_rcnn_smoke.yaml
+   with ``MODEL.KEYPOINT_ON True``, and as an FBNet-default Fast R-CNN
+   (``CONV_BODY FBNet-default``, ``POOLER_SCALES (0.0625,)``, ``MASK_ON
+   False``): ``train_net`` 5 steps, ``test_net`` (bbox, segm with
+   masks), launches per step and per batch checked.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -495,7 +522,8 @@ def argmax_cells(rp, codes, rois, mask, g, hw, scale=0.125,
     for i in range(b):
         rows = slice(i * p, (i + 1) * p)
         off = rp.decode_cells(codes[i]).reshape(p, 7, 7, c).long()
-        live = (off != 0xFFFF) & mask[i][:, None, None, None]
+        live = (off != rp.UNSIGNED_NO_CELL[codes.dtype]) \
+            & mask[i][:, None, None, None]
         bw = (we[rows] - ws[rows]).clamp(min=1)[:, None, :, None]
         y = hs[rows][:, :, None, None] + off // bw
         x = ws[rows][:, None, :, None] + off % bw
@@ -2142,9 +2170,9 @@ def phase_int8_eval(rp, q, tmp, config, weights):
 
 # phases 14-17: the supervised stack (FPN Mask R-CNN, RetinaNet). The FPN
 # pooler's levels (P2-P5) and the canvases of phase 14: the eval canvas of
-# an 800x1333 image padded to 800x1344 (P2 200x336 = 67,200 cells, over
-# the argmax codes' 65,535) and a training canvas of 640x1088 (P2 160x272 =
-# 43,520 cells, under it)
+# an 800x1333 image padded to 800x1344 (P2 200x336 = 67,200 cells, past the
+# int16 codes' 65,535: int32 codes) and a training canvas of 640x1088 (P2
+# 160x272 = 43,520 cells, int16 codes)
 FPN_SCALES = (0.25, 0.125, 0.0625, 0.03125)
 FPN_EVAL_HW = (800, 1344)
 FPN_TRAIN_HW = (640, 1088)
@@ -2185,12 +2213,12 @@ def phase_fpn_kernels(dev, rp):
     """#1, #1[argmax] and #2 at the FPN shapes (C = 256, B = 2, P = 1000
     rois routed to P2-P5, each call with its level's mask and scale):
     both forward instantiations bit-exact (atol 0) against their plain
-    versions in f32 and bf16 on the training pyramid, #1 on the eval
-    pyramid (whose P2 is over the argmax limit: ``roi_pool_argmax`` must
-    raise there, naming the level); #2 routing exact and within phase 3's
-    bound on the training pyramid. Then, bf16, in turns (3 rounds of 10):
-    each eval level's #1 and the four-call pool, each training level's
-    #1[argmax], #2 and #2's index_add_ yardstick; the plain versions once.
+    versions in f32 and bf16 on the training pyramid and on the eval
+    pyramid (whose P2 takes the int32 codes); #2 routing exact and within
+    phase 3's bound on the training pyramid. Then, bf16, in turns (3
+    rounds of 10): each eval level's #1 and the four-call pool, each
+    training level's #1[argmax], #2 and #2's index_add_ yardstick; the
+    plain versions once.
     Returns {kernel: {level: readings}} and the worst errors."""
     import torch
     from odwscl_tpu_torch.models.fpn import multilevel_roi_pool
@@ -2217,16 +2245,20 @@ def phase_fpn_kernels(dev, rp):
                                  f"{dtype})")
         print(f"[fpn] eval {lv2} {str(dtype)[6:]} feat {list(f.shape)}: "
               "#1 bit-exact vs plain")
-    try:
-        rp.roi_pool_argmax(f, r, m, s2, level=lv2)
-    except ValueError as e:
-        if lv2 not in str(e) or str(rp.MAX_MAP_CELLS) not in str(e):
-            raise AssertionError(f"the argmax limit's message: {e}") from e
-        print(f"[fpn] eval {lv2} argmax refused: {e}")
-    else:
-        raise AssertionError(f"roi_pool_argmax took the {lv2} map of "
-                             f"{f.shape[1]}x{f.shape[2]} cells")
-    del f, got, want
+    # P2 of the eval canvas (67,200 cells) takes the int32 codes: both
+    # forward instantiations exact there, in each dtype
+    for dtype in (torch.float32, torch.bfloat16):
+        f = torch.from_numpy(f2).to(dev, dtype)
+        want, want_codes = rp.roi_pool_argmax_plain(f, r, m, s2)
+        got, codes = rp.roi_pool_argmax(f, r, m, s2, level=lv2)
+        torch.cuda.synchronize()
+        if codes.dtype != torch.int32 or not torch.equal(got, want) \
+                or not torch.equal(codes, want_codes):
+            raise AssertionError(f"roi_pool_argmax at eval {lv2} ({dtype}, "
+                                 f"codes {codes.dtype}) != plain")
+        print(f"[fpn] eval {lv2} {str(dtype)[6:]}: #1[argmax] runs with "
+              "int32 codes, output and codes bit-exact vs plain")
+    del f, got, want, codes, want_codes
     fwd_err = phase_kernel(dev, rp, [
         (f"fpn {kind} {lv}", (f, rr, mm), s)
         for kind, pyr in (("eval", ev[1:]), ("train", tr))
@@ -2327,11 +2359,14 @@ def phase_fpn_kernels(dev, rp):
     return out, errs
 
 
-def sup_batch(rng, b=2, h=256, w=384, p=128, g=8, stride=4, scale=1.0):
+def sup_batch(rng, b=2, h=256, w=384, p=128, g=8, stride=4, scale=1.0,
+              keypoints=0):
     """A seeded supervised batch (CPU): images (normals times ``scale``),
     P rois of 16-160 px (the last 12 of the second image masked), G GT
     boxes (near the first rois) with labels 1-80 and their rectangles as
-    bitmasks at 1/stride."""
+    bitmasks at 1/stride; ``keypoints`` > 0 adds that many GT keypoints an
+    instance (drawn after the rest, in and around each box, visibility
+    0-2)."""
     import torch
     from odwscl_tpu_torch.models import Batch
 
@@ -2351,6 +2386,14 @@ def sup_batch(rng, b=2, h=256, w=384, p=128, g=8, stride=4, scale=1.0):
         for j in range(g):
             x1, y1, x2, y2 = (gt[i, j] / stride).astype(int)
             bit[i, j, y1:y2 + 1, x1:x2 + 1] = 1.0
+    kp = None
+    if keypoints:
+        kp = np.zeros((b, g, keypoints, 3), np.float32)
+        kp[..., :2] = gt[:, :, None, :2] + rng.uniform(
+            -0.1, 1.1, (b, g, keypoints, 2)) * (gt[..., 2:]
+                                                - gt[..., :2])[:, :, None]
+        kp[..., 2] = rng.randint(0, 3, (b, g, keypoints))
+        kp = torch.from_numpy(kp)
     return Batch(images=torch.from_numpy(images),
                  image_sizes=torch.from_numpy(sizes),
                  boxes=torch.from_numpy(boxes),
@@ -2359,7 +2402,7 @@ def sup_batch(rng, b=2, h=256, w=384, p=128, g=8, stride=4, scale=1.0):
                  gt_boxes=torch.from_numpy(gt),
                  gt_labels=torch.from_numpy(rng.randint(1, 81, (b, g))),
                  gt_mask=torch.ones(b, g, dtype=torch.bool),
-                 gt_bitmasks=torch.from_numpy(bit))
+                 gt_bitmasks=torch.from_numpy(bit), gt_keypoints=kp)
 
 
 def _rel_gap(a, b):
@@ -2711,6 +2754,653 @@ def phase_fullsize_eval(dev, rp, canvas=FPN_EVAL_HW,
     return rows["Mask R-CNN"][0]
 
 
+# phase 18: the wide (int32) argmax codes. The 256x257 map (65,792 cells)
+# is the smallest of the grid's shapes past the int16 codes; 255x257 (65,535
+# cells) the largest under them
+WIDE_HW = (256, 257)
+NARROW_HW = (255, 257)
+
+
+def wide_grid_inputs(rng, c=64):
+    """The size grid of phase 2 on a 256x257 map, plus a roi seven times
+    the map (its first bin is the whole map), with a maximum planted in
+    the map's last row for a few channels, so that codes past 65,535
+    occur."""
+    feat, rois, mask = grid_inputs(rng, c, *WIDE_HW)
+    h, w = WIDE_HW
+    feat[:, h - 1, w - 7, :8] = 10.0
+    big = np.float32([0, 0, 7 * w * 8 - 1, 7 * h * 8 - 1])
+    rois = np.concatenate([rois, np.broadcast_to(big, (2, 1, 4))], 1)
+    mask = np.concatenate([mask, np.ones((2, 1), bool)], 1)
+    return feat, rois, mask
+
+
+def phase_wide_codes(dev, rp):
+    """#1[argmax] and #2 with the int32 codes: on the 256x257 grid and on
+    P2 of the 800x1344 eval pyramid (200x336, C = 256, B = 2, P = 1000
+    rois routed by ``assign_levels``), f32 and bf16: the forward's output
+    and codes bit-exact against ``roi_pool_argmax_plain`` (grid; P2 is
+    phase 14's), the backward within phase 3's bound of the map-rescan
+    plain version, routing exact. The int16 codes stay chosen at 255x257
+    and at phase 14's 640x1088 training P2 (160x272). Then, bf16, in turns
+    (3 rounds of 10): at the training P2 both instantiations of each
+    kernel on the same inputs (the int32 ones called past the shape's
+    choice), and at the eval P2 the wide pair and #2's ``index_add_``
+    yardstick, each with its byte bound; the plain versions once. Returns
+    ({key: readings}, worst errors)."""
+    import torch
+    from odwscl_tpu_torch.ops.roi_pool_stages import stage_work
+    from odwscl_tpu_torch.utils.profiling import MEM_BYTES_PER_S, card_rate
+
+    for hw, want in ((NARROW_HW, torch.int16), (WIDE_HW, torch.int32),
+                     ((160, 272), torch.int16), ((200, 336), torch.int32)):
+        if rp.code_dtype(*hw) != want:
+            raise AssertionError(f"code_dtype{hw} != {want}")
+    grid = wide_grid_inputs(np.random.RandomState(18))
+    fwd_err = phase_kernel(dev, rp, [("wide 256x257", grid, 0.125)])
+    r = torch.from_numpy(grid[1]).to(dev)
+    m = torch.from_numpy(grid[2]).to(dev)
+    f = torch.from_numpy(grid[0]).to(dev)
+    _, codes = rp.roi_pool_argmax(f, r, m, 0.125)
+    off = rp.decode_cells(codes)
+    past = int(((off != rp.UNSIGNED_NO_CELL[torch.int32])
+                & (off > rp.NARROW_MAP_CELLS)).sum())
+    if codes.dtype != torch.int32 or not past:
+        raise AssertionError(f"256x257: codes {codes.dtype}, {past} past "
+                             "65,535")
+    print(f"[wide] 256x257: int32 codes, {past} of them past 65,535")
+    rng = np.random.RandomState(14)
+    ev = fpn_inputs(rng, FPN_EVAL_HW)
+    tr = fpn_inputs(rng, FPN_TRAIN_HW)
+    lv, f2, r2, m2, s2 = ev[0]
+    both = (torch.float32, torch.bfloat16)
+    bwd_err = phase_bwd_kernel(dev, rp, [
+        ("wide 256x257", grid, both, 0.125),
+        (f"wide eval {lv}", (f2, r2, m2), both, s2)])
+
+    name = torch.cuda.get_device_name(dev)
+    rate = card_rate(name, MEM_BYTES_PER_S)
+    fns, plain, bounds, lib = {}, {}, {}, {}
+    for tag, (_, fe, ro, ma, sc) in (("train P2", tr[0]),
+                                     ("eval P2", ev[0])):
+        fe = torch.from_numpy(fe).to(dev, torch.bfloat16)
+        ro, ma = torch.from_numpy(ro).to(dev), torch.from_numpy(ma).to(dev)
+        hw = tuple(fe.shape[1:3])
+        g = torch.rand((2, FPN_ROIS, 7, 7, 256), device=dev).to(
+            torch.bfloat16)
+        kinds = ((torch.int16, torch.int32) if tag == "train P2"
+                 else (torch.int32,))
+        for dt in kinds:
+            w = "int32" if dt == torch.int32 else "int16"
+            _, cd = rp._launch_fwd(fe, ro, ma, sc, 7, dt)
+            fns[f"fwd_argmax {w} {tag}"] = \
+                lambda fe=fe, ro=ro, ma=ma, sc=sc, dt=dt: rp._launch_fwd(
+                    fe, ro, ma, sc, 7, dt)
+            fns[f"bwd {w} {tag}"] = \
+                lambda cd=cd, ro=ro, ma=ma, g=g, sc=sc, hw=hw, dt=dt: \
+                rp._launch_bwd(cd, ro, ma, g, sc, hw, 7, dt)
+            nbytes = (stage_work("roi_pool", fe, ro, ma, sc)[0]
+                      + cd.numel() * cd.element_size())
+            bounds[f"fwd_argmax {w} {tag}"] = (nbytes / rate * 1e3, "bytes",
+                                               nbytes)
+            bounds[f"bwd {w} {tag}"] = bwd_bound(fe, ro, ma, g, name, sc)
+        if tag == "eval P2":
+            plain["fwd_argmax int32 eval P2"] = \
+                lambda fe=fe, ro=ro, ma=ma, sc=sc: rp.roi_pool_argmax_plain(
+                    fe, ro, ma, sc)
+            plain["bwd int32 eval P2"] = \
+                lambda cd=cd, ro=ro, ma=ma, g=g, sc=sc, hw=hw: \
+                rp.roi_pool_backward_argmax_plain(cd, ro, ma, g, sc, hw)
+            cells, vals = argmax_cells(rp, cd, ro, ma, g, hw, sc)
+
+            def yardstick(cells=cells, vals=vals, n=fe.numel()):
+                d = torch.zeros(n, dtype=torch.float32, device=dev)
+                d.index_add_(0, cells, vals)
+                return d.to(torch.bfloat16)
+
+            fns["bwd_library eval P2"] = yardstick
+    times = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, iters=10))
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    plain_ms = {k: cuda_ms(fn, iters=1, warmup=0) for k, fn in plain.items()}
+    for k in bounds:
+        extra = (f"; index_add_ yardstick {ms['bwd_library eval P2']:.4f} ms"
+                 if k == "bwd int32 eval P2" else "")
+        pl = f", plain {plain_ms[k]:.3f} ms" if k in plain_ms else ""
+        print(f"[wide] {k} bf16: {ms[k]:.4f} ms ("
+              f"{', '.join(f'{t:.4f}' for t in times[k])}), bound "
+              f"{bounds[k][0]:.4f} ms ({bounds[k][1]}, "
+              f"{bounds[k][2] / 1e9:.4f} GB){pl}{extra}")
+    SUMMARY.append("wide codes bf16 ms " + ", ".join(
+        f"{k} {ms[k]:.4f}" for k in bounds))
+    out = {k: {"ms": ms[k], "bound_ms": bounds[k][0],
+               "bound_by": bounds[k][1], "plain_ms": plain_ms.get(k)}
+           for k in bounds}
+    out["bwd int32 eval P2"]["library_ms"] = ms["bwd_library eval P2"]
+    return out, {"fwd_argmax": fwd_err["argmax"], "bwd": bwd_err}
+
+
+# phases 19-21: Keypoint R-CNN, FBNet, the deformable-conv ops
+KP_LOGIT_ATOL = 1e-3       # card vs CPU, of the logits' largest
+KP_DECODE_AGREE = 0.9      # share of decoded keypoints on the same cell
+DEFORM_REL = 1e-4          # card vs CPU, of each tensor's largest
+KP_BIAS_MARGIN = 0.1
+KP_LOGIT_MAX = 4.0
+KP_STEPS = 5
+
+
+def active_keypoint_tower(model, batch):
+    """Set the keypoint tower's biases so that every pre-activation over
+    the batch's pooled rois lies at least KP_BIAS_MARGIN of its channel's
+    range above 0 (a float64 pass on the CPU), and scale the deconv so the
+    logits peak at KP_LOGIT_MAX: 8 x 512 units over 256 rois cannot keep a
+    ReLU margin over the f32 drift, and one unit on the other side of 0
+    moves every gradient below it by a permille (tests/test_torch_
+    supervised_models.py). With every unit active the gradients read the
+    drift alone; the tower's ReLUs are compared in the eval pass."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    m64 = copy.deepcopy(model).to("cpu").double()
+    for mod in m64.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    head = model.roi_heads.keypoint
+    with torch.no_grad():
+        bt = batch.to("cpu")
+        pooled = m64.pooled(m64.backbone(bt.images.double()), bt.boxes,
+                            bt.box_mask)
+        x = pooled.reshape(-1, *pooled.shape[2:]).permute(0, 3, 1, 2)
+        ext = m64.roi_heads.keypoint.extractor
+        for i in range(1, ext.n + 1):
+            pre = F.conv2d(x, getattr(ext, f"conv_fcn{i}").weight, padding=1)
+            lo, hi = pre.amin(dim=(0, 2, 3)), pre.amax(dim=(0, 2, 3))
+            bias = -lo + KP_BIAS_MARGIN * (hi - lo)
+            getattr(head.extractor, f"conv_fcn{i}").bias.copy_(bias)
+            x = pre + bias[None, :, None, None]
+        dec = m64.roi_heads.keypoint.predictor.kps_score_lowres
+        logits = F.conv_transpose2d(x, dec.weight, None, stride=2, padding=1)
+        head.predictor.kps_score_lowres.weight.mul_(
+            KP_LOGIT_MAX / logits.abs().max().item())
+
+
+def _card_vs_cpu(model, batch, dev, run, grad_skip):
+    """``run(model, batch, device)`` -> {name: tensor} on the CPU and on
+    the card (the model moved between them), then its gradients (every
+    trainable tensor but those whose name starts with one of
+    ``grad_skip``): (cpu, card, seconds each)."""
+    import torch
+
+    res = {}
+    for device in ("cpu", dev):
+        model.to(device).zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        r = run(model, batch.to(device), device)
+        r.update({"grad " + n: q.grad for n, q in model.named_parameters()
+                  if q.requires_grad and q.grad is not None
+                  and not n.startswith(grad_skip)})
+        if device != "cpu":
+            torch.cuda.synchronize()
+        res[str(device)] = ({k: v.detach().float().cpu()
+                             if v.is_floating_point() else v.cpu()
+                             for k, v in r.items()},
+                            time.perf_counter() - t0)
+    model.to("cpu")
+    return res["cpu"], res[str(dev)]
+
+
+def phase_keypoint_fbnet_card_vs_cpu(dev, rp):
+    """Card against CPU, f32 with TF32 off, at the published widths and
+    phase 15's bounds: R-50-FPN Keypoint R-CNN (2 classes, 17 keypoints,
+    MLP 1024, the 8x512 tower, its ReLUs all active for the train step:
+    ``active_keypoint_tower``) and FBNet-default Fast R-CNN (81 classes,
+    stride-16 pool), seeded, on a 256x384 canvas with P = 128 rois and 8
+    GT instances (with keypoints). Eval: scores within SCORE_ATOL, boxes
+    within BOX_ATOL_PX; the keypoint pass on 2 x 100 rois: logits within
+    KP_LOGIT_ATOL of their largest, the decode's scores alike and its xy
+    equal on at least KP_DECODE_AGREE of the keypoints (the rest tie
+    within the drift). One train step with the same sampler draws:
+    sampled rois equal, losses within TRAIN_LOSS_RTOL, the gradients of
+    every trainable tensor outside the backbone body within TRAIN_GRAD_REL
+    of its largest. Then ``deform_conv2d`` v1 and v2 (3x3, 512 -> 512
+    channels, 2 deformable groups, offsets up to 6 px off the map) and
+    ``deform_psroi_pooling`` (7x7 parts, 8 x 49 channels, 100 rois):
+    outputs and gradients within DEFORM_REL of each tensor's largest.
+    Returns {label: loss gap}."""
+    import torch
+    from odwscl_tpu_torch.losses.fast_rcnn import prepare_fast_rcnn_targets
+    from odwscl_tpu_torch.models import SupervisedRCNN
+    from odwscl_tpu_torch.models.keypoint_head import heatmaps_to_keypoints
+    from odwscl_tpu_torch.ops import deform_conv as dc
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(19)
+    batch = sup_batch(rng, keypoints=17)
+    b, p = batch.boxes.shape[:2]
+    uniform = torch.from_numpy(rng.uniform(size=(b, 2, p)).astype(
+        np.float32))
+    gaps = {}
+
+    def run(model, bt, device):
+        r = {}
+        out = model.eval_forward(bt)
+        r["scores"], r["boxes"] = out["scores"], out["boxes"]
+        if model.keypoint_on:
+            det = bt.boxes[:, :100].contiguous()
+            hm = model.predict_kp_heatmaps(bt, det, out["features"])
+            r["kp_logits"] = hm
+            xy, sc = heatmaps_to_keypoints(hm.reshape(-1, *hm.shape[2:]),
+                                           det.reshape(-1, 4))
+            r["kp_xy"], r["kp_scores"] = (torch.from_numpy(xy),
+                                          torch.from_numpy(sc))
+        tgt = prepare_fast_rcnn_targets(
+            bt.boxes, bt.box_mask, bt.gt_boxes, bt.gt_labels, bt.gt_mask,
+            uniform=uniform.to(device))
+        r["pos_mask"], r["neg_mask"] = tgt.pos_mask, tgt.neg_mask
+        losses, _ = model.train_forward(
+            bt, draws={"fast_rcnn": uniform.to(device)})
+        sum(losses.values()).backward()
+        r.update({"loss " + k: v for k, v in losses.items()})
+        return r
+
+    try:
+        for label, model in (
+                ("Keypoint R-CNN", SupervisedRCNN(
+                    2, "R-50-FPN", keypoint_on=True, num_keypoints=17,
+                    mlp_dim=1024, compute_dtype="float32")),
+                ("FBNet Fast R-CNN", SupervisedRCNN(
+                    81, "FBNet-default", pooler_scale=0.0625, mlp_dim=1024,
+                    compute_dtype="float32"))):
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            bt = batch
+            if model.keypoint_on:
+                # one class, the person
+                bt = batch.replace(gt_labels=torch.ones_like(
+                    batch.gt_labels))
+                active_keypoint_tower(model, bt)
+            (c, t_cpu), (g, t_gpu) = _card_vs_cpu(
+                model, bt, dev, run,
+                ("backbone.body.", "backbone.first.", "backbone.stages."))
+            for k in ("pos_mask", "neg_mask"):
+                if not torch.equal(c[k], g[k]):
+                    raise AssertionError(f"{label}: {k} differ card vs CPU")
+            evals = {k: (g[k] - c[k]).abs().max().item()
+                     for k in ("scores", "boxes")}
+            if evals["scores"] > SCORE_ATOL or evals["boxes"] > BOX_ATOL_PX:
+                raise AssertionError(f"{label}: eval card vs CPU {evals}")
+            kp = ""
+            if "kp_logits" in c:
+                lg = _rel_gap(g["kp_logits"], c["kp_logits"])
+                sg = ((g["kp_scores"] - c["kp_scores"]).abs().max()
+                      / c["kp_logits"].abs().max()).item()
+                agree = (g["kp_xy"] == c["kp_xy"]).all(-1).float().mean()
+                if lg > KP_LOGIT_ATOL or sg > KP_LOGIT_ATOL \
+                        or agree < KP_DECODE_AGREE:
+                    raise AssertionError(f"{label}: keypoints card vs CPU: "
+                                         f"logits {lg}, scores {sg}, xy "
+                                         f"agree {agree}")
+                kp = (f"; keypoint logits max |d| {lg:.3e} of the largest, "
+                      f"decode scores {sg:.3e}, xy equal on "
+                      f"{float(agree):.4f} of {c['kp_xy'].shape[0]}x"
+                      f"{c['kp_xy'].shape[1]}")
+            loss_gap = max(abs(float(g[k]) - float(c[k]))
+                           / max(abs(float(c[k])), 1e-12)
+                           for k in c if k.startswith("loss "))
+            # the deconv's bias gradient is exactly 0 (a constant per map
+            # through the bilinear x2 and a softmax over the map): both
+            # sides held under TRAIN_GRAD_REL of the largest gradient
+            zero = "grad roi_heads.keypoint.predictor.kps_score_lowres.bias"
+            grad_keys = [k for k in c if k.startswith("grad ") and k != zero]
+            grad_gap, worst = max((_rel_gap(g[k], c[k]), k[5:])
+                                  for k in grad_keys)
+            if zero in c:
+                top = max(c[k].abs().max().item() for k in grad_keys)
+                if max(c[zero].abs().max().item(),
+                       g[zero].abs().max().item()) > TRAIN_GRAD_REL * top:
+                    raise AssertionError(f"{label}: {zero[5:]} not 0")
+            print(f"[kp] {label} f32 card vs CPU, B={b} 256x384 P={p}: "
+                  f"sampled rois equal ({int(c['pos_mask'].sum())} fg); "
+                  f"scores {evals['scores']:.3e}, boxes "
+                  f"{evals['boxes']:.3e}{kp}; losses ("
+                  + ", ".join(f"{k[5:]} {float(c[k]):.4f}" for k in c
+                              if k.startswith("loss "))
+                  + f") max rel diff {loss_gap:.3e};"
+                  f" max grad diff {grad_gap:.3e} of the largest ({worst}; "
+                  f"{len(grad_keys)} tensors); CPU {t_cpu:.2f} s, card "
+                  f"{t_gpu:.2f} s")
+            if loss_gap > TRAIN_LOSS_RTOL or grad_gap > TRAIN_GRAD_REL:
+                raise AssertionError(f"{label}: train step card vs CPU "
+                                     "disagree")
+            gaps[label] = loss_gap
+
+        # the deformable-conv ops
+        drng = np.random.RandomState(20)
+        x = drng.randn(1, 24, 32, 512).astype(np.float32)
+        k, dg = 3, 2
+        whole = drng.randint(-6, 6, (1, 24, 32, dg * 2 * k * k))
+        offset = (whole + drng.uniform(0.05, 0.95, whole.shape)).astype(
+            np.float32)
+        weight = (drng.randn(k, k, 512, 512) * 0.02).astype(np.float32)
+        bias = drng.randn(512).astype(np.float32)
+        mask = drng.uniform(size=(1, 24, 32, dg * k * k)).astype(np.float32)
+        feat = drng.randn(48, 64, 8 * 49).astype(np.float32)
+        rois = np.concatenate([drng.uniform(-40, 200, (100, 2)),
+                               drng.uniform(210, 300, (100, 2))],
+                              1).astype(np.float32)
+        trans = drng.randn(100, 2, 7, 7).astype(np.float32)
+
+        def deform_runs(device):
+            out = {}
+            for tag, m in (("v1", None), ("v2", mask)):
+                ts = [torch.from_numpy(a).to(device).requires_grad_()
+                      for a in (x, offset, weight, bias)
+                      + ((m,) if m is not None else ())]
+                y = dc.deform_conv2d(*ts[:4], ts[4] if len(ts) > 4 else None,
+                                     padding=1, deformable_groups=dg)
+                (y * y).sum().backward()
+                out[f"{tag} out"] = y
+                for n, t in zip(("x", "offset", "weight", "bias", "mask"),
+                                ts):
+                    out[f"{tag} d{n}"] = t.grad
+            f = torch.from_numpy(feat).to(device).requires_grad_()
+            tr = torch.from_numpy(trans).to(device).requires_grad_()
+            y = dc.deform_psroi_pooling(f, torch.from_numpy(rois).to(device),
+                                        tr, 7, 8, False, 0.25, 7, 7, 4, 0.1)
+            (y * y).sum().backward()
+            out.update({"psroi out": y, "psroi dfeat": f.grad,
+                        "psroi dtrans": tr.grad})
+            if device != "cpu":
+                torch.cuda.synchronize()
+            return {k: v.detach().cpu() for k, v in out.items()}
+
+        t0 = time.perf_counter()
+        c = deform_runs("cpu")
+        t1 = time.perf_counter()
+        g = deform_runs(dev)
+        t2 = time.perf_counter()
+        rel = {k: _rel_gap(g[k], c[k]) for k in c}
+        worst = max(rel, key=rel.get)
+        print(f"[kp] deform_conv2d v1/v2 (1x24x32x512 -> 512, 3x3, 2 "
+              "deformable groups) and deform_psroi_pooling (100 rois, 7x7) "
+              f"f32 card vs CPU: {len(rel)} outputs and gradients, worst "
+              f"{rel[worst]:.3e} of the largest ({worst}; tol {DEFORM_REL});"
+              f" CPU {t1 - t0:.2f} s, card {t2 - t1:.2f} s")
+        if rel[worst] > DEFORM_REL:
+            raise AssertionError(f"deform ops card vs CPU: {rel}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return gaps
+
+
+def fullsize_train_batch(rng, dev, b=2, canvas=FPN_EVAL_HW,
+                         image_hw=((800, 1333), (800, 1200)),
+                         n_props=FPN_ROIS, g=16, k=17):
+    """A COCO-size batch on the card: unit-normal images on an 800x1344
+    canvas, ``n_props`` proposals an image of 16-800 px, G GT boxes (the
+    first proposals, jittered) of class 1 with K keypoints each."""
+    import torch
+    from odwscl_tpu_torch.models import Batch
+
+    h, w = canvas
+    sizes = np.float32(image_hw)
+    images = np.zeros((b, h, w, 3), np.float32)
+    for i, (ih, iw) in enumerate(sizes.astype(int)):
+        images[i, :ih, :iw] = rng.randn(ih, iw, 3)
+    wh = np.exp(rng.uniform(np.log(16), np.log(800), (b, n_props, 2)))
+    lim = sizes[:, None, ::-1] - 1
+    x1y1 = rng.uniform(size=(b, n_props, 2)) * np.maximum(lim - wh, 1)
+    boxes = np.concatenate([x1y1, np.minimum(x1y1 + wh, lim)], -1)
+    gt = np.clip(boxes[:, :g] + rng.uniform(-8, 8, (b, g, 4)), 0,
+                 np.concatenate([lim, lim], -1)[:, :, :]).astype(np.float32)
+    gt[..., 2:] = np.maximum(gt[..., 2:], gt[..., :2] + 8)
+    kp = np.zeros((b, g, k, 3), np.float32)
+    kp[..., :2] = gt[:, :, None, :2] + rng.uniform(0, 1, (b, g, k, 2)) * (
+        gt[..., 2:] - gt[..., :2])[:, :, None]
+    kp[..., 2] = rng.randint(0, 3, (b, g, k))
+    return Batch(images=torch.from_numpy(images).to(dev),
+                 image_sizes=torch.from_numpy(sizes).to(dev),
+                 boxes=torch.from_numpy(boxes.astype(np.float32)).to(dev),
+                 box_mask=torch.ones(b, n_props, dtype=torch.bool,
+                                     device=dev),
+                 labels=torch.ones(b, 2, device=dev),
+                 gt_boxes=torch.from_numpy(gt).to(dev),
+                 gt_labels=torch.ones(b, g, dtype=torch.long, device=dev),
+                 gt_mask=torch.ones(b, g, dtype=torch.bool, device=dev),
+                 gt_keypoints=torch.from_numpy(kp).to(dev))
+
+
+def _launch_counts(rp):
+    return (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+            rp.roi_pool_backward.launches, rp.roi_pool_argmax.launches_wide,
+            rp.roi_pool_backward.launches_wide)
+
+
+def _reset_launches(rp):
+    rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+    rp.roi_pool_backward.launches = rp.roi_pool_argmax.launches_wide = 0
+    rp.roi_pool_backward.launches_wide = 0
+
+
+def phase_fullsize_keypoint_fbnet(dev, rp):
+    """COCO size, bf16, seeded weights, B = 2 on an 800x1344 canvas with
+    1000 proposals an image: R-50-FPN Keypoint R-CNN (2 classes, 17
+    keypoints) trains KP_STEPS steps (forward, backward, the port's SGD;
+    ``engine.trainer.do_train`` with steps 2-5 traced): step ms, the
+    device's idle share, peak memory; each step launches #1[argmax] 4
+    times (P2 200x336 with the int32 codes, 1) and #2 4 times (int32 1),
+    every loss finite. Then its eval (3 timed repeats after a warm-up):
+    the box forward, the NMS, the keypoint pass on the 2 x 100 kept
+    detections and the decode, ms each. Then FBNet-default Fast R-CNN (81
+    classes): KP_STEPS train steps (1 #1[argmax] and 1 #2 a step) and the
+    eval forward. Returns {path: launches}."""
+    import torch
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.engine.postprocess import finalize_detections_device
+    from odwscl_tpu_torch.engine.trainer import do_train
+    from odwscl_tpu_torch.models import SupervisedRCNN
+    from odwscl_tpu_torch.models.keypoint_head import heatmaps_to_keypoints
+    from odwscl_tpu_torch.solver import make_optimizer
+
+    rng = np.random.RandomState(20)
+    batch = fullsize_train_batch(rng, dev)
+    b = batch.images.shape[0]
+    solver = get_default_cfg().SOLVER
+    solver.BASE_LR = 1e-4
+    solver.WARMUP_ITERS = 2
+    paths = {}
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    for label, model, per_step in (
+            ("Keypoint R-CNN", SupervisedRCNN(
+                2, "R-50-FPN", keypoint_on=True, num_keypoints=17,
+                mlp_dim=1024, compute_dtype="bfloat16"), (4, 4, 1, 1)),
+            ("FBNet Fast R-CNN", SupervisedRCNN(
+                81, "FBNet-default", pooler_scale=0.0625, mlp_dim=1024,
+                compute_dtype="bfloat16"), (1, 1, 0, 0))):
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev)
+        bt = batch if model.keypoint_on else batch.replace(
+            gt_keypoints=None, labels=torch.ones(b, 81, device=dev))
+        optimizer, _ = make_optimizer(solver, model)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timing = {}
+        _reset_launches(rp)
+        do_train(model, optimizer, [bt] * KP_STEPS, KP_STEPS, dev, gen,
+                 log_period=0, timing_out=timing,
+                 profile_iters=(2, KP_STEPS))
+        launches = _launch_counts(rp)
+        want = (0, KP_STEPS * per_step[0], KP_STEPS * per_step[1],
+                KP_STEPS * per_step[2], KP_STEPS * per_step[3])
+        if launches != want:
+            raise AssertionError(f"{label} full-size train: launches (fwd, "
+                                 f"fwd[argmax], bwd, fwd[argmax] int32, "
+                                 f"bwd int32) {launches}, expected {want}")
+        steps = timing["steps"]
+        for st in steps:
+            bad = [k for k, v in st.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{label} full-size step {st['iter']}:"
+                                     f" non-finite {bad}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = [st["step_s"] * 1e3 for st in steps]
+        med = statistics.median(step_ms[1:])
+        print(f"[full] {label} bf16 train, B=2 800x1344, {FPN_ROIS} "
+              f"proposals an image: {KP_STEPS} steps "
+              f"({', '.join(f'{t:.1f}' for t in step_ms)} ms), median of "
+              f"2-{KP_STEPS} {med:.1f} ms; device idle share "
+              f"{timing['device_idle_share']:.4f} over steps 2-{KP_STEPS}; "
+              f"peak memory {peak:.2f} GB; losses "
+              + ", ".join(f"{k} {steps[0][k]:.4f} -> {steps[-1][k]:.4f}"
+                          for k in steps[0] if k.startswith("loss_"))
+              + f"; launches (fwd, fwd[argmax], bwd, int32 fwd[argmax], "
+              f"int32 bwd) {launches}")
+        SUMMARY.append(f"{label} full-size bf16 train step {med:.1f} ms, "
+                       f"idle {timing['device_idle_share']:.3f}, peak "
+                       f"{peak:.2f} GB")
+        paths[f"{label} full-size train"] = launches
+        model.eval()
+        with torch.no_grad():
+            def run():
+                out, t_fwd = timed(lambda: model.eval_forward(bt))
+                b_, p_ = out["scores"].shape[:2]
+                dets, t_nms = timed(lambda: finalize_detections_device(
+                    out["boxes"].reshape(b_, p_, -1, 4), out["scores"],
+                    bt.box_mask, 0.5, 0.05, 100))
+                r = {"forward": t_fwd, "nms": t_nms}
+                if model.keypoint_on:
+                    hm, r["keypoints"] = timed(
+                        lambda: model.predict_kp_heatmaps(bt, dets[0],
+                                                          out["features"]))
+                    _, r["decode"] = timed(lambda: heatmaps_to_keypoints(
+                        hm.reshape(-1, *hm.shape[2:]),
+                        dets[0].reshape(-1, 4)))
+                return r
+
+            run()                                             # warm-up
+            _reset_launches(rp)
+            reps = [run() for _ in range(3)]
+        launches = _launch_counts(rp)
+        want = (3 * (8 if model.keypoint_on else 1), 0, 0, 0, 0)
+        if launches != want:
+            raise AssertionError(f"{label} full-size eval: launches "
+                                 f"{launches}, expected {want}")
+        mean = {k: statistics.mean(r[k] for r in reps) for k in reps[0]}
+        print(f"[full] {label} bf16 eval, B=2 800x1344: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in mean.items())
+            + f"; launches {launches[:3]}")
+        SUMMARY.append(f"{label} full-size bf16 eval " + ", ".join(
+            f"{k} {v:.2f}" for k, v in mean.items()) + " ms")
+        paths[f"{label} full-size eval"] = launches
+        model.to("cpu")
+        del model, optimizer
+        torch.cuda.empty_cache()
+    return paths
+
+
+KP_CLI = (("Keypoint R-CNN", ["MODEL.KEYPOINT_ON", "True"], 4),
+          ("FBNet Fast R-CNN", ["MODEL.BACKBONE.CONV_BODY", "FBNet-default",
+                                "MODEL.ROI_BOX_HEAD.POOLER_SCALES",
+                                "(0.0625,)", "MODEL.MASK_ON", "False"], 1))
+
+
+def phase_keypoint_fbnet_cli(rp, tmp):
+    """configs/coco/coco_mask_rcnn_smoke.yaml on phase 16's synthetic
+    ``coco17`` layout (3x3 keypoint grids in its annotations) with
+    ``MODEL.KEYPOINT_ON True``, and as an FBNet-default Fast R-CNN
+    (``CONV_BODY FBNet-default``, ``POOLER_SCALES (0.0625,)``, ``MASK_ON
+    False``): ``train_net`` for its 5 iterations, then ``test_net`` on the
+    checkpoint (bbox, and segm with the masks; the JAX package evaluates
+    no keypoints). Every loss finite (``loss_kp`` among them), the APs in
+    [0, 1]; a Keypoint R-CNN step launches #1[argmax] 4 times and #2 4
+    times (box, mask and keypoint heads share the pool), an eval batch #1
+    8 times; FBNet 1 of each a step and 1 a batch. Returns {path:
+    launches}."""
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.tools import test_net, train_net
+
+    root = os.path.join(tmp, "coco17")
+    config = os.path.join(ROOT, "configs", "coco", "coco_mask_rcnn_smoke.yaml")
+    launches = {}
+    for label, opts, per in KP_CLI:
+        cfg = get_default_cfg()
+        cfg.merge_from_file(config)
+        cfg.merge_from_list(opts)
+        out = os.path.join(tmp, "kp_" + label.split()[0])
+        steps = cfg.SOLVER.MAX_ITER
+        _reset_launches(rp)
+        timing = {}
+        t0 = time.perf_counter()
+        train_net.main(["--config-file", config, "--data-root", root,
+                        "--device", "cuda", "--skip-test", "OUTPUT_DIR", out,
+                        *opts], timing_out=timing)
+        wall = time.perf_counter() - t0
+        train = _launch_counts(rp)[:3]
+        steps_log = timing["train"]["steps"]
+        if len(steps_log) != steps:
+            raise AssertionError(f"{label}: {len(steps_log)} steps")
+        for st in steps_log:
+            bad = [k for k, v in st.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{label} iteration {st['iter']}: "
+                                     f"non-finite {bad}")
+        if cfg.MODEL.KEYPOINT_ON and "loss_kp" not in steps_log[0]:
+            raise AssertionError(f"{label}: no loss_kp")
+        if train != (0, per * steps, per * steps):
+            raise AssertionError(f"{label} train: kernel launches {train} "
+                                 f"for {steps} steps")
+        print(f"[kp] {label} train (coco_mask_rcnn_smoke.yaml "
+              f"{' '.join(opts)}): {steps} steps, "
+              + ", ".join(f"{k} {steps_log[0][k]:.4f} -> "
+                          f"{steps_log[-1][k]:.4f}" for k in steps_log[0]
+                          if k.startswith("loss"))
+              + f"; kernel launches (fwd, fwd[argmax], bwd) {train}; CLI "
+              f"wall {wall:.2f} s")
+        _reset_launches(rp)
+        timing = {}
+        res = test_net.main(["--config-file", config, "--data-root", root,
+                             "--device", "cuda", "--weights",
+                             os.path.join(out, "model_final.pt"),
+                             "OUTPUT_DIR", out + "_eval", *opts],
+                            timing_out=timing)
+        evals = _launch_counts(rp)[:3]
+        (t,), (r,) = timing.values(), res.values()
+        n_batches = math.ceil(t["n_images"] / cfg.TEST.IMS_PER_BATCH)
+        per_eval = 8 if cfg.MODEL.MASK_ON else per
+        if evals != (per_eval * n_batches, 0, 0):
+            raise AssertionError(f"{label} eval: kernel launches {evals} "
+                                 f"for {n_batches} batches")
+        keys = ("AP", "segm_AP") if cfg.MODEL.MASK_ON else ("AP",)
+        if not all(0.0 <= r[k] <= 1.0 for k in keys):
+            raise AssertionError(f"{label}: {[(k, r[k]) for k in keys]}")
+        print(f"[kp] {label} eval: " + ", ".join(
+            f"{k} {r[k]:.4f}" for k in keys)
+            + f"; {t['n_images']} images in {t['wall_s']:.2f} s; kernel "
+            f"launches {evals} for {n_batches} batches")
+        SUMMARY.append(f"{label} smoke: " + ", ".join(
+            f"{k} {r[k]:.4f}" for k in keys))
+        launches[label + " train"] = train
+        launches[label + " eval"] = evals
+    return launches
+
+
 def build(rp, q):
     """Build the four kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2775,6 +3465,8 @@ def main():
     del r50_timed
     fpn_tm, fpn_err = timed("FPN kernel checks and timing, C=256",
                             phase_fpn_kernels, dev, rp)
+    wide_tm, wide_err = timed("wide argmax codes: checks and timing",
+                              phase_wide_codes, dev, rp)
     stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
     int8_err = timed("int8 conv kernel checks", phase_int8_kernel, dev, q)
     quant_err = timed("quantize kernel checks", phase_quant_kernel, dev, q)
@@ -2793,6 +3485,9 @@ def main():
         "VGG16-OICR", "VGG16-OICR 81 classes", 81)
     variant_gaps.update(timed("supervised card vs CPU",
                               phase_supervised_card_vs_cpu, dev, rp))
+    variant_gaps.update(timed("Keypoint R-CNN, FBNet, deform ops card vs "
+                              "CPU", phase_keypoint_fbnet_card_vs_cpu, dev,
+                              rp))
     SUMMARY.append("variants f32 card vs CPU loss gaps " + ", ".join(
         f"{k} {v:.1e}" for k, v in variant_gaps.items()))
     cfg, cfg_r50 = get_default_cfg(), get_default_cfg()
@@ -2834,6 +3529,10 @@ def main():
                     rp, tmp)
         sup_full = timed("full-size supervised eval", phase_fullsize_eval,
                          dev, rp)
+        kp_full = timed("full-size Keypoint R-CNN and FBNet",
+                        phase_fullsize_keypoint_fbnet, dev, rp)
+        kp_cli = timed("Keypoint R-CNN and FBNet configs train and eval",
+                       phase_keypoint_fbnet_cli, rp, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if any(rs.roi_pool_stage.launches.values()):
@@ -2846,7 +3545,10 @@ def main():
                  "Mask R-CNN eval": sup["Mask R-CNN eval"],
                  "Mask R-CNN full-size eval": (sup_full, 0, 0),
                  "RetinaNet": tuple(map(sum, zip(sup["RetinaNet train"],
-                                                 sup["RetinaNet eval"])))}
+                                                 sup["RetinaNet eval"]))),
+                 **{k: v[:3] for k, v in kp_full.items()}, **kp_cli}
+    # the int32 instantiations: the paths on maps past 65,535 cells
+    wide_paths = {k: v[3:] for k, v in kp_full.items()}
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
                        **{f"VGG16-OICR int8 eval {k}": v[2]
                           for k, v in int8_eval.items()},
@@ -2904,7 +3606,35 @@ def main():
          "library_note": ("torch.zeros f32, one index_add_ of g at the cells "
                           "decoded from the stored argmax (indices built "
                           "outside the timing), then .to(bf16)"),
-         **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd)}] + stages
+         **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd)}]
+    # the int32-code instantiations of #1[argmax] and #2, timed at the eval
+    # P2 (200x336) and, beside the int16 ones on the same inputs, at the
+    # training P2 (160x272)
+    wide_fwd = wide_tm["fwd_argmax int32 eval P2"]
+    wide_bwd = wide_tm["bwd int32 eval P2"]
+    kernels += [
+        {"name": "roi_pool_fwd[argmax,int32]", **fwd_src,
+         "launches": sum(v[0] for v in wide_paths.values()),
+         "launches_by_path": {k: v[0] for k, v in wide_paths.items()},
+         "max_abs_err": wide_err["fwd_argmax"], **wide_fwd,
+         "library_ms": None, "library_note": no_lib,
+         "timed": "eval P2 of an 800x1344 canvas, feat [2, 200, 336, 256] "
+                  "bf16, P = 1000 rois an image routed to P2-P5",
+         "train_P2": {k.split()[1]: wide_tm[k] for k in wide_tm
+                      if k.startswith("fwd_argmax") and "train" in k}},
+        {"name": "roi_pool_bwd[int32]", "route": "cuda",
+         "source": src + "roi_pool_bwd.cu",
+         "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:292 _bwd_kernel",
+         "launches": sum(v[1] for v in wide_paths.values()),
+         "launches_by_path": {k: v[1] for k, v in wide_paths.items()},
+         "max_abs_err": wide_err["bwd"], **wide_bwd,
+         "library_note": ("torch.zeros f32, one index_add_ of g at the cells "
+                          "decoded from the stored int32 argmax, then "
+                          ".to(bf16)"),
+         "timed": "as roi_pool_fwd[argmax,int32]",
+         "train_P2": {k.split()[1]: wide_tm[k] for k in wide_tm
+                      if k.startswith("bwd") and "train" in k}}]
+    kernels += stages
     int8_runs = {f"VGG16-OICR int8 eval {k}": v for k, v in int8_eval.items()
                  if k != "bf16"}
     kernels.append({

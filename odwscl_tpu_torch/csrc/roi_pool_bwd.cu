@@ -11,9 +11,10 @@
 //     contribute nothing;
 //   - the gradient accumulates in f32 and is returned in the feature dtype.
 // The first maximum comes from the training forward (csrc/roi_pool_fwd.cu,
-// ARGMAX): one int16 code per output element, the offset (y - hs) *
-// (we - ws) + (x - ws) of the cell inside its bin, read as unsigned 16-bit,
-// 0xFFFF for no cell. The bin edges are recomputed here in integers, as the
+// ARGMAX): one code per output element, the offset (y - hs) * (we - ws) +
+// (x - ws) of the cell inside its bin, read as unsigned, all ones for no
+// cell; int16 codes (Narrow) for maps of at most 65535 cells, int32 (Wide)
+// above, as the forward wrote them. The bin edges are recomputed here in integers, as the
 // forward computes them. The plain PyTorch version is
 // roi_pool_backward_argmax_plain in ops/roi_pool.py (decode, one f32
 // index_add_, cast); the map-rescan roi_pool_backward_plain is the oracle of
@@ -119,6 +120,38 @@ struct F32 {
   }
 };
 
+// A lane's kPer argmax codes: at(c, k) is channel k's code, kNone marks no
+// cell, and row(code, bw, inv, half_inv) is code / bw, exactly.
+struct Narrow {  // int16 codes, two to a word
+  static constexpr int kBytes = 2;
+  static constexpr uint32_t kNone = 0xffffu;
+  static __device__ __forceinline__ uint32_t at(const uint4* c, int k) {
+    const uint32_t w = word(c[k / 8], (k % 8) / 2);
+    return (k & 1) ? (w >> 16) : (w & 0xffffu);
+  }
+  // (code + 0.5) / bw lies at least 0.5 / bw from an integer, and one
+  // rounding of code * inv + 0.5 * inv errs by less than (code + 1) *
+  // 2^-23 / bw
+  static __device__ __forceinline__ int row(uint32_t code, int, float inv,
+                                           float half_inv) {
+    return static_cast<int>(
+        __fmaf_rn(static_cast<float>(code), inv, half_inv));
+  }
+};
+
+struct Wide {  // int32 codes, one to a word
+  static constexpr int kBytes = 4;
+  static constexpr uint32_t kNone = 0xffffffffu;
+  static __device__ __forceinline__ uint32_t at(const uint4* c, int k) {
+    return word(c[k / 4], k % 4);
+  }
+  // an integer division: the float rounding bound above needs code < 2^22
+  static __device__ __forceinline__ int row(uint32_t code, int bw, float,
+                                           float) {
+    return static_cast<int>(code / static_cast<uint32_t>(bw));
+  }
+};
+
 __device__ __forceinline__ int round_cell(float x, float scale) {
   // two roundings, as the forward computes it; no fused multiply-add
   return static_cast<int>(floorf(__fadd_rn(__fmul_rn(x, scale), 0.5f)));
@@ -142,7 +175,7 @@ __device__ __forceinline__ int acc_slot(int j) {
 }
 
 // Grid (channel tiles, map tiles, images).
-template <typename T>
+template <typename T, typename Code>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
                     const float* __restrict__ rois,
@@ -150,7 +183,7 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
                     const typename T::Elem* __restrict__ grad,
                     typename T::Elem* __restrict__ dfeat, int P, int H,
                     int W, int C, float scale, int tiles_w) {
-  constexpr int kCodeVecs = kPer / 8;          // uint4 of codes per lane
+  constexpr int kCodeVecs = kPer * Code::kBytes / 16;  // uint4 of codes
   constexpr int kGradVecs = kPer * T::kBytes / 16;
   extern __shared__ __align__(16) float acc[];  // [kTileH * kTileW][kTileC]
   __shared__ int4 box[kList];   // x1, y1, roi_w, roi_h of the listed rois
@@ -239,7 +272,7 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
           const bool live = pwb + u < pw1 && lane_live;
 #pragma unroll
           for (int v = 0; v < kCodeVecs; ++v)
-            codes[u][v] = live ? __ldg(argmax + e / 8 + v)
+            codes[u][v] = live ? __ldg(argmax + e / (16 / Code::kBytes) + v)
                                : make_uint4(~0u, ~0u, ~0u, ~0u);
 #pragma unroll
           for (int v = 0; v < kGradVecs; ++v)
@@ -252,20 +285,15 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
           if (pw >= pw1) break;
           const int ws = bin_lo(pw, r.z, r.x, W);
           const int bw = bin_hi(pw, r.z, r.x, W) - ws;
-          // dy = code / bw, exact: (code + 0.5) / bw lies at least 0.5 / bw
-          // from an integer, and one rounding of code * inv + 0.5 * inv
-          // errs by less than (code + 1) * 2^-23 / bw
           const float inv = 1.0f / static_cast<float>(bw);
           const float half_inv = 0.5f * inv;
 #pragma unroll
           for (int k = 0; k < kPer; ++k) {
-            const uint32_t w = word(codes[u][k / 8], (k % 8) / 2);
-            const int code = (k & 1) ? (w >> 16) : (w & 0xffffu);
-            if (code == 0xffff) continue;
-            const int dy = static_cast<int>(
-                __fmaf_rn(static_cast<float>(code), inv, half_inv));
+            const uint32_t code = Code::at(codes[u], k);
+            if (code == Code::kNone) continue;
+            const int dy = Code::row(code, bw, inv, half_inv);  // code / bw
             const int y = hs + dy - ty0;
-            const int x = ws + code - dy * bw - tx0;
+            const int x = ws + static_cast<int>(code) - dy * bw - tx0;
             if (static_cast<unsigned>(y) < static_cast<unsigned>(th) &&
                 static_cast<unsigned>(x) < static_cast<unsigned>(tw))
               atomicAdd(&acc[(y * kTileW + x) * kTileC + k * 32 + lane],
@@ -294,7 +322,7 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
   }
 }
 
-template <typename T>
+template <typename T, typename Code>
 int launch(const void* argmax, const float* rois, const uint8_t* mask,
            const void* grad, void* dfeat, int B, int P, int H, int W, int C,
            float scale, void* stream) {
@@ -302,15 +330,16 @@ int launch(const void* argmax, const float* rois, const uint8_t* mask,
   if (C % 8) return static_cast<int>(cudaErrorInvalidValue);
   if (kAccBytes > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        roi_pool_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        roi_pool_bwd_kernel<T, Code>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kAccBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tiles_w = (W + kTileW - 1) / kTileW;
   const int tiles_h = (H + kTileH - 1) / kTileH;
   const dim3 grid((C + kTileC - 1) / kTileC, tiles_h * tiles_w, B);
-  roi_pool_bwd_kernel<T><<<grid, kThreads, kAccBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
+  roi_pool_bwd_kernel<T, Code><<<grid, kThreads, kAccBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(argmax), rois, mask,
       static_cast<const typename T::Elem*>(grad),
       static_cast<typename T::Elem*>(dfeat), P, H, W, C, scale, tiles_w);
@@ -328,14 +357,32 @@ extern "C" int roi_pool_bwd_bf16(const void* argmax, const float* rois,
                                  const uint8_t* mask, const void* grad,
                                  void* dfeat, int B, int P, int H, int W,
                                  int C, float scale, void* stream) {
-  return launch<Bf16>(argmax, rois, mask, grad, dfeat, B, P, H, W, C, scale,
-                      stream);
+  return launch<Bf16, Narrow>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
+                              scale, stream);
 }
 
 extern "C" int roi_pool_bwd_f32(const void* argmax, const float* rois,
                                 const uint8_t* mask, const void* grad,
                                 void* dfeat, int B, int P, int H, int W,
                                 int C, float scale, void* stream) {
-  return launch<F32>(argmax, rois, mask, grad, dfeat, B, P, H, W, C, scale,
-                     stream);
+  return launch<F32, Narrow>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
+                             scale, stream);
+}
+
+// The same from int32 codes (maps of more than 65535 cells).
+extern "C" int roi_pool_bwd_wide_bf16(const void* argmax, const float* rois,
+                                      const uint8_t* mask, const void* grad,
+                                      void* dfeat, int B, int P, int H,
+                                      int W, int C, float scale,
+                                      void* stream) {
+  return launch<Bf16, Wide>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
+                            scale, stream);
+}
+
+extern "C" int roi_pool_bwd_wide_f32(const void* argmax, const float* rois,
+                                     const uint8_t* mask, const void* grad,
+                                     void* dfeat, int B, int P, int H, int W,
+                                     int C, float scale, void* stream) {
+  return launch<F32, Wide>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
+                           scale, stream);
 }

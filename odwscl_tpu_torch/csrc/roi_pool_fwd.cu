@@ -10,11 +10,15 @@
 //     the same for columns, in integer arithmetic, clipped to the map;
 //   - empty bins and masked rois give 0.
 // The training instantiation (ARGMAX) also writes, per output element, the
-// int16 code of the bin's FIRST maximum in row-major order (y, then x,
-// strict '>'): its offset (y - hs) * (we - ws) + (x - ws) inside the bin,
-// read as unsigned 16-bit, or -1 (0xFFFF) for an empty bin, a masked roi
-// or a bin of -inf only. The reference CUDA ROIPool stores the argmax the
-// same way; csrc/roi_pool_bwd.cu routes the cotangent by it. The plain
+// code of the bin's FIRST maximum in row-major order (y, then x, strict
+// '>'): its offset (y - hs) * (we - ws) + (x - ws) inside the bin, read as
+// unsigned, or -1 (all ones) for an empty bin, a masked roi or a bin of
+// -inf only. The reference CUDA ROIPool stores the argmax the same way;
+// csrc/roi_pool_bwd.cu routes the cotangent by it. A bin clipped to the map
+// can span the whole map, so the code's width follows the map: int16 codes
+// (Narrow) while H * W <= 65535, int32 codes (Wide) above, e.g. FPN P2 of
+// an 800x1344 canvas (200x336 = 67,200 cells); the caller picks one from
+// the map's shape. The plain
 // PyTorch versions are roi_pool_plain and roi_pool_argmax_plain in
 // ops/roi_pool.py; both agree bit-exactly (max selects one of the inputs,
 // the codes are integers).
@@ -39,7 +43,8 @@
 //     or one channels. With ARGMAX, a packed compare mask (__hgt2_mask)
 //     keeps, per channel, the first column of the row max and then the
 //     first row of the bin max (strict '>', in order): the first row-major
-//     maximum, as 16-bit offsets two to a word. Two row bins per thread
+//     maximum, as 16-bit offsets two to a word (Wide: the mask's halves
+//     spread to one 32-bit offset a word). Two row bins per thread
 //     (not all seven) keep the chain of dependent row loads short and the
 //     registers at 64, four blocks to an SM.
 //   - A block pools kRun = 4 consecutive rois, one at a time; the output
@@ -155,6 +160,31 @@ __device__ __forceinline__ uint32_t pick(uint32_t old, uint32_t neu,
   return (old & ~mask) | (neu & mask);
 }
 
+// The argmax codes of one 16-byte vector of channels: kWords<T> words,
+// kSpread puts a value in every code of a word, and mask<T>(a, b, w) is the
+// mask of the codes of word w whose channels have a > b.
+struct Narrow {  // int16 codes, two to a word (channel 2i in the low half)
+  template <typename T>
+  static constexpr int kWords = T::kWords;
+  static constexpr uint32_t kSpread = 0x10001u;
+  template <typename T>
+  static __device__ __forceinline__ uint32_t mask(const uint4& a,
+                                                  const uint4& b, int w) {
+    return T::gt(a, b, w);
+  }
+};
+
+struct Wide {  // int32 codes, one to a word
+  template <typename T>
+  static constexpr int kWords = 2 * T::kWords;
+  static constexpr uint32_t kSpread = 1u;
+  template <typename T>
+  static __device__ __forceinline__ uint32_t mask(const uint4& a,
+                                                  const uint4& b, int w) {
+    return 0u - ((T::gt(a, b, w >> 1) >> (16 * (w & 1))) & 1u);
+  }
+};
+
 __device__ __forceinline__ int round_cell(float x, float scale) {
   // two roundings, as the reference computes it; no fused multiply-add
   return static_cast<int>(floorf(__fadd_rn(__fmul_rn(x, scale), 0.5f)));
@@ -189,11 +219,12 @@ struct Shape {
 
 // One thread's share of a roi: row bins ph0 .. ph0 + nph - 1 ([hs, he)),
 // column bin [ws, we), and their running maxima and argmax codes.
-template <typename T>
+template <typename T, typename Code = Narrow>
 struct Bins {
+  static constexpr int kCodeWords = Code::template kWords<T>;
   int hs[kGroup], he[kGroup], nph, ws, we, y_end;
   uint4 m[kGroup];
-  uint32_t code[kGroup][T::kWords];
+  uint32_t code[kGroup][kCodeWords];
 
   __device__ __forceinline__ Bins(const float* rois, bool live, int roi,
                                   int ph0, int pw, int H, int W,
@@ -205,7 +236,7 @@ struct Bins {
       hs[j] = he[j] = 0;
       m[j] = make_uint4(T::kNeg, T::kNeg, T::kNeg, T::kNeg);
 #pragma unroll
-      for (int w = 0; w < T::kWords; ++w) code[j][w] = 0xffffffffu;
+      for (int w = 0; w < kCodeWords; ++w) code[j][w] = 0xffffffffu;
     }
     if (!live) return;
     const float* r = rois + static_cast<int64_t>(roi) * 4;
@@ -257,11 +288,11 @@ struct Bins {
   // the staged design (tools/roi_pool_fwd_ordered.cu).
   template <bool ARGMAX, bool GLOBAL>
   __device__ __forceinline__ void row(const uint4* p, int stride, int y) {
-    constexpr int kWords = T::kWords;
+    constexpr int kWords = kCodeWords;
     constexpr int kLoads = ARGMAX ? kUnrollArgmax : kUnroll;
     const int bw = we - ws;
     // the row's max over the column bin, and per channel the first column
-    // that reaches it (two 16-bit columns per word)
+    // that reaches it (one per code of a word)
     uint4 r = make_uint4(T::kNeg, T::kNeg, T::kNeg, T::kNeg);
     uint32_t rx[kWords];
 #pragma unroll
@@ -280,10 +311,10 @@ struct Bins {
       for (int u = 0; u < kLoads; ++u) {
         if (x0 + u >= bw) break;
         if constexpr (ARGMAX) {
-          const uint32_t xx = static_cast<uint32_t>(x0 + u) * 0x10001u;
+          const uint32_t xx = static_cast<uint32_t>(x0 + u) * Code::kSpread;
 #pragma unroll
           for (int w = 0; w < kWords; ++w)
-            rx[w] = pick(rx[w], xx, T::gt(v[u], r, w));
+            rx[w] = pick(rx[w], xx, Code::template mask<T>(v[u], r, w));
         }
         r = T::vmax(r, v[u]);
       }
@@ -294,10 +325,12 @@ struct Bins {
     for (int j = 0; j < kGroup; ++j) {
       if (j >= nph || y < hs[j] || y >= he[j]) continue;
       if constexpr (ARGMAX) {
-        const uint32_t off = static_cast<uint32_t>((y - hs[j]) * bw) * 0x10001u;
+        const uint32_t off =
+            static_cast<uint32_t>((y - hs[j]) * bw) * Code::kSpread;
 #pragma unroll
         for (int w = 0; w < kWords; ++w)
-          code[j][w] = pick(code[j][w], rx[w] + off, T::gt(r, m[j], w));
+          code[j][w] = pick(code[j][w], rx[w] + off,
+                            Code::template mask<T>(r, m[j], w));
       }
       m[j] = T::vmax(m[j], r);
     }
@@ -315,12 +348,18 @@ struct Bins {
       const bool empty = he[j] <= hs[j] || we <= ws;  // masked: all empty
       out[e] = empty ? make_uint4(0, 0, 0, 0) : m[j];
       if constexpr (ARGMAX) {
-        if constexpr (T::kWords == 4)
-          reinterpret_cast<uint4*>(argmax)[e] =
-              make_uint4(code[j][0], code[j][1], code[j][2], code[j][3]);
-        else
+        // the vector's codes: 2 words (Narrow f32), 4 or 8 (Wide bf16)
+        if constexpr (kCodeWords % 4 == 0) {
+          constexpr int kQuads = kCodeWords / 4;
+#pragma unroll
+          for (int q = 0; q < kQuads; ++q)
+            reinterpret_cast<uint4*>(argmax)[e * kQuads + q] =
+                make_uint4(code[j][4 * q], code[j][4 * q + 1],
+                           code[j][4 * q + 2], code[j][4 * q + 3]);
+        } else {
           reinterpret_cast<uint2*>(argmax)[e] =
               make_uint2(code[j][0], code[j][1]);
+        }
       }
     }
   }
@@ -333,7 +372,7 @@ __device__ __forceinline__ int64_t out_vec(int roi, int ph, int pw, int CV,
 }
 
 // xs, cw: the rois' column windows, read by the rows and cols stages only
-template <typename T, bool ARGMAX, int STAGE = kFull>
+template <typename T, bool ARGMAX, int STAGE = kFull, typename Code = Narrow>
 __global__ void __launch_bounds__(Shape<T>::kThreads)
 roi_pool_fwd_kernel(const uint4* __restrict__ feat,
                     const float* __restrict__ rois,
@@ -352,7 +391,7 @@ roi_pool_fwd_kernel(const uint4* __restrict__ feat,
 
   for (int roi = blockIdx.x * kRun + slot; roi < end; roi += S::kSlots) {
     const bool live = STAGE != kWrite && mask[roi];
-    Bins<T> s(rois, live, roi, ph0, pw, H, W, scale);
+    Bins<T, Code> s(rois, live, roi, ph0, pw, H, W, scale);
     if constexpr (STAGE != kWrite && STAGE != kFull) {
       if (live) s.template cut<STAGE>(xs[roi], cw[roi], ph0, H, W);
     }
@@ -366,7 +405,7 @@ roi_pool_fwd_kernel(const uint4* __restrict__ feat,
   }
 }
 
-template <typename T, bool ARGMAX, int STAGE = kFull>
+template <typename T, bool ARGMAX, int STAGE = kFull, typename Code = Narrow>
 int launch(const void* feat, const float* rois, const uint8_t* mask,
            const int* xs, const int* cw, void* out, void* argmax, int B,
            int P, int H, int W, int C, float scale, void* stream) {
@@ -378,7 +417,7 @@ int launch(const void* feat, const float* rois, const uint8_t* mask,
   const int cv = C / T::kVec;
   const dim3 block(S::kLanes, 8, S::kGroups * S::kSlots);
   const dim3 grid((n + kRun - 1) / kRun, (cv + S::kLanes - 1) / S::kLanes);
-  roi_pool_fwd_kernel<T, ARGMAX, STAGE>
+  roi_pool_fwd_kernel<T, ARGMAX, STAGE, Code>
       <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint4*>(feat), rois, mask, xs, cw,
           static_cast<uint4*>(out), static_cast<uint32_t*>(argmax), n, P, H,
@@ -394,6 +433,15 @@ int launch_fwd(const void* feat, const float* rois, const uint8_t* mask,
                                   argmax, B, P, H, W, C, scale, stream)
                 : launch<T, false>(feat, rois, mask, nullptr, nullptr, out,
                                    nullptr, B, P, H, W, C, scale, stream);
+}
+
+template <typename T>
+int launch_fwd_wide(const void* feat, const float* rois, const uint8_t* mask,
+                    void* out, void* argmax, int B, int P, int H, int W,
+                    int C, float scale, void* stream) {
+  return launch<T, true, kFull, Wide>(feat, rois, mask, nullptr, nullptr,
+                                      out, argmax, B, P, H, W, C, scale,
+                                      stream);
 }
 
 template <typename T>
@@ -442,6 +490,26 @@ extern "C" int roi_pool_fwd_f32(const void* feat, const float* rois,
                                 float scale, void* stream) {
   return launch_fwd<F32>(feat, rois, mask, out, argmax, B, P, H, W, C, scale,
                          stream);
+}
+
+// The training forward for maps of more than 65535 cells: as
+// roi_pool_fwd_*, with argmax [B, P, 7, 7, C] int32 (never NULL).
+extern "C" int roi_pool_fwd_wide_bf16(const void* feat, const float* rois,
+                                      const uint8_t* mask, void* out,
+                                      void* argmax, int B, int P, int H,
+                                      int W, int C, float scale,
+                                      void* stream) {
+  return launch_fwd_wide<Bf16>(feat, rois, mask, out, argmax, B, P, H, W, C,
+                               scale, stream);
+}
+
+extern "C" int roi_pool_fwd_wide_f32(const void* feat, const float* rois,
+                                     const uint8_t* mask, void* out,
+                                     void* argmax, int B, int P, int H,
+                                     int W, int C, float scale,
+                                     void* stream) {
+  return launch_fwd_wide<F32>(feat, rois, mask, out, argmax, B, P, H, W, C,
+                              scale, stream);
 }
 
 // The stage profiler: as roi_pool_fwd_*, without the argmax, plus xs and cw

@@ -34,7 +34,8 @@ def build_dataset(name: str, proposal_file: Optional[str],
                   load_masks: bool = False, load_keypoints: bool = False):
     """The catalog's dataset ``name``: VOC (difficult objects kept for
     evaluation only), COCO (images without a non-crowd annotation dropped
-    in training only; masks and keypoints raise, as not ported) or web
+    in training only; with the instance masks and keypoints that
+    ``load_masks`` and ``load_keypoints`` ask for) or web
     data. A relative proposal path resolves under ``data_root`` when it is
     not found as given."""
     if (proposal_file and not os.path.isabs(proposal_file)

@@ -15,8 +15,10 @@ read.
 ``load_masks`` (``MODEL.MASK_ON``) gives each sample the non-crowd
 annotations' ``segmentation`` as ``structures/masks.py`` ``Masks``: polygon
 mode, or raster mode with every instance decoded when any of the image's
-segmentations is RLE. Keypoints belong to the next slice of the port:
-``load_keypoints`` raises.
+segmentations is RLE. ``load_keypoints`` (``MODEL.KEYPOINT_ON``) gives it
+their ``keypoints`` as ``structures/keypoints.py`` ``PersonKeypoints``
+[N, K, 3], K the longest annotation's count (17 when none has any),
+shorter ones zero-padded.
 """
 
 from __future__ import annotations
@@ -72,11 +74,8 @@ class COCODataset:
                  remove_images_without_annotations: bool = True,
                  proposal_file: Optional[str] = None, min_size: float = 2.0,
                  load_masks: bool = False, load_keypoints: bool = False):
-        if load_keypoints:
-            raise NotImplementedError(
-                "COCO keypoints (MODEL.KEYPOINT_ON) belong to the next slice "
-                "of the port (ROADMAP Queue 1)")
         self.load_masks = load_masks
+        self.load_keypoints = load_keypoints
         self.coco = MiniCOCO(ann_file)
         self.root = img_dir
         ids = self.coco.getImgIds()
@@ -166,7 +165,24 @@ class COCODataset:
                       click_labels=click_labels, scribbles=scribbles,
                       scribble_labels=scribble_labels,
                       gt_masks=(self._masks(anns, w, h) if self.load_masks
-                                else None))
+                                else None),
+                      gt_keypoints=(self._keypoints(anns, w, h)
+                                    if self.load_keypoints else None))
+
+    @staticmethod
+    def _keypoints(anns, w: int, h: int):
+        """The annotations' ``keypoints`` (flat x, y, v triples) as one
+        ``PersonKeypoints`` [N, K, 3]."""
+        from ..structures.keypoints import PersonKeypoints
+
+        kps = [a.get("keypoints", []) for a in anns]
+        k = max((len(x) // 3 for x in kps), default=17) or 17
+        arr = np.zeros((len(kps), k, 3), np.float32)
+        for i, x in enumerate(kps):
+            if x:
+                pts = np.asarray(x, np.float32).reshape(-1, 3)[:k]
+                arr[i, :len(pts)] = pts
+        return PersonKeypoints(arr, (w, h))
 
     @staticmethod
     def _masks(anns, w: int, h: int):

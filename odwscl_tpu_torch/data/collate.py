@@ -8,10 +8,11 @@ size that holds them (the largest bucket truncates). Clicks and scribbles,
 when any sample has them, pad to ``PARTIAL_CAP`` slots with a mask (the
 first ``PARTIAL_CAP`` of an image are kept). With ``include_gt`` (the
 supervised families: ``WSOD_ON False`` or ``RETINANET_ON``) the instance
-GT pads to ``GT_PAD`` slots, and the GT masks, when any sample has them,
+GT pads to ``GT_PAD`` slots, the GT masks, when any sample has them,
 are rasterized at 1/``MASK_RASTER_STRIDE`` of the padded canvas
-(``gt_bitmasks``). The batch is built on the CPU; the caller moves it to
-its device.
+(``gt_bitmasks``), and the GT keypoints, when any sample has them, pad to
+[B, GT_PAD, K, 3] (K the batch's largest; ``gt_keypoints``). The batch is
+built on the CPU; the caller moves it to its device.
 """
 
 from __future__ import annotations
@@ -106,10 +107,11 @@ class BatchCollator:
 
     def _pad_gt(self, samples: List[Sample], ph: int, pw: int) -> dict:
         """``gt_boxes`` [B, G, 4], ``gt_labels`` [B, G] int64, ``gt_mask``
-        [B, G] and, when a sample has masks, ``gt_bitmasks`` [B, G, ph //
-        s, pw // s]: each sample's masks resized to its image's size // s,
+        [B, G]; when a sample has masks, ``gt_bitmasks`` [B, G, ph // s,
+        pw // s]: each sample's masks resized to its image's size // s,
         thresholded, in the raster's top-left corner (where the image
-        lies on the canvas)."""
+        lies on the canvas); when a sample has keypoints, ``gt_keypoints``
+        [B, G, K, 3]."""
         b, g = len(samples), self.gt_pad
         boxes = np.zeros((b, g, 4), np.float32)
         labels = np.zeros((b, g), np.int64)
@@ -135,6 +137,17 @@ class BatchCollator:
                 n = min(len(raster), g)
                 bit[i, :n, :raster.shape[1], :raster.shape[2]] = raster[:n]
             out["gt_bitmasks"] = torch.from_numpy(bit)
+        if any(s.gt_keypoints is not None for s in samples):
+            k = max(s.gt_keypoints.keypoints.shape[1] for s in samples
+                    if s.gt_keypoints is not None)
+            kp = np.zeros((b, g, k, 3), np.float32)
+            for i, s in enumerate(samples):
+                if s.gt_keypoints is None or not len(s.gt_keypoints):
+                    continue
+                arr = s.gt_keypoints.keypoints
+                n = min(len(arr), g)
+                kp[i, :n, :arr.shape[1]] = arr[:n]
+            out["gt_keypoints"] = torch.from_numpy(kp)
         return out
 
 

@@ -2,9 +2,11 @@
 lighting, normalize.
 
 Counterpart of ``odwscl_tpu/data/transforms.py`` (the WSOD,
-partial-label and instance-mask fields; keypoints belong to the next
-slice of the port). GT masks (``structures/masks.py``) resize and flip
-with the image. Images
+partial-label, instance-mask and keypoint fields). GT masks
+(``structures/masks.py``) and GT keypoints (``structures/keypoints.py``)
+resize and flip with the image; a vertical flip of a sample with
+keypoints raises, as in the JAX package (only the horizontal flip is
+defined for them). Images
 are PIL images until ``to_array``, then numpy HWC float32; boxes are numpy
 [N, 4] xyxy. The train transform draws from a per-sample
 ``np.random.RandomState`` in the JAX package's order, so the same seed
@@ -39,8 +41,10 @@ class Sample:
     click_labels: Optional[np.ndarray] = None     # [K]
     scribbles: Optional[np.ndarray] = None        # [S, 4] xyxy
     scribble_labels: Optional[np.ndarray] = None  # [S]
-    # supervised instance GT: structures.masks.Masks, one per GT box
+    # supervised instance GT, one per GT box: structures.masks.Masks and
+    # structures.keypoints.PersonKeypoints
     gt_masks: Optional[Any] = None
+    gt_keypoints: Optional[Any] = None
 
 
 def get_resize_size(size_wh: Tuple[int, int], min_size: int,
@@ -73,8 +77,9 @@ IMAGENET_PCA_EIGVEC = np.array([
 
 def resize(sample: Sample, min_size, max_size: Optional[int],
            rng: Optional[np.random.RandomState] = None) -> Sample:
-    """PIL BILINEAR resize of the image; boxes, clicks and scribbles scale
-    with it. A sequence of ``min_size`` values picks one with ``rng``."""
+    """PIL BILINEAR resize of the image; boxes, clicks, scribbles, masks
+    and keypoints scale with it. A sequence of ``min_size`` values picks
+    one with ``rng``."""
     from PIL import Image
 
     if isinstance(min_size, (list, tuple)):
@@ -102,7 +107,10 @@ def resize(sample: Sample, min_size, max_size: Optional[int],
                                scribbles=scale(sample.scribbles),
                                gt_masks=(None if sample.gt_masks is None
                                          else sample.gt_masks.resize(
-                                             (ow, oh))))
+                                             (ow, oh))),
+                               gt_keypoints=(
+                                   None if sample.gt_keypoints is None
+                                   else sample.gt_keypoints.resize((ow, oh))))
 
 
 def _flip_points(pts: Optional[np.ndarray], axis: int, extent: int):
@@ -121,7 +129,8 @@ def _flip_masks(masks, method):
 
 def hflip(sample: Sample) -> Sample:
     """Horizontal flip with the +1 box convention (x' = W - 1 - x), for
-    boxes, scribbles and clicks."""
+    boxes, scribbles, clicks, masks and keypoints (left and right points
+    swap)."""
     img = sample.image
     if isinstance(img, np.ndarray):
         img = img[:, ::-1]
@@ -144,7 +153,9 @@ def hflip(sample: Sample) -> Sample:
                                clicks=_flip_points(sample.clicks, 0, w),
                                scribbles=flip(sample.scribbles),
                                gt_masks=_flip_masks(sample.gt_masks,
-                                                    FLIP_LEFT_RIGHT))
+                                                    FLIP_LEFT_RIGHT),
+                               gt_keypoints=_flip_masks(sample.gt_keypoints,
+                                                        FLIP_LEFT_RIGHT))
 
 
 def to_array(sample: Sample) -> Sample:
@@ -193,7 +204,10 @@ def color_jitter(sample: Sample, rng: np.random.RandomState,
 
 def vflip(sample: Sample) -> Sample:
     """Vertical flip with the +1 box convention (y' = H - 1 - y), for
-    boxes, scribbles and clicks."""
+    boxes, scribbles, clicks and masks. Raises with GT keypoints (their
+    flip is defined left-right only)."""
+    if sample.gt_keypoints is not None:
+        raise NotImplementedError("vflip with gt_keypoints is undefined")
     img = sample.image
     if isinstance(img, np.ndarray):
         img = img[::-1]

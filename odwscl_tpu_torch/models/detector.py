@@ -82,6 +82,8 @@ class Batch:
     gt_labels: Optional[torch.Tensor] = None        # [B, G] int64
     gt_mask: Optional[torch.Tensor] = None          # [B, G] bool
     gt_bitmasks: Optional[torch.Tensor] = None      # [B, G, Hr, Wr] f32
+    # KEYPOINT_ON: (x, y, visibility) per instance keypoint
+    gt_keypoints: Optional[torch.Tensor] = None     # [B, G, K, 3] f32
 
     def replace(self, **changes) -> "Batch":
         return dataclasses.replace(self, **changes)

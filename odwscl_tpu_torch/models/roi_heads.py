@@ -1,16 +1,17 @@
-"""The supervised box and mask heads over pooled rois.
+"""The supervised box, mask and keypoint heads over pooled rois.
 
 Counterpart of ``odwscl_tpu/models/roi_heads.py`` (``FastRCNNPredictor``,
-``CombinedROIHeads``), box and mask: the keypoint head belongs to the
-next slice of the port and ``keypoint_on`` raises. The caller owns the
-backbone and the pooler; the heads take pooled features [B, P, r, r, C]
-and the padded GT.
+``CombinedROIHeads``). The caller owns the backbone and the pooler; the
+heads take pooled features [B, P, r, r, C] and the padded GT.
 
 Eval gives the softmax scores [B, P, C] and the per-class decoded boxes
 [B, P, 4C] (not clipped, as in the JAX package); the engine runs the NMS,
-and the mask head then runs on the kept detections (``mask_probs``).
-Training gives the reference's loss names ``loss_classifier``,
-``loss_box_reg`` and, with masks, ``loss_mask``.
+and the mask and keypoint heads then run on the kept detections
+(``mask_probs``, ``kp_heatmaps``). Training gives the reference's loss
+names ``loss_classifier``, ``loss_box_reg`` and, with masks, ``loss_mask``,
+with keypoints ``loss_kp``: each roi's matched GT keypoints projected
+into its heatmap, counted where the box sampler drew the roi as a
+positive.
 """
 
 from __future__ import annotations
@@ -23,12 +24,12 @@ from torch import nn
 # the module, not its names: it imports models.matcher, which may run
 # this file first
 from ..losses import fast_rcnn
-from ..structures.boxes import decode_boxes
+from ..structures.boxes import decode_boxes, masked_iou
+from ..structures.keypoints import keypoints_to_heatmap
+from .keypoint_head import KeypointHead, keypoint_rcnn_loss
 from .mask_head import MaskHead, mask_head_targets, mask_rcnn_loss
+from .matcher import match_proposals
 from .vgg16 import VGGRoINeck
-
-KEYPOINTS_LATER = ("the keypoint head (MODEL.KEYPOINT_ON) belongs to the next "
-                   "slice of the port (ROADMAP Queue 1)")
 
 
 class FastRCNNPredictor(nn.Module):
@@ -60,12 +61,13 @@ class FastRCNNPredictor(nn.Module):
 
 class CombinedROIHeads(nn.Module):
     """The neck (``VGGRoINeck``, ``ResNetRoINeck`` or ``FPN2MLPExtractor``),
-    the box predictor ``box`` and with ``mask_on`` the mask head
-    ``mask``."""
+    the box predictor ``box``, with ``mask_on`` the mask head ``mask`` and
+    with ``keypoint_on`` the keypoint head ``keypoint``."""
 
     def __init__(self, num_classes: int, neck: nn.Module, neck_dim: int,
                  pooled_channels: int, mask_on: bool = False,
-                 keypoint_on: bool = False, mask_resolution: int = 14,
+                 keypoint_on: bool = False, num_keypoints: int = 17,
+                 mask_resolution: int = 14,
                  mask_conv_layers: Sequence[int] = (256, 256, 256, 256),
                  mask_dilation: int = 1, mask_raster_stride: float = 1.0,
                  fg_iou: float = 0.5, bg_iou: float = 0.5,
@@ -73,10 +75,9 @@ class CombinedROIHeads(nn.Module):
                  positive_fraction: float = 0.25, cls_agnostic: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if keypoint_on:
-            raise NotImplementedError(KEYPOINTS_LATER)
         self.num_classes = num_classes
         self.mask_on = mask_on
+        self.keypoint_on = keypoint_on
         self.mask_resolution = mask_resolution
         self.mask_raster_stride = mask_raster_stride
         self.fg_iou, self.bg_iou = fg_iou, bg_iou
@@ -89,10 +90,13 @@ class CombinedROIHeads(nn.Module):
         self.mask = (MaskHead(pooled_channels, num_classes, mask_conv_layers,
                               mask_dilation, compute_dtype)
                      if mask_on else None)
+        self.keypoint = (KeypointHead(pooled_channels, num_keypoints,
+                                      compute_dtype=compute_dtype)
+                         if keypoint_on else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for m in (self.neck, self.box, self.mask):
+        for m in (self.neck, self.box, self.mask, self.keypoint):
             if m is not None:
                 m.reset_parameters(generator)
 
@@ -105,32 +109,49 @@ class CombinedROIHeads(nn.Module):
         return torch.sigmoid(mlog[torch.arange(n, device=mlog.device), :, :,
                                   labels.clamp(min=0)])
 
+    def kp_heatmaps(self, pooled_flat: torch.Tensor) -> torch.Tensor:
+        """The detections' keypoint pass: pooled [N, r, r, C] -> logits
+        [N, H, H, K] (decoded by ``keypoint_head.heatmaps_to_keypoints``)."""
+        return self.keypoint(pooled_flat)
+
     def _neck(self, flat: torch.Tensor, generator, train: bool):
         keep = None
         if train and isinstance(self.neck, VGGRoINeck):
             keep = self.neck.draw_keep(flat.shape[0], generator, flat.device)
         return self.neck(flat, keep)
 
-    def forward_eval(self, pooled: torch.Tensor, boxes: torch.Tensor
-                     ) -> Dict[str, torch.Tensor]:
+    def forward_eval(self, pooled: torch.Tensor, boxes: torch.Tensor,
+                     include_aux: bool = False) -> Dict[str, torch.Tensor]:
         """{"scores" [B, P, C], "boxes" [B, P, 4C]}: the box pass (the
-        mask head runs on the kept detections, ``mask_probs``)."""
+        mask and keypoint heads run on the kept detections, ``mask_probs``
+        and ``kp_heatmaps``). ``include_aux`` adds every roi's
+        "mask_logits" [B, P, M, M, C] and "kp_logits" [B, P, H, H, K] of
+        the heads that are on."""
         b, p = pooled.shape[:2]
         flat = pooled.reshape(b * p, *pooled.shape[2:])
         cls, reg = self.box(self._neck(flat, None, False).reshape(b, p, -1))
         if self.cls_agnostic:
             reg = reg[..., 4:].repeat(1, 1, self.num_classes)
-        return {"scores": torch.softmax(cls, dim=-1),
-                "boxes": decode_boxes(reg, boxes)}
+        out = {"scores": torch.softmax(cls, dim=-1),
+               "boxes": decode_boxes(reg, boxes)}
+        if include_aux:
+            for key, head in (("mask_logits", self.mask),
+                              ("kp_logits", self.keypoint)):
+                if head is not None:
+                    aux = head(flat)
+                    out[key] = aux.reshape(b, p, *aux.shape[1:])
+        return out
 
     def forward_train(self, pooled: torch.Tensor, boxes: torch.Tensor,
                       box_mask: torch.Tensor, gt_boxes: torch.Tensor,
                       gt_labels: torch.Tensor, gt_mask: torch.Tensor,
                       gt_bitmasks: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      uniform: Optional[torch.Tensor] = None):
+                      uniform: Optional[torch.Tensor] = None,
+                      gt_keypoints: Optional[torch.Tensor] = None):
         """(losses, metrics). ``uniform`` [B, 2, P]: the sampler's draw
-        (else from ``generator``)."""
+        (else from ``generator``). ``gt_keypoints`` [B, G, K, 3]: the
+        keypoint head's GT."""
         b, p = pooled.shape[:2]
         flat = pooled.reshape(b * p, *pooled.shape[2:])
         cls, reg = self.box(self._neck(flat, generator, True).reshape(b, p,
@@ -160,4 +181,25 @@ class CombinedROIHeads(nn.Module):
                 self.mask_raster_stride) for i in range(b)]
             labels, targets, pos = (torch.cat(t) for t in zip(*parts))
             losses["loss_mask"] = mask_rcnn_loss(mlog, labels, targets, pos)
+        if self.keypoint_on:
+            if gt_keypoints is None:
+                raise ValueError("keypoint training needs the batch's GT "
+                                 "keypoints (the dataset's load_keypoints)")
+            kp_log = self.keypoint(flat)                # [B*P, H, H, K]
+            hms, valids = [], []
+            for i in range(b):
+                # each roi's matched GT keypoints, projected into its
+                # heatmap; only the sampler's positives count
+                iou = masked_iou(gt_boxes[i], gt_mask[i], boxes[i],
+                                 box_mask[i])
+                matched = match_proposals(iou, gt_mask[i], self.fg_iou,
+                                          self.bg_iou)
+                kp_roi = gt_keypoints[i][matched.clamp(min=0)]
+                hm, valid = keypoints_to_heatmap(kp_roi, boxes[i],
+                                                 kp_log.shape[1])
+                fg = (matched >= 0) & box_mask[i] & tgt.pos_mask[i]
+                hms.append(hm)
+                valids.append(valid * fg.to(valid.dtype)[:, None])
+            losses["loss_kp"] = keypoint_rcnn_loss(kp_log, torch.cat(hms),
+                                                   torch.cat(valids))
         return losses, metrics

@@ -1,10 +1,11 @@
 """The fully supervised detector: backbone -> pool -> CombinedROIHeads.
 
 Counterpart of ``odwscl_tpu/models/supervised.py`` (``FPN2MLPExtractor``,
-``SupervisedRCNN``, ``supervised_from_cfg``): Fast and Mask R-CNN over the
-batch's precomputed proposals (``MODEL.WSOD_ON False``), on a VGG16,
-R-*-C4/C5 or R-*-FPN body. FBNet bodies and the keypoint head belong to
-the next slice of the port and raise.
+``SupervisedRCNN``, ``supervised_from_cfg``): Fast, Mask and Keypoint
+R-CNN over the batch's precomputed proposals (``MODEL.WSOD_ON False``),
+on a VGG16, R-*-C4/C5, R-*-FPN or FBNet body (``FBNet-<arch>``, "default"
+when no arch follows: one stride-16 feature, pooled at
+``POOLER_SCALES[0]``, with the FPN's MLP neck).
 
 Pooling: ``POOLER_METHOD`` ROIPool (7x7) goes through
 ``RoIPoolFunction``, so on the card every call is the hand-written kernel
@@ -16,7 +17,8 @@ at that level's scale with the other levels' rois masked.
 ``eval_forward`` returns the box pass ({"scores", "boxes"}) and the
 pyramid under "features"; the engine runs the NMS and then
 ``predict_masks`` on the kept detections, with those features (four more
-pooling calls on an FPN body).
+pooling calls on an FPN body); ``predict_kp_heatmaps`` is the keypoint
+head's pass on them, alike.
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ from torch import nn
 
 from ..ops.roi_align import roi_align
 from ..ops.roi_pool import RoIPoolFunction
+from .fbnet import FBNetTrunk
 from .fpn import ResNetFPNBackbone, kaiming_uniform_a1, multilevel_roi_pool
 from .resnet import ResNetBackbone, ResNetRoINeck
-from .roi_heads import KEYPOINTS_LATER, CombinedROIHeads
+from .roi_heads import CombinedROIHeads
 from .vgg16 import VGGBackbone, VGGRoINeck
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -66,12 +69,12 @@ class FPN2MLPExtractor(nn.Module):
 class SupervisedRCNN(nn.Module):
     """Constructor fields mirror the JAX module's (``supervised_from_cfg``
     maps the config keys). ``freeze_at`` (``FREEZE_CONV_BODY_AT``) reaches
-    the VGG16 and C4/C5 bodies as in the WSOD detector; the FPN body keeps
-    only its norms frozen, as the JAX package's labels do."""
+    the VGG16 and C4/C5 bodies as in the WSOD detector; the FPN and FBNet
+    bodies keep only their norms frozen, as the JAX package's labels do."""
 
     def __init__(self, num_classes: int = 81, backbone_arch: str = "R-50-FPN",
                  mask_on: bool = False, keypoint_on: bool = False,
-                 mask_resolution: int = 14,
+                 num_keypoints: int = 17, mask_resolution: int = 14,
                  mask_conv_layers: Sequence[int] = (256, 256, 256, 256),
                  mask_dilation: int = 1, pooler_method: str = "ROIPool",
                  pooler_resolution: int = 7, pooler_scale: float = 0.0625,
@@ -82,8 +85,6 @@ class SupervisedRCNN(nn.Module):
                  mask_raster_stride: float = 4.0, freeze_at: int = 0,
                  compute_dtype: str = "bfloat16"):
         super().__init__()
-        if keypoint_on:
-            raise NotImplementedError(KEYPOINTS_LATER)
         if pooler_method not in ("ROIPool", "ROIAlign"):
             raise ValueError(f"unknown POOLER_METHOD {pooler_method!r}")
         if pooler_method == "ROIPool" and pooler_resolution != 7:
@@ -93,6 +94,7 @@ class SupervisedRCNN(nn.Module):
         dtype = _DTYPES[compute_dtype]
         self.num_classes = num_classes
         self.mask_on = mask_on
+        self.keypoint_on = keypoint_on
         self.pooler_method = pooler_method
         self.pooler_resolution = pooler_resolution
         self.pooler_scale = pooler_scale
@@ -116,13 +118,15 @@ class SupervisedRCNN(nn.Module):
             channels = self.backbone.out_channels
             neck = ResNetRoINeck(channels * r2, 2048, mlp_dim, dtype)
         elif arch.startswith("FBNet"):
-            raise NotImplementedError(
-                f"the {arch} body belongs to the next slice of the port "
-                "(ROADMAP Queue 1)")
+            name = arch.split("-", 1)[1] if "-" in arch else "default"
+            self.backbone = FBNetTrunk(name, compute_dtype=dtype)
+            channels = self.backbone.out_channels
+            neck = FPN2MLPExtractor(channels * r2, mlp_dim, dtype)
         else:
             raise ValueError(f"unknown backbone {arch!r}")
         self.roi_heads = CombinedROIHeads(
             num_classes, neck, mlp_dim, channels, mask_on=mask_on,
+            keypoint_on=keypoint_on, num_keypoints=num_keypoints,
             mask_resolution=mask_resolution,
             mask_conv_layers=tuple(mask_conv_layers),
             mask_dilation=mask_dilation,
@@ -163,27 +167,45 @@ class SupervisedRCNN(nn.Module):
         out["features"] = feats
         return out
 
+    def _pooled_detections(self, batch, det_boxes: torch.Tensor, features):
+        """[B * K, r, r, C] pooled at the detections det_boxes [B, K, 4]
+        (``features``: the eval pass's, else recomputed)."""
+        b, k = det_boxes.shape[:2]
+        feats = self.backbone(batch.images) if features is None else features
+        dmask = torch.ones((b, k), dtype=torch.bool, device=det_boxes.device)
+        pooled = self.pooled(feats, det_boxes.contiguous(), dmask)
+        return pooled.reshape(b * k, *pooled.shape[2:])
+
     @torch.no_grad()
     def predict_masks(self, batch, det_boxes: torch.Tensor,
                       det_labels: torch.Tensor, features=None
                       ) -> torch.Tensor:
         """The detections' mask pass: det_boxes [B, K, 4] (the batch's
-        frame), det_labels [B, K] -> probabilities [B, K, M, M]; pools at
-        the detections (``features``: the eval pass's, else recomputed)."""
+        frame), det_labels [B, K] -> probabilities [B, K, M, M]."""
         b, k = det_boxes.shape[:2]
-        feats = self.backbone(batch.images) if features is None else features
-        dmask = torch.ones((b, k), dtype=torch.bool, device=det_boxes.device)
-        pooled = self.pooled(feats, det_boxes.contiguous(), dmask)
         probs = self.roi_heads.mask_probs(
-            pooled.reshape(b * k, *pooled.shape[2:]), det_labels.reshape(-1))
+            self._pooled_detections(batch, det_boxes, features),
+            det_labels.reshape(-1))
         return probs.reshape(b, k, *probs.shape[1:])
+
+    @torch.no_grad()
+    def predict_kp_heatmaps(self, batch, det_boxes: torch.Tensor,
+                            features=None) -> torch.Tensor:
+        """The detections' keypoint pass: det_boxes [B, K, 4] (the batch's
+        frame) -> logits [B, K, H, H, Knum] (decoded by
+        ``keypoint_head.heatmaps_to_keypoints``)."""
+        b, k = det_boxes.shape[:2]
+        hm = self.roi_heads.kp_heatmaps(
+            self._pooled_detections(batch, det_boxes, features))
+        return hm.reshape(b, k, *hm.shape[1:])
 
     def train_forward(self, batch, generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
                       trace=None):
         """(losses, metrics). ``draws`` may hand in the sampler's uniforms
         ``fast_rcnn`` [B, 2, P] (else drawn from ``generator``, which also
-        draws the VGG16 neck's dropout)."""
+        draws the VGG16 neck's dropout); the mask and keypoint losses count
+        the rois that draw samples as positives."""
         if batch.gt_boxes is None:
             raise ValueError("supervised training needs the batch's GT "
                              "(the collator's include_gt, WSOD_ON False)")
@@ -193,7 +215,7 @@ class SupervisedRCNN(nn.Module):
         return self.roi_heads.forward_train(
             pooled, batch.boxes, batch.box_mask, batch.gt_boxes,
             batch.gt_labels, batch.gt_mask, batch.gt_bitmasks, generator,
-            draws.get("fast_rcnn"))
+            draws.get("fast_rcnn"), batch.gt_keypoints)
 
 
 def supervised_from_cfg(cfg) -> SupervisedRCNN:
@@ -208,6 +230,7 @@ def supervised_from_cfg(cfg) -> SupervisedRCNN:
         num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
         backbone_arch=cfg.MODEL.BACKBONE.CONV_BODY,
         mask_on=cfg.MODEL.MASK_ON, keypoint_on=cfg.MODEL.KEYPOINT_ON,
+        num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES,
         mask_resolution=mask_res,
         mask_conv_layers=tuple(cfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS),
         mask_dilation=cfg.MODEL.ROI_MASK_HEAD.DILATION,

@@ -14,13 +14,16 @@ the Pallas kernels ``odwscl_tpu/ops/roi_pool_pallas.py:_fwd_kernel`` and
   in row-major order (ties are never split), accumulates in f32 and
   returns the gradient in the feature's dtype.
 
-The training forward also returns that first maximum as an int16 code per
-output element (the argmax, as the reference CUDA ROIPool stores it): the
-offset ``(y - hs) * (we - ws) + (x - ws)`` of the cell inside its bin,
-read as an unsigned 16-bit value, or -1 (0xFFFF) for an empty bin or a
-masked roi. The backward routes the cotangent by it and never reads the
-map again. A bin can be as large as the map (a roi hanging off it), so the
-codes need H * W <= 65535 (``MAX_MAP_CELLS``); a larger map raises.
+The training forward also returns that first maximum as a code per output
+element (the argmax, as the reference CUDA ROIPool stores it): the offset
+``(y - hs) * (we - ws) + (x - ws)`` of the cell inside its bin, read as an
+unsigned value, or -1 (all ones) for an empty bin or a masked roi. The
+backward routes the cotangent by it and never reads the map again. A bin
+can be as large as the map (a roi hanging off it), so the code's width
+follows the map's shape (``code_dtype``): int16 while H * W <=
+``NARROW_MAP_CELLS`` (65535), int32 above (FPN P2 of an 800x1344 canvas,
+200x336 cells, among them). Only a map past ``MAX_MAP_CELLS`` (2^31 - 1
+cells, the kernels' int offsets) raises.
 
 ``roi_pool``, ``roi_pool_argmax`` and ``roi_pool_backward`` dispatch on
 the tensor's device: a CPU tensor goes to the plain version
@@ -44,9 +47,13 @@ from ..utils.cuda_build import CudaLibrary
 
 POOLED = 7
 # cells of the largest map whose bin offsets fit an unsigned 16-bit code
-# below the 0xFFFF that marks "no cell"
-MAX_MAP_CELLS = 65535
+# below the 0xFFFF that marks "no cell"; larger maps take int32 codes
+NARROW_MAP_CELLS = 65535
+# cells of the largest map the kernels address (int offsets)
+MAX_MAP_CELLS = 2 ** 31 - 1
 NO_CELL = -1
+# a decoded "no cell" per code dtype (the unsigned value of -1)
+UNSIGNED_NO_CELL = {torch.int16: 0xFFFF, torch.int32: 0xFFFFFFFF}
 
 # bytes of gathered roi windows held at once by the plain versions
 _PLAIN_CHUNK_BYTES = 1 << 28
@@ -218,39 +225,52 @@ def _first_maxima(geo: _Windows, pooled: int):
                        key.clamp(max=big - 1), live)
 
 
-def check_map_cells(h: int, w: int, level: Optional[str] = None) -> None:
-    """Raise unless every bin offset of an [h, w] map fits a 16-bit code;
-    ``level`` (an FPN level's name) goes into the message."""
+def code_dtype(h: int, w: int, level: Optional[str] = None) -> torch.dtype:
+    """The argmax codes' dtype for an [h, w] map, from its shape alone:
+    int16 while every bin offset (at most h * w - 1) fits an unsigned
+    16-bit code below 0xFFFF, else int32. A map past ``MAX_MAP_CELLS``
+    raises; ``level`` (an FPN level's name) goes into the message."""
+    if h * w <= NARROW_MAP_CELLS:
+        return torch.int16
     if h * w > MAX_MAP_CELLS:
         where = f" at FPN level {level}" if level else ""
-        raise ValueError(f"roi_pool argmax{where}: a bin of a {h}x{w} map "
-                         f"may hold {h * w} cells, more than the "
-                         f"{MAX_MAP_CELLS} that a 16-bit code addresses")
+        raise ValueError(f"roi_pool argmax{where}: a {h}x{w} map has "
+                         f"{h * w} cells, more than the {MAX_MAP_CELLS} "
+                         "that the kernels address")
+    return torch.int32
 
 
-def encode_cells(code: torch.Tensor) -> torch.Tensor:
-    """Bin offsets 0..65534, or -1, as the int16 codes (two's complement
-    of the unsigned 16-bit value)."""
-    return torch.where(code >= 32768, code - 65536, code).to(torch.int16)
+def encode_cells(code: torch.Tensor,
+                 dtype: torch.dtype = torch.int16) -> torch.Tensor:
+    """Bin offsets, or -1, as codes of ``dtype``: int16 for offsets
+    0..65534 (the two's complement of the unsigned 16-bit value), int32
+    for any offset."""
+    if dtype == torch.int16:
+        return torch.where(code >= 32768, code - 65536, code).to(torch.int16)
+    return code.to(torch.int32)
 
 
 def decode_cells(argmax: torch.Tensor) -> torch.Tensor:
-    """int16 codes -> int32 bin offsets 0..65534, or 65535 for no cell."""
-    return argmax.to(torch.int32) & 0xFFFF
+    """Codes -> their unsigned bin offsets: int16 -> int32 0..65534, or
+    65535 for no cell; int32 -> int64, 0xFFFFFFFF for no cell
+    (``UNSIGNED_NO_CELL``)."""
+    if argmax.dtype == torch.int16:
+        return argmax.to(torch.int32) & 0xFFFF
+    return argmax.to(torch.int64) & 0xFFFFFFFF
 
 
 def roi_pool_argmax_plain(feat: torch.Tensor, rois: torch.Tensor,
                           mask: torch.Tensor, spatial_scale: float,
                           pooled: int = POOLED):
     """Plain torch training forward: (``roi_pool_plain``'s output, the
-    int16 argmax codes [B, P, pooled, pooled, C]) with the first row-major
-    maximum of ``roi_pool_backward_plain``."""
+    argmax codes [B, P, pooled, pooled, C] of ``code_dtype(H, W)``) with
+    the first row-major maximum of ``roi_pool_backward_plain``."""
     b, h, w, c = feat.shape
     p = rois.shape[1]
-    check_map_cells(h, w)
+    dtype = code_dtype(h, w)
     out = torch.zeros((b * p, pooled, pooled, c), dtype=feat.dtype,
                       device=feat.device)
-    code = torch.full((b * p, pooled, pooled, c), NO_CELL, dtype=torch.int32,
+    code = torch.full((b * p, pooled, pooled, c), NO_CELL, dtype=torch.int64,
                       device=feat.device)
     if b * p:
         hs, _, ws, we = edges = roi_bin_edges(rois, spatial_scale, pooled,
@@ -265,24 +285,24 @@ def roi_pool_argmax_plain(feat: torch.Tensor, rois: torch.Tensor,
             x = geo.c0[s:e, None] + key % geo.mw
             off = ((y - hs[s:e, ph, None]) * bw[s:e, pw, None]
                    + x - ws[s:e, pw, None])
-            code[s:e, ph, pw] = torch.where(live, off, NO_CELL).to(torch.int32)
+            code[s:e, ph, pw] = torch.where(live, off, NO_CELL)
     shape = (b, p, pooled, pooled, c)
-    return out.reshape(shape), encode_cells(code).reshape(shape)
+    return out.reshape(shape), encode_cells(code, dtype).reshape(shape)
 
 
 def roi_pool_backward_argmax_plain(argmax: torch.Tensor, rois: torch.Tensor,
                                    mask: torch.Tensor, grad: torch.Tensor,
                                    spatial_scale: float, map_hw,
                                    pooled: int = POOLED) -> torch.Tensor:
-    """Plain torch backward from the stored argmax: argmax and grad [B, P,
-    pooled, pooled, C], map_hw (H, W) -> d feat [B, H, W, C] in grad's
-    dtype. Decode each code to its map cell, one f32 ``index_add_`` of the
-    live cotangents, then the cast."""
+    """Plain torch backward from the stored argmax: argmax (int16 or int32
+    codes) and grad [B, P, pooled, pooled, C], map_hw (H, W) -> d feat [B,
+    H, W, C] in grad's dtype. Decode each code to its map cell, one f32
+    ``index_add_`` of the live cotangents, then the cast."""
     b, p = rois.shape[:2]
     h, w = map_hw
     c = grad.shape[-1]
     dev = grad.device
-    check_map_cells(h, w)
+    none = UNSIGNED_NO_CELL[argmax.dtype]
     dfeat = torch.zeros(b * h * w * c, dtype=torch.float32, device=dev)
     n = b * p
     if n:
@@ -297,7 +317,7 @@ def roi_pool_backward_argmax_plain(argmax: torch.Tensor, rois: torch.Tensor,
         for s in range(0, n, chunk):
             e = min(s + chunk, n)
             off = decode_cells(codes[s:e]).to(torch.int64)
-            live = (off != 0xFFFF) & live_roi[s:e, None, None, None]
+            live = (off != none) & live_roi[s:e, None, None, None]
             y = hs[s:e, :, None, None] + off // bw[s:e]
             x = ws[s:e, None, :, None] + off % bw[s:e]
             cell = ((img[s:e, None, None, None] * h + y) * w + x) * c + ch
@@ -306,7 +326,8 @@ def roi_pool_backward_argmax_plain(argmax: torch.Tensor, rois: torch.Tensor,
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    for fn in (lib.roi_pool_fwd_bf16, lib.roi_pool_fwd_f32):
+    for fn in (lib.roi_pool_fwd_bf16, lib.roi_pool_fwd_f32,
+               lib.roi_pool_fwd_wide_bf16, lib.roi_pool_fwd_wide_f32):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -320,7 +341,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
-    for fn in (lib.roi_pool_bwd_bf16, lib.roi_pool_bwd_f32):
+    for fn in (lib.roi_pool_bwd_bf16, lib.roi_pool_bwd_f32,
+               lib.roi_pool_bwd_wide_bf16, lib.roi_pool_bwd_wide_f32):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -370,17 +392,19 @@ def _check_vectors(name, t, c):
 
 
 def _launch_fwd(feat, rois, mask, spatial_scale, pooled, argmax):
+    """``argmax``: None (the eval forward) or the codes' dtype."""
     _check_cuda_inputs(feat, rois, mask, pooled)
     b, h, w, c = feat.shape
     _check_vectors("roi_pool", feat, c)
     p = rois.shape[1]
     out = torch.empty((b, p, pooled, pooled, c), dtype=feat.dtype,
                       device=feat.device)
-    codes = (torch.empty(out.shape, dtype=torch.int16, device=feat.device)
-             if argmax else None)
+    codes = (None if argmax is None else
+             torch.empty(out.shape, dtype=argmax, device=feat.device))
     lib = KERNEL.get()
-    fn = (lib.roi_pool_fwd_bf16 if feat.dtype == torch.bfloat16
-          else lib.roi_pool_fwd_f32)
+    fn = getattr(lib, "roi_pool_fwd_"
+                      f"{'wide_' if argmax == torch.int32 else ''}"
+                      f"{'bf16' if feat.dtype == torch.bfloat16 else 'f32'}")
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         err = fn(feat.data_ptr(), rois.data_ptr(), mask.data_ptr(),
@@ -403,7 +427,7 @@ def roi_pool(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
     """
     if feat.device.type == "cpu":
         return roi_pool_plain(feat, rois, mask, spatial_scale, pooled)
-    out, _ = _launch_fwd(feat, rois, mask, spatial_scale, pooled, False)
+    out, _ = _launch_fwd(feat, rois, mask, spatial_scale, pooled, None)
     roi_pool.launches += 1
     return out
 
@@ -414,43 +438,62 @@ roi_pool.launches = 0
 def roi_pool_argmax(feat: torch.Tensor, rois: torch.Tensor,
                     mask: torch.Tensor, spatial_scale: float,
                     pooled: int = POOLED, level: Optional[str] = None):
-    """The training forward: (``roi_pool``'s output, the int16 argmax codes
-    [B, P, pooled, pooled, C]; see the module docstring). Raises if H * W >
-    ``MAX_MAP_CELLS``, naming ``level`` (an FPN level) when given.
+    """The training forward: (``roi_pool``'s output, the argmax codes [B,
+    P, pooled, pooled, C]; see the module docstring), int16 or int32 by
+    ``code_dtype(H, W)``, which names ``level`` (an FPN level) if it
+    raises.
 
     CPU tensors take ``roi_pool_argmax_plain``. CUDA tensors launch the
-    kernel with the argmax from the same scan, or raise; each launch adds
-    one to ``roi_pool_argmax.launches``.
+    kernel with the argmax from the same scan (its int16 or int32
+    instantiation), or raise; each launch adds one to
+    ``roi_pool_argmax.launches``, and an int32 one also to
+    ``roi_pool_argmax.launches_wide``.
     """
-    check_map_cells(*feat.shape[1:3], level)
+    dtype = code_dtype(*feat.shape[1:3], level)
     if feat.device.type == "cpu":
         return roi_pool_argmax_plain(feat, rois, mask, spatial_scale, pooled)
-    out = _launch_fwd(feat, rois, mask, spatial_scale, pooled, True)
+    out = _launch_fwd(feat, rois, mask, spatial_scale, pooled, dtype)
     roi_pool_argmax.launches += 1
+    roi_pool_argmax.launches_wide += dtype == torch.int32
     return out
 
 
-roi_pool_argmax.launches = 0
+roi_pool_argmax.launches = roi_pool_argmax.launches_wide = 0
 
 
 def roi_pool_backward(argmax: torch.Tensor, rois: torch.Tensor,
                       mask: torch.Tensor, grad: torch.Tensor,
                       spatial_scale: float, map_hw,
                       pooled: int = POOLED) -> torch.Tensor:
-    """ROIPool backward from the training forward's argmax: argmax (int16)
-    and grad [B, P, pooled, pooled, C], map_hw (H, W) -> d feat [B, H, W, C]
-    in grad's dtype.
+    """ROIPool backward from the training forward's argmax: argmax (the
+    codes of ``code_dtype(H, W)``) and grad [B, P, pooled, pooled, C],
+    map_hw (H, W) -> d feat [B, H, W, C] in grad's dtype.
 
     CPU tensors take ``roi_pool_backward_argmax_plain``. CUDA tensors
     launch the kernel on the current stream, which writes every cell of d
     feat once, or raise; each launch adds one to
-    ``roi_pool_backward.launches``.
+    ``roi_pool_backward.launches``, and one from int32 codes also to
+    ``roi_pool_backward.launches_wide``.
     """
-    h, w = map_hw
-    check_map_cells(h, w)
+    codes_dtype = code_dtype(*map_hw)
     if grad.device.type == "cpu":
         return roi_pool_backward_argmax_plain(argmax, rois, mask, grad,
                                               spatial_scale, map_hw, pooled)
+    dfeat = _launch_bwd(argmax, rois, mask, grad, spatial_scale, map_hw,
+                        pooled, codes_dtype)
+    roi_pool_backward.launches += 1
+    roi_pool_backward.launches_wide += codes_dtype == torch.int32
+    return dfeat
+
+
+roi_pool_backward.launches = roi_pool_backward.launches_wide = 0
+
+
+def _launch_bwd(argmax, rois, mask, grad, spatial_scale, map_hw, pooled,
+                codes_dtype):
+    """The backward kernel's instantiation for ``codes_dtype`` (argmax's
+    dtype must be it), after the checks."""
+    h, w = map_hw
     if grad.device.type != "cuda":
         raise ValueError(f"roi_pool_backward: grad on {grad.device} is "
                          "neither a CPU tensor (plain path) nor a CUDA "
@@ -464,7 +507,7 @@ def roi_pool_backward(argmax: torch.Tensor, rois: torch.Tensor,
     c = grad.shape[-1]
     shape = (b, p, pooled, pooled, c)
     for name, t, dtype in (("grad", grad, grad.dtype),
-                           ("argmax", argmax, torch.int16)):
+                           ("argmax", argmax, codes_dtype)):
         if (t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != grad.device):
             raise ValueError(f"roi_pool backward kernel takes a contiguous "
@@ -474,8 +517,9 @@ def roi_pool_backward(argmax: torch.Tensor, rois: torch.Tensor,
     _check_rois_mask(rois, mask, b, grad.device)
     dfeat = torch.empty((b, h, w, c), dtype=grad.dtype, device=grad.device)
     lib = BWD_KERNEL.get()
-    fn = (lib.roi_pool_bwd_bf16 if grad.dtype == torch.bfloat16
-          else lib.roi_pool_bwd_f32)
+    fn = getattr(lib, "roi_pool_bwd_"
+                      f"{'wide_' if codes_dtype == torch.int32 else ''}"
+                      f"{'bf16' if grad.dtype == torch.bfloat16 else 'f32'}")
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         err = fn(argmax.data_ptr(), rois.data_ptr(), mask.data_ptr(),
@@ -483,20 +527,17 @@ def roi_pool_backward(argmax: torch.Tensor, rois: torch.Tensor,
                  float(spatial_scale), stream)
     if err != 0:
         raise RuntimeError(f"roi_pool_bwd launch failed: cudaError_t {err}")
-    roi_pool_backward.launches += 1
     return dfeat
-
-
-roi_pool_backward.launches = 0
 
 
 class RoIPoolFunction(torch.autograd.Function):
     """``roi_pool`` forward; when a gradient is needed
     (``torch.is_grad_enabled()`` and ``feat.requires_grad``, decided in
-    ``apply``) the training forward ``roi_pool_argmax``, whose int16 argmax
-    is saved and routes the cotangent in ``roi_pool_backward``. Under
-    ``no_grad`` nothing is saved. rois and mask get no gradient. ``level``
-    names the FPN level in the argmax's map-size error."""
+    ``apply``) the training forward ``roi_pool_argmax``, whose argmax
+    (int16, or int32 past 65535 map cells) is saved and routes the
+    cotangent in ``roi_pool_backward``. Under ``no_grad`` nothing is saved.
+    rois and mask get no gradient. ``level`` names the FPN level in the
+    map-size error."""
 
     @classmethod
     def apply(cls, feat, rois, mask, spatial_scale, level=None):

@@ -124,7 +124,8 @@ BWD_VARIANTS = {
     "ablation: list and epilogue only": {
         r"const int items = count \* kPooled;": "const int items = 0;"},
     "ablation: loads, no decode": {
-        r"if \(code == 0xffff\) continue;": "if (code != 0x7ffe) continue;"},
+        r"if \(code == Code::kNone\) continue;":
+            "if (code != 0x7ffe) continue;"},
     "ablation: plain shared adds": {
         r"atomicAdd\(&acc\[([^]]*)\],\s*([^;]*)\);": r"acc[\1] += \2;"},
 }

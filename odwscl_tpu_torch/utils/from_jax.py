@@ -24,13 +24,18 @@ numpy arrays (with or without the outer ``params`` level) or as an
   ``cam.cam_conv.bias``.
 
 The supervised families keep the flax names as they are:
-``SupervisedRCNN`` holds ``backbone`` (a VGG16 or ResNet body, or an FPN
-body ``backbone/{body, fpn}``) and ``roi_heads/{neck, box, mask}``;
-``RetinaNetDetector`` holds ``backbone/{body, fpn}`` and ``head``. The
-mask head's ``conv5_mask`` is a flax ``ConvTranspose`` (kernel [kh, kw,
-in, out], applied without the spatial flip of a true transposed conv):
-torch's ``ConvTranspose2d`` weight [in, out, kh, kw] is that kernel
-flipped in both spatial axes.
+``SupervisedRCNN`` holds ``backbone`` (a VGG16 or ResNet body, an FPN
+body ``backbone/{body, fpn}``, or an FBNet trunk ``backbone/{first,
+stages/block{i}/{pw, dw, pwl, se/{fc1, fc2}}}`` of ``conv`` kernels and
+``bn`` leaves) and ``roi_heads/{neck, box, mask, keypoint}`` (the keypoint
+head: ``keypoint/{extractor/conv_fcn1..8, predictor/kps_score_lowres}``);
+``RetinaNetDetector`` holds ``backbone/{body, fpn}`` and ``head``. A
+grouped or depthwise HWIO kernel [kh, kw, in / groups, out] goes to OIHW
+[out, in / groups, kh, kw], as any conv kernel. The mask head's
+``conv5_mask`` and the keypoint head's ``kps_score_lowres`` are flax
+``ConvTranspose`` layers (kernel [kh, kw, in, out], applied without the
+spatial flip of a true transposed conv): torch's ``ConvTranspose2d``
+weight [in, out, kh, kw] is that kernel flipped in both spatial axes.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 _MODULES = ("backbone", "neck", "sim_net", "pred", "cdb", "cam",
             "roi_heads", "head")
 # flax ConvTranspose kernels (spatially flipped against torch's)
-_TRANSPOSED = ("conv5_mask",)
+_TRANSPOSED = ("conv5_mask", "kps_score_lowres")
 _LEAVES = ("kernel", "bias", "scale", "mean", "var", "cam_conv_kernel",
            "cam_conv_bias")
 _CDB_CHILDREN = ("conv1", "conv2", "downsample", "bn1", "bn2")

@@ -10,7 +10,8 @@ is imported in a subprocess where ``jax``, ``flax``, ``optax``,
 ``jax*`` or ``odwscl_tpu.*`` module may be loaded. The supervised
 families' modules (FPN, RetinaNet, the supervised R-CNN, its heads, the
 mask structures, roi_align and the Fast R-CNN loss) are among those
-named. No tolerance applies.
+named, and so are the keypoint structures and head, the FBNet bodies and
+the deformable-conv ops. No tolerance applies.
 """
 
 import os
@@ -45,9 +46,11 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "models.matcher", "models.roi_sampler",
                  "losses.partial_labels", "models.fpn", "models.retinanet",
                  "models.supervised", "models.roi_heads", "models.mask_head",
-                 "structures.masks", "ops.roi_align", "losses.fast_rcnn"):
+                 "structures.masks", "ops.roi_align", "losses.fast_rcnn",
+                 "structures.keypoints", "models.keypoint_head",
+                 "models.fbnet", "ops.deform_conv"):
     assert "odwscl_tpu_torch." + required in names, required
-assert len(names) >= 76, names
+assert len(names) >= 80, names
 """
 
 

@@ -407,9 +407,10 @@ def test_dataset_transforms_and_collator_match(coco_json):
     assert got.gt_bitmasks.sum() > 0
     # the WSOD collator keeps its surface
     assert BatchCollator(7, proposal_buckets=(16,))(samples).gt_boxes is None
+    # keypoints load (annotations without any: 17 invisible points each)
     ann, imgs = coco_json
-    with pytest.raises(NotImplementedError, match="next slice"):
-        COCODataset(ann, imgs, load_keypoints=True)
+    kp = COCODataset(ann, imgs, load_keypoints=True)[0].gt_keypoints
+    assert kp.keypoints.shape == (3, 17, 3) and not kp.keypoints.any()
 
 
 def _gt_predictions(ds, shift=0):
@@ -497,10 +498,12 @@ def test_build_model_dispatch():
             build_model(_tcfg("R-18-FPN", **{"MODEL.MASK_ON": True,
                                              "MODEL.ROI_MASK_HEAD.RESOLUTION":
                                              28}))
-        with pytest.raises(NotImplementedError, match="next slice"):
-            build_model(_tcfg("FBNet-default"))
-        with pytest.raises(NotImplementedError, match="next slice"):
-            build_model(_tcfg("R-18-FPN", **{"MODEL.KEYPOINT_ON": True}))
+        # the FBNet bodies and the keypoint head build, as in JAX
+        fb = build_model(_tcfg("FBNet-default"))
+        assert isinstance(fb, SupervisedRCNN)
+        assert fb.backbone.out_channels == 96
+        kp = build_model(_tcfg("R-18-FPN", **{"MODEL.KEYPOINT_ON": True}))
+        assert kp.keypoint_on and kp.roi_heads.keypoint is not None
         for f in ("coco_mask_rcnn_smoke.yaml", "coco_retinanet_smoke.yaml"):
             cfg = get_default_cfg()
             cfg.merge_from_file(os.path.join(REPO, "configs", "coco", f))

@@ -69,14 +69,14 @@ def _feat(case, seed=3):
     return torch.from_numpy(feat).to(dtype), dtype
 
 
-def _literal_codes(feat, rois, mask):
+def _literal_codes(feat, rois, mask, scale=SCALE):
     """The first row-major maximum of every bin by a numpy scan: codes
-    [B, P, 7, 7, C] int32, -1 where no cell routes."""
+    [B, P, 7, 7, C] int64, -1 where no cell routes."""
     f = feat.to(torch.float32).numpy()
     b, h, w, c = f.shape
     p = rois.shape[1]
-    codes = np.full((b, p, 7, 7, c), -1, np.int32)
-    cells = np.floor(rois.astype(np.float32) * np.float32(SCALE)
+    codes = np.full((b, p, 7, 7, c), -1, np.int64)
+    cells = np.floor(rois.astype(np.float32) * np.float32(scale)
                      + np.float32(0.5)).astype(np.int64)
     for i in range(b):
         for j in range(p):
@@ -191,19 +191,84 @@ def test_code_encoding_is_unsigned_16_bit():
 
 
 def test_oversized_map_raises_before_allocating():
-    """A bin may span the whole map, so H * W must fit 16 bits; meta
-    tensors allocate nothing."""
-    feat = torch.empty((1, 256, 257, 8), device="meta")
-    rois = torch.empty((1, 2, 4), device="meta")
-    mask = torch.empty((1, 2), dtype=torch.bool, device="meta")
-    with pytest.raises(ValueError, match="65535"):
-        rp.roi_pool_argmax(feat, rois, mask, SCALE)
-    with pytest.raises(ValueError, match="65535"):
-        rp.roi_pool_backward(torch.empty((1, 2, 7, 7, 8), dtype=torch.int16,
-                                         device="meta"), rois, mask,
+    """A bin may span the whole map, so a map of more than 65535 cells
+    takes int32 codes: at 256x257 (65,792 cells) codes past 65,535 encode,
+    decode and route the plain backward exactly, while a 255x257 map
+    (65,535 cells) keeps the int16 codes. Only a map past the kernels'
+    2^31 - 1 cells raises, before anything is allocated (meta tensors)."""
+    assert rp.code_dtype(255, 257) == torch.int16
+    assert rp.code_dtype(256, 257) == torch.int32
+    assert rp.code_dtype(200, 336) == torch.int32     # FPN P2 of 800x1344
+    h, w, c = 256, 257, 8
+    rng = np.random.RandomState(11)
+    f = rng.randn(1, h, w, c).astype(np.float32)
+    f[0, h - 1, w - 7, :4] = 10.0         # offset 65,785 in a whole-map bin
+    feat = torch.from_numpy(f)
+    # a roi 7 times the map (its first bin is the whole map), a roi hanging
+    # off the map, a small one, a masked one; stride 1
+    rois = torch.tensor([[[0.0, 0.0, 7.0 * w - 1, 7.0 * h - 1],
+                          [-20.0, -30.0, w - 1.0, h - 1.0],
+                          [10.0, 20.0, 40.0, 33.0],
+                          [0.0, 0.0, 10.0, 10.0]]])
+    mask = torch.tensor([[True, True, True, False]])
+    out, codes = rp.roi_pool_argmax(feat, rois, mask, 1.0)
+    assert codes.dtype == torch.int32
+    assert torch.equal(out, rp.roi_pool_plain(feat, rois, mask, 1.0))
+    decoded = rp.decode_cells(codes)
+    assert int(decoded[decoded != rp.UNSIGNED_NO_CELL[torch.int32]].max()) \
+        > rp.NARROW_MAP_CELLS
+    want = _literal_codes(feat, rois.numpy(), mask.numpy(), scale=1.0)
+    np.testing.assert_array_equal(
+        np.where(decoded.numpy() == 0xFFFFFFFF, -1, decoded.numpy()), want)
+    g = torch.rand(codes.shape, generator=torch.Generator().manual_seed(1)) \
+        + 0.1
+    got = rp.roi_pool_backward(codes, rois, mask, g, 1.0, (h, w))
+    ref = rp.roi_pool_backward_plain(feat, rois, mask, g, 1.0)
+    assert torch.equal(got != 0, ref != 0)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=0,
+                               rtol=F32_RTOL)
+    # past what the kernels address: raises before allocating
+    big = torch.empty((1, 46341, 46341, 8), device="meta")
+    meta_rois = torch.empty((1, 2, 4), device="meta")
+    meta_mask = torch.empty((1, 2), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="P2.*2147483647"):
+        rp.roi_pool_argmax(big, meta_rois, meta_mask, SCALE, level="P2")
+    with pytest.raises(ValueError, match="2147483647"):
+        rp.roi_pool_backward(torch.empty((1, 2, 7, 7, 8), dtype=torch.int32,
+                                         device="meta"), meta_rois, meta_mask,
                              torch.empty((1, 2, 7, 7, 8), device="meta"),
-                             SCALE, (256, 257))
-    rp.check_map_cells(255, 257)                    # 65535 cells: fits
+                             SCALE, (46341, 46341))
+
+
+def test_wide_code_encoding_is_int32():
+    off = torch.tensor([0, 1, 65535, 65536, 67199, 2 ** 31 - 2, rp.NO_CELL],
+                       dtype=torch.int64)
+    codes = rp.encode_cells(off, torch.int32)
+    assert codes.dtype == torch.int32
+    assert rp.decode_cells(codes).tolist() == [0, 1, 65535, 65536, 67199,
+                                               2 ** 31 - 2, 0xFFFFFFFF]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_routes_a_wide_map_without_a_flag(dtype):
+    """``RoIPoolFunction`` on a 256x260 map saves int32 codes, and its
+    gradient equals the map-rescan backward's."""
+    rng = np.random.RandomState(12)
+    feat = torch.from_numpy(rng.randn(1, 256, 260, 8).astype(
+        np.float32)).to(dtype).requires_grad_()
+    rois = torch.tensor([[[0.0, 0.0, 2079.0, 2047.0],
+                          [400.0, 320.0, 1900.0, 1800.0]]])
+    mask = torch.ones(1, 2, dtype=torch.bool)
+    out = rp.RoIPoolFunction.apply(feat, rois, mask, SCALE, "P2")
+    assert out.grad_fn.saved_tensors[0].dtype == torch.int32
+    g = (torch.rand(out.shape, generator=torch.Generator().manual_seed(2))
+         + 0.1).to(dtype)
+    out.backward(g)
+    ref = rp.roi_pool_backward_plain(feat.detach(), rois, mask, g, SCALE)
+    assert torch.equal(feat.grad != 0, ref != 0)
+    np.testing.assert_allclose(feat.grad.float().numpy(), ref.float().numpy(),
+                               atol=0, rtol=(BF16_RTOL if dtype ==
+                                             torch.bfloat16 else F32_RTOL))
 
 
 def test_function_keeps_argmax_only_when_a_gradient_is_needed(monkeypatch):

@@ -7,8 +7,13 @@ layout of 96x128-scale images (the configs' own size), with only the
 iteration count cut to 2 (and the checkpoint period with it):
 ``train_net`` trains and writes its checkpoint, then ``test_net``
 evaluates that checkpoint: bbox, and bbox + segm for the Mask R-CNN.
-Every loss finite; every COCO stat a number in [0, 1] (or -1 where an
-area range holds no GT, the evaluator's convention).
+The Mask R-CNN config also runs with ``MODEL.KEYPOINT_ON True`` (the
+synthetic annotations carry 3x3 keypoint grids; bbox + segm evaluated,
+as the JAX package has no keypoint evaluation) and as an FBNet-default
+Fast R-CNN (``MODEL.BACKBONE.CONV_BODY FBNet-default``, its stride-16
+``POOLER_SCALES (0.0625,)``, ``MODEL.MASK_ON False``). Every loss finite;
+every COCO stat a number in [0, 1] (or -1 where an area range holds no
+GT, the evaluator's convention).
 """
 
 import math
@@ -36,18 +41,31 @@ def root(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name,losses,segm", [
-    ("coco_retinanet_smoke", ("loss_retina_cls", "loss_retina_reg"), False),
-    ("coco_mask_rcnn_smoke", ("loss_classifier", "loss_box_reg",
-                              "loss_mask"), True)])
-def test_smoke_config_trains_and_evaluates(root, tmp_path, name, losses,
-                                           segm):
+KEYPOINTS = ["MODEL.KEYPOINT_ON", "True"]
+FBNET = ["MODEL.BACKBONE.CONV_BODY", "FBNet-default",
+         "MODEL.ROI_BOX_HEAD.POOLER_SCALES", "(0.0625,)",
+         "MODEL.MASK_ON", "False"]
+
+
+@pytest.mark.parametrize("name,opts,losses,segm", [
+    ("coco_retinanet_smoke", [], ("loss_retina_cls", "loss_retina_reg"),
+     False),
+    ("coco_mask_rcnn_smoke", [], ("loss_classifier", "loss_box_reg",
+                                  "loss_mask"), True),
+    ("coco_mask_rcnn_smoke", KEYPOINTS, ("loss_classifier", "loss_box_reg",
+                                         "loss_mask", "loss_kp"), True),
+    ("coco_mask_rcnn_smoke", FBNET, ("loss_classifier", "loss_box_reg"),
+     False)], ids=["coco_retinanet_smoke-losses0-False",
+                   "coco_mask_rcnn_smoke-losses1-True", "keypoint_rcnn",
+                   "fbnet"])
+def test_smoke_config_trains_and_evaluates(root, tmp_path, name, opts,
+                                           losses, segm):
     config = os.path.join(REPO, "configs", "coco", name + ".yaml")
     out = str(tmp_path / "out")
     timing = {}
     train_net.main(["--config-file", config, "--data-root", root,
                     "--device", "cpu", "--skip-test", "OUTPUT_DIR", out,
-                    *CUT], timing_out=timing)
+                    *CUT, *opts], timing_out=timing)
     steps = timing["train"]["steps"]
     assert len(steps) == 2
     for st in steps:
@@ -56,7 +74,7 @@ def test_smoke_config_trains_and_evaluates(root, tmp_path, name, losses,
     weights = os.path.join(out, "model_final.pt")
     res = test_net.main(["--config-file", config, "--data-root", root,
                          "--device", "cpu", "--weights", weights,
-                         "OUTPUT_DIR", str(tmp_path / "eval")])
+                         "OUTPUT_DIR", str(tmp_path / "eval"), *opts])
     (r,) = res.values()
     keys = STATS + tuple("segm_" + k for k in STATS) if segm else STATS
     assert set(r) == set(keys)

@@ -1,5 +1,6 @@
-"""The port's whole R-18-FPN Mask R-CNN (``SupervisedRCNN``) and R-18
-RetinaNet (``RetinaNetDetector``) against the JAX package's, on the CPU.
+"""The port's whole R-18-FPN Mask R-CNN and Mask + Keypoint R-CNN
+(``SupervisedRCNN``) and R-18 RetinaNet (``RetinaNetDetector``) against
+the JAX package's, on the CPU.
 
 The flax parameters (FrozenBN leaves randomized) reach the port through
 utils/from_jax.py; the same numpy batch goes through both, f32. The images
@@ -18,11 +19,13 @@ sample draws the JAX keys' uniforms (``draws["fast_rcnn"]``), its JAX side
 wrapped to a fixed key.
 
 Sizes: 32x64 images (unit normals x 20), P = 48 rois of 6-30 px, 4 GT
-boxes with random bitmasks at stride 4. The mask logits are scaled by
+boxes with random bitmasks at stride 4 (and, for the keypoint model, 5
+keypoints each, the head's full 8x512 tower). The mask logits are scaled by
 ``MASK_LOGIT_SCALE`` (the random FPN features put them at O(100), where
 a probability's bound would read 100 times the logits' f32 drift).
 
-Tolerances: scores and mask probabilities 1e-5; boxes 1e-3 px; losses
+Tolerances: scores, mask probabilities and keypoint logits (over their
+largest) 1e-5; boxes 1e-3 px; losses
 1e-5 relative; every trainable tensor's gradient within 1e-4 of its
 largest magnitude; the sampled rois and the anchor labels equal (checked
 through the targets the loss reads); RetinaNet's decode: valid masks
@@ -60,7 +63,10 @@ MASK_SEED, RETINA_SEED = 15, 25
 MASK_LOGIT_SCALE = 0.01
 
 
-def _batch(seed, h=H, w=W, p=P, g=G, max_wh=30.0):
+def _batch(seed, h=H, w=W, p=P, g=G, max_wh=30.0, keypoints=0):
+    """The seeded batch; ``keypoints`` > 0 adds that many GT keypoints per
+    instance (drawn from their own seed, inside and around each GT box,
+    visibility 0-2), leaving every other field as without them."""
     rng = np.random.RandomState(seed)
     images = (rng.randn(2, h, w, 3) * IMG_SCALE).astype(np.float32)
     x1y1 = rng.uniform(0, [w - 12, h - 12], (2, p, 2))
@@ -80,6 +86,14 @@ def _batch(seed, h=H, w=W, p=P, g=G, max_wh=30.0):
                   box_mask=box_mask, labels=np.ones((2, 7), np.float32),
                   gt_boxes=gt, gt_labels=gt_labels, gt_mask=gt_mask,
                   gt_bitmasks=bit)
+    if keypoints:
+        kr = np.random.RandomState(seed + 1000)
+        kp = np.zeros((2, g, keypoints, 3), np.float32)
+        span = gt[..., 2:] - gt[..., :2]
+        kp[..., :2] = gt[:, :, None, :2] + kr.uniform(
+            -0.2, 1.2, (2, g, keypoints, 2)) * span[:, :, None]
+        kp[..., 2] = kr.randint(0, 3, (2, g, keypoints))
+        fields["gt_keypoints"] = kp
     jb = JBatch(**{k: jnp.asarray(v.astype(np.int32) if k == "gt_labels"
                                   else v) for k, v in fields.items()})
     tb = {k: torch.from_numpy(v) for k, v in fields.items()}
@@ -165,12 +179,20 @@ def _leaves(tree, prefix=""):
     return out
 
 
-def _check_grads(model, jgrads):
+def _check_grads(model, jgrads, zero=()):
+    """Every trainable tensor's gradient against JAX's, within GRAD_REL of
+    its largest magnitude; ``zero``: tensors whose exact gradient is 0
+    (both sides within GRAD_REL of the model's largest gradient)."""
     got = _leaves(jax_params_from_state_dict(
         {n: p.grad for n, p in model.named_parameters() if p.requires_grad}))
     want = _leaves(jgrads)
     assert got and set(got) <= set(want)
+    top = max(np.abs(v).max() for v in want.values())
     for k in got:
+        if k in zero:
+            assert max(np.abs(got[k]).max(), np.abs(want[k]).max()) \
+                <= GRAD_REL * top, k
+            continue
         scale = np.abs(want[k]).max()
         err = np.abs(got[k] - want[k]).max()
         assert err <= GRAD_REL * max(scale, 1e-6), (k, err, scale)
@@ -244,6 +266,128 @@ def test_mask_rcnn_train_step_matches(monkeypatch):
     sum(losses.values()).backward()
     n = _check_grads(tm, grads)
     assert n >= 30           # body convs, FPN, neck, box and mask heads
+
+
+KP_LOGIT_MAX = 4.0
+KP_BIAS_MARGIN = 0.1
+
+
+def _active_tower(tm, params, tb):
+    """Set the keypoint tower's biases so that every pre-activation over
+    the batch's pooled rois lies at least KP_BIAS_MARGIN of its channel's
+    range above 0 (f64 pass of the port), and scale the deconv's kernel
+    so the logits peak at KP_LOGIT_MAX. Its 8 x 512 units over 96 rois
+    (19M pre-activations) cannot keep the 1e-6 ReLU margin, and one flip
+    moves every gradient below it by a permille; with every unit active
+    the train step reads the f32 drift. The tower's ReLUs with units on
+    both sides are held to JAX in the eval test here and on a small tower
+    in tests/test_torch_keypoints.py."""
+    import copy
+
+    import torch.nn.functional as F
+
+    m64 = copy.deepcopy(tm).double()
+    for mod in m64.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    kp = params["roi_heads"]["keypoint"]
+    with torch.no_grad():
+        pooled = m64.pooled(m64.backbone(tb.images.double()), tb.boxes,
+                            tb.box_mask)
+        x = pooled.reshape(-1, *pooled.shape[2:]).permute(0, 3, 1, 2)
+        ext = m64.roi_heads.keypoint.extractor
+        for i in range(1, ext.n + 1):
+            pre = F.conv2d(x, getattr(ext, f"conv_fcn{i}").weight, padding=1)
+            lo = pre.amin(dim=(0, 2, 3))
+            hi = pre.amax(dim=(0, 2, 3))
+            bias = -lo + KP_BIAS_MARGIN * (hi - lo)
+            kp["extractor"][f"conv_fcn{i}"]["bias"] = bias.numpy().astype(
+                np.float32)
+            x = pre + bias[None, :, None, None]
+        dec = m64.roi_heads.keypoint.predictor.kps_score_lowres
+        logits = F.conv_transpose2d(x, dec.weight, None, stride=2, padding=1)
+    kp["predictor"]["kps_score_lowres"]["kernel"] *= np.float32(
+        KP_LOGIT_MAX / logits.abs().max().item())
+    return params
+
+
+@functools.lru_cache(maxsize=None)
+def _keypoint_rcnn(seed=MASK_SEED, active=False):
+    """A Mask + Keypoint R-CNN (5 keypoints) on the Mask R-CNN's batch
+    with GT keypoints added (its images, and so its ReLU margin, kept);
+    ``active``: the keypoint tower all active (``_active_tower``)."""
+    import copy
+
+    jb, tb = _batch(seed, keypoints=5)
+    kw = dict(num_classes=7, backbone_arch="R-18-FPN", mask_on=True,
+              keypoint_on=True, num_keypoints=5, mask_conv_layers=(32, 32),
+              mlp_dim=64, roi_batch_size=32, mask_raster_stride=4.0,
+              compute_dtype="float32")
+    jm = JRCNN(**kw)
+    params = _jax_params(jm, jb)
+    params["roi_heads"]["mask"]["predictor"]["mask_fcn_logits"]["kernel"] \
+        *= MASK_LOGIT_SCALE
+    tm = _port(SupervisedRCNN(**kw), params)
+    if active:
+        params = _active_tower(tm, copy.deepcopy(params), tb)
+        tm = _port(SupervisedRCNN(**kw), params)
+    return jm, params, jb, tm, tb
+
+
+def test_keypoint_rcnn_eval_matches():
+    jm, params, jb, tm, tb = _keypoint_rcnn()
+    want = jax.jit(lambda v, b: jm.apply(v, b, train=False))(
+        {"params": params}, jb)
+    got = tm.eval_forward(tb)
+    np.testing.assert_allclose(got["scores"].numpy(),
+                               np.asarray(want["scores"]), atol=SCORE_ATOL)
+    np.testing.assert_allclose(got["boxes"].numpy(),
+                               np.asarray(want["boxes"]), atol=BOX_ATOL)
+    det = tb.boxes[:, 5:15].contiguous()
+    want_hm = np.asarray(jax.jit(lambda v, b, d: jm.apply(
+        v, b, d, method="predict_kp_heatmaps"))(
+        {"params": params}, jb, jnp.asarray(det.numpy())))
+    for feats in (got["features"], None):
+        hm = tm.predict_kp_heatmaps(tb, det, feats).numpy()
+        assert hm.shape == want_hm.shape == (2, 10, 28, 28, 5)
+        assert np.abs(hm - want_hm).max() <= SCORE_ATOL * np.abs(
+            want_hm).max()
+    # every roi's aux logits (the JAX init_all pass)
+    aux = tm.roi_heads.forward_eval(
+        tm.pooled(got["features"], tb.boxes, tb.box_mask), tb.boxes,
+        include_aux=True)
+    assert aux["kp_logits"].shape == (2, P, 28, 28, 5)
+    assert aux["mask_logits"].shape == (2, P, 14, 14, 7)
+
+
+def test_keypoint_rcnn_train_step_matches(monkeypatch):
+    jm, params, jb, tm, tb = _keypoint_rcnn(active=True)
+    assert _relu_margin(tm, tb) >= 1e-6
+    real = jroi_heads.prepare_fast_rcnn_targets
+    monkeypatch.setattr(jroi_heads, "prepare_fast_rcnn_targets",
+                        lambda rng, *a, **k: real(KEY, *a, **k))
+
+    def loss_fn(p):
+        losses, _ = jm.apply({"params": p}, jb, train=True,
+                             rngs={"augment": jax.random.PRNGKey(5)})
+        return sum(losses.values()), losses
+
+    (_, want), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params)
+    losses, _ = tm.train_forward(tb, draws=_draws(tb))
+    assert set(losses) == set(want) == {"loss_classifier", "loss_box_reg",
+                                        "loss_mask", "loss_kp"}
+    assert float(want["loss_kp"]) > 0
+    for k in want:
+        np.testing.assert_allclose(losses[k].item(), float(want[k]),
+                                   rtol=LOSS_RTOL, err_msg=k)
+    sum(losses.values()).backward()
+    # the deconv's bias gradient is exactly 0: a per-map constant through
+    # the bilinear x2 and a softmax over the map
+    n = _check_grads(tm, grads,
+                     zero={"roi_heads/keypoint/predictor/kps_score_lowres/"
+                           "bias"})
+    assert n >= 48                    # + the 8 tower convs, the deconv
 
 
 def test_pooling_window_difference():
