@@ -198,6 +198,26 @@ Phases (any failure ends the run with a non-zero exit code):
    (``CONV_BODY FBNet-default``, ``POOLER_SCALES (0.0625,)``, ``MASK_ON
    False``): ``train_net`` 5 steps, ``test_net`` (bbox, segm with
    masks), launches per step and per batch checked.
+22. (Run after 8, on phase 7's data.) Data-parallel training as a user
+   launches it: ``train_net --distributed`` in a subprocess with
+   ``RANK=0 WORLD_SIZE=1`` (``nccl``), phase 7's config, seed and data,
+   10 steps, ``--use-tensorboard`` and ``--profile-dir``. Its first step's
+   losses and mining counters must equal phase 7's first step, the later
+   steps' total loss within 0.1 relative, beside the gap of a second
+   plain run (run in the phase) to phase 7's (#2's f32 atomics add in
+   another order in each run, and two plain bf16 runs part after step 1);
+   ``scalars.jsonl`` must hold 10 records and the profile directory a
+   trace; each step launches #1[argmax] and #2 once.
+   Its step ms, device idle share and peak GB are printed beside phase
+   7's. Then ``test_net`` with no ``--weights`` on that ``OUTPUT_DIR``
+   (device-resize TTA) must evaluate the checkpoint ``last_checkpoint``
+   names, through #1.
+23. Tensor- and spatial parallelism at world size 1 (an in-process
+   ``nccl`` group): ``tp_neck_apply`` on the full neck (16,384 rows,
+   25,088 -> 4,096 -> 4,096, bf16) against ``tp_neck_plain``, and
+   ``sp_backbone_apply`` on a 1280x1664 batch of 8 (bf16) against the
+   plain backbone, both bit-exact, and timed beside them (the model's
+   own neck too, whose bias rides its GEMM: its gap is printed).
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -260,6 +280,9 @@ RESIZE_MEAN = 0.35
 C2048_CHUNK = 256
 # the end-to-end numbers, printed again as one line near the end
 SUMMARY = []
+# phase_train's runs by label: the step logs and their median, idle share
+# and peak memory (phase 7a compares its distributed run with phase 7's)
+TRAIN_RUNS = {}
 R50_STEPS = 10
 
 
@@ -1129,6 +1152,10 @@ def phase_train(rp, tmp, config, steps, label, opts=(), period=None,
           f"{t['profile_wall_s']:.2f} s, traced); max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; CLI wall "
           f"{wall:.2f} s")
+    TRAIN_RUNS[label] = {
+        "steps": steps_log, "median_ms": med * 1e3,
+        "idle": t["device_idle_share"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     SUMMARY.append(f"{label} train: median step {med * 1e3:.1f} ms = "
                    f"{8 / med:.2f} images/s, idle "
                    f"{t['device_idle_share']:.3f}, peak "
@@ -1147,6 +1174,236 @@ def phase_train(rp, tmp, config, steps, label, opts=(), period=None,
         if not os.path.exists(os.path.join(out, name)):
             raise AssertionError(f"checkpoint {name} missing")
     return launches[1:], os.path.join(out, "model_final.pt")
+
+
+# phase 22: the data-parallel path at world size 1
+DIST_STEPS = 10
+# steps 2-10 against phase 7's: #2's f32 atomics add in another order in
+# each run, so two bf16 runs part by rounding after step 1, and a mining
+# counter or pseudo-label that flips moves the losses by percents: four
+# plain twins of phase 7's run parted from it by up to 1.9e-2 in the
+# total loss (and by 0.56 in a loss of 2e-5), the distributed runs by up
+# to 2.5e-2. The total loss is held to 0.1 relative (a run whose updates
+# went wrong parts by more: the loss falls from 0.94 to ~0.35 in 10
+# steps); the twin's gap is printed beside it
+DIST_LOSS_RTOL = 0.1
+# train_net as a user launches it, its launches counted in its process
+DIST_LAUNCHER = r"""
+import json, runpy, sys
+from odwscl_tpu_torch.ops import roi_pool as rp
+rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+rp.roi_pool_backward.launches = 0
+sys.argv = ["train_net"] + sys.argv[1:]
+runpy.run_module("odwscl_tpu_torch.tools.train_net", run_name="__main__")
+print("LAUNCHES " + json.dumps([rp.roi_pool.launches,
+                                 rp.roi_pool_argmax.launches,
+                                 rp.roi_pool_backward.launches]))
+"""
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_distributed(rp, tmp, config, ref_label):
+    """Phase 22 (see the module's docstring). Returns the launches
+    (fwd[argmax], bwd) of the training and #1's of the evaluation."""
+    import subprocess
+
+    import torch
+    from odwscl_tpu_torch.tools import test_net
+
+    ref = TRAIN_RUNS[ref_label]
+    phase_train(rp, tmp, config, DIST_STEPS, ref_label + " twin",
+                ("MODEL.WEIGHT", ""))
+    twin = TRAIN_RUNS[ref_label + " twin"]["steps"]
+    out = os.path.join(tmp, "train_distributed")
+    prof = os.path.join(out, "profile")
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "PYTHONPATH": os.pathsep.join(
+               [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    cmd = [sys.executable, "-c", DIST_LAUNCHER, "--config-file", config,
+           "--data-root", tmp, "--device", "cuda", "--distributed",
+           "--use-tensorboard", "--profile-dir", prof, "--skip-test",
+           "OUTPUT_DIR", out, "SOLVER.MAX_ITER", str(DIST_STEPS),
+           "SOLVER.CHECKPOINT_PERIOD", str(DIST_STEPS), "MODEL.WEIGHT", ""]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"train_net --distributed exited "
+                             f"{proc.returncode}")
+    launches = json.loads(proc.stdout.rsplit("LAUNCHES ", 1)[1]
+                          .splitlines()[0])
+    if launches != [0, DIST_STEPS, DIST_STEPS]:
+        raise AssertionError(f"distributed: kernel launches (fwd, "
+                             f"fwd[argmax], bwd) {launches} for "
+                             f"{DIST_STEPS} steps")
+    with open(os.path.join(out, "logs", "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if [r["iteration"] for r in recs] != list(range(1, DIST_STEPS + 1)):
+        raise AssertionError(f"scalars.jsonl iterations "
+                             f"{[r['iteration'] for r in recs]}")
+    trace = os.path.join(prof, "worker0.pt.trace.json")
+    if not os.path.exists(trace) or os.path.getsize(trace) == 0:
+        raise AssertionError(f"no profiler trace at {trace}")
+    with open(os.path.join(prof, "window_rank0.json")) as f:
+        window = json.load(f)
+    steps = ref["steps"]
+    keys = [k for k in steps[0] if k not in ("iter", "step_s", "data_s")]
+    for name, run in (("distributed", recs), ("twin", twin)):
+        bad = [(k, run[0][k], steps[0][k]) for k in keys
+               if run[0][k] != steps[0][k]]
+        if bad:
+            raise AssertionError(f"{name} step 1 != phase 7's: {bad}")
+
+    def gaps(run):
+        """Per step 2-10: the total loss's relative gap to phase 7's, and
+        the counters that differ."""
+        return [(abs(r["loss"] - st["loss"]) / abs(st["loss"]),
+                 [k for k in keys if k.startswith("n_") and r[k] != st[k]])
+                for r, st in zip(run[1:], steps[1:])]
+
+    dist_gaps, twin_gaps = gaps(recs), gaps(twin)
+    worst = max(g for g, _ in dist_gaps)
+    print(f"[train] steps 2-{DIST_STEPS}, total loss rel gap to phase 7 "
+          f"(counters that differ): distributed " + ", ".join(
+              f"{g:.1e} ({len(c)})" for g, c in dist_gaps) + "; plain twin "
+          + ", ".join(f"{g:.1e} ({len(c)})" for g, c in twin_gaps))
+    if worst > DIST_LOSS_RTOL:
+        raise AssertionError(f"distributed steps 2-{DIST_STEPS}: total loss "
+                             f"rel gap {worst:.3e} > {DIST_LOSS_RTOL} (the "
+                             f"plain twin's: "
+                             f"{max(g for g, _ in twin_gaps):.3e})")
+    med = statistics.median(r["time"] for r in recs[4:])
+    twin_run = TRAIN_RUNS[ref_label + " twin"]
+    print(f"[train] distributed (train_net --distributed, nccl, world 1): "
+          f"{DIST_STEPS} steps; step 1's {len(keys)} losses and counters "
+          f"equal phase 7's (and the plain twin's); steps 2-{DIST_STEPS}: "
+          f"worst total loss gap {worst:.3e} (the twin's "
+          f"{max(g for g, _ in twin_gaps):.3e}) within {DIST_LOSS_RTOL}")
+    print(f"[train] distributed: median step {med * 1e3:.1f} ms over steps "
+          f"5-{DIST_STEPS} (the plain twin: {twin_run['median_ms']:.1f} ms "
+          f"over the same steps; phase 7: {ref['median_ms']:.1f} ms over 5-"
+          f"{len(steps)}); device idle share {window['device_idle_share']:.3f}"
+          f" over steps {window['first_iter']}-{window['last_iter']} (twin: "
+          f"{twin_run['idle']:.3f} over 5-{DIST_STEPS}; phase 7: "
+          f"{ref['idle']:.3f} over 5-{len(steps)}); peak "
+          f"{window['max_memory_allocated_bytes'] / 1e9:.2f} GB (twin: "
+          f"{twin_run['peak_gb']:.2f}); trace "
+          f"{os.path.getsize(trace) / 1e6:.1f} MB; process wall {wall:.1f} s")
+    SUMMARY.append(f"distributed world-1 train: median step {med * 1e3:.1f} "
+                   f"ms (plain twin {twin_run['median_ms']:.1f}), idle "
+                   f"{window['device_idle_share']:.3f} (twin "
+                   f"{twin_run['idle']:.3f}), peak "
+                   f"{window['max_memory_allocated_bytes'] / 1e9:.2f} GB")
+
+    seen = {}
+    load = test_net.load_model
+
+    def record(cfg, weights=None):
+        model = load(cfg, weights)
+        seen.update(weights=weights, state=model.state_dict())
+        return model
+
+    rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+    rp.roi_pool_backward.launches = 0
+    test_net.load_model = record
+    try:
+        res = test_net.main(["--config-file", config, "--data-root", tmp,
+                             "--device", "cuda", "OUTPUT_DIR", out,
+                             "TPU.EVAL_DEVICE_RESIZE", "True"])
+    finally:
+        test_net.load_model = load
+    evals = (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+             rp.roi_pool_backward.launches)
+    with open(os.path.join(out, "last_checkpoint")) as f:
+        last = f.read().strip()
+    if seen["weights"] != last:
+        raise AssertionError(f"test_net evaluated {seen['weights']}, not "
+                             f"last_checkpoint's {last}")
+    want = torch.load(last, map_location="cpu", weights_only=True)["model"]
+    if any(not torch.equal(seen["state"][k].cpu(), v)
+           for k, v in want.items()):
+        raise AssertionError("test_net's model is not the checkpoint's")
+    (r,) = res.values()
+    if not math.isfinite(r["map"]) or not evals[0] or any(evals[1:]):
+        raise AssertionError(f"distributed checkpoint eval: mAP {r['map']}, "
+                             f"launches {evals}")
+    print(f"[eval] test_net without --weights evaluated "
+          f"{os.path.basename(last)} (last_checkpoint): mAP {r['map']:.4f}, "
+          f"roi_pool_fwd launches {evals[0]}")
+    return (launches[1], launches[2]), evals[0]
+
+
+TP_ROWS = 16384
+SP_BATCH = (8, 1280, 1664)
+
+
+def phase_tp_sp(dev):
+    """Phase 23 (see the module's docstring)."""
+    import torch
+    import torch.distributed as dist
+    from odwscl_tpu_torch.models.vgg16 import VGGBackbone, VGGRoINeck
+    from odwscl_tpu_torch.parallel import (shard_neck_params,
+                                           sp_backbone_apply, tp_neck_apply,
+                                           tp_neck_plain)
+
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        bf16 = torch.bfloat16
+        g = torch.Generator().manual_seed(0)
+        gd = torch.Generator(device=dev).manual_seed(0)
+        neck = VGGRoINeck(25088, 4096, bf16, 0.0)
+        neck.reset_parameters(g)
+        neck.to(dev)
+        x = torch.randn(TP_ROWS, 7, 7, 512, generator=gd, device=dev,
+                        dtype=bf16).relu_()
+        shard = shard_neck_params(neck, 0, 1)
+        with torch.no_grad():
+            got = tp_neck_apply(shard, x, None, bf16)
+            want = tp_neck_plain(neck, x, bf16)
+            model = neck(x)
+        if not torch.equal(got, want):
+            raise AssertionError(f"tp_neck_apply != tp_neck_plain: max "
+                                 f"{(got.float() - want.float()).abs().max()}")
+        gap = ((got.float() - model.float()).abs().max()
+               / model.float().abs().max()).item()
+        with torch.no_grad():
+            tp_ms = cuda_ms(lambda: tp_neck_apply(shard, x, None, bf16), 10)
+            plain_ms = cuda_ms(lambda: tp_neck_plain(neck, x, bf16), 10)
+            neck_ms = cuda_ms(lambda: neck(x), 10)
+        del x
+        bb = VGGBackbone("VGG16-OICR", bf16)
+        bb.reset_parameters(g)
+        bb.to(dev)
+        images = torch.randn(*SP_BATCH, 3, generator=gd, device=dev) * 50
+        with torch.no_grad():
+            got = sp_backbone_apply(bb, images, None)
+            want = bb(images)
+            if not torch.equal(got, want):
+                raise AssertionError("sp_backbone_apply != the backbone: "
+                                     f"max {(got.float() - want.float()).abs().max()}")
+            sp_ms = cuda_ms(lambda: sp_backbone_apply(bb, images, None), 5)
+            bb_ms = cuda_ms(lambda: bb(images), 5)
+    finally:
+        dist.destroy_process_group()
+    print(f"[parallel] tp_neck_apply, world 1, bf16 [{TP_ROWS}, 25088] -> "
+          f"4096 -> 4096: bit-exact vs tp_neck_plain; {tp_ms:.3f} ms (plain "
+          f"{plain_ms:.3f}, the model's neck {neck_ms:.3f}, whose bias in the "
+          f"GEMM's epilogue rounds once: gap {gap:.2e} of its largest)")
+    print(f"[parallel] sp_backbone_apply, world 1, bf16 {list(SP_BATCH)}: "
+          f"bit-exact vs the backbone; {sp_ms:.3f} ms (backbone {bb_ms:.3f})")
+    SUMMARY.append(f"tp world 1 {tp_ms:.3f} ms (plain {plain_ms:.3f}); sp "
+                   f"world 1 {sp_ms:.3f} ms (backbone {bb_ms:.3f})")
 
 
 # the main config's training variants at full width: (label, config
@@ -2475,7 +2732,7 @@ def phase_supervised_card_vs_cpu(dev, rp):
                     r["valid"] = out["valid"].sum()
                     with torch.no_grad():
                         anchors, r["logits"], r["deltas"] = model.dense(
-                            bt.images)
+                            model.backbone(bt.images))
                     r["anchor_labels"] = retinanet_targets(
                         anchors, bt.gt_boxes, bt.gt_labels, bt.gt_mask)[0]
                     draws = None
@@ -2692,7 +2949,7 @@ def phase_fullsize_eval(dev, rp, canvas=FPN_EVAL_HW,
         def run():
             if label == "RetinaNet":
                 (anchors, logits, deltas), t_dense = timed(
-                    lambda: model.dense(batch.images))
+                    lambda: model.dense(model.backbone(batch.images)))
                 dec, t_dec = timed(lambda: retinanet_decode(
                     anchors, logits, deltas, batch.image_sizes.flip(-1),
                     model.score_thresh, model.pre_nms_top_n))
@@ -3507,6 +3764,10 @@ def main():
                                         ("det", True)])
         int8_eval = timed("int8 eval main path", phase_int8_eval, rp, q, tmp,
                           CONFIG, ckpt)
+        (dist_fwd, dist_bwd), dist_eval = timed(
+            "distributed training", phase_distributed, rp, tmp, CONFIG,
+            "VGG16-OICR")
+        timed("tp and sp", phase_tp_sp, dev)
         (r50_fwd, r50_bwd), ckpt = timed(
             "R-50-C5 train", phase_train, rp, tmp, CONFIG_R50, R50_STEPS,
             "R-50-C5", ("MODEL.WEIGHT", cfg_r50.MODEL.WEIGHT))
@@ -3550,6 +3811,7 @@ def main():
     # the int32 instantiations: the paths on maps past 65,535 cells
     wide_paths = {k: v[3:] for k, v in kp_full.items()}
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
+                       "VGG16-OICR distributed checkpoint eval": dist_eval,
                        **{f"VGG16-OICR int8 eval {k}": v[2]
                           for k, v in int8_eval.items()},
                        **{f"{k} eval": v["eval"] for k, v in variants.items()
@@ -3557,11 +3819,13 @@ def main():
                        "COCO14 eval": coco["COCO14"]["eval"],
                        **{k: v[0] for k, v in sup_paths.items()}},
                "fwd_argmax": {"VGG16-OICR": train_fwd, "R-50-C5": r50_fwd,
+                              "VGG16-OICR distributed": dist_fwd,
                               **{k: v["train"][0]
                                  for k, v in variants.items()},
                               **{k: v["train"][0] for k, v in coco.items()},
                               **{k: v[1] for k, v in sup_paths.items()}},
                "bwd": {"VGG16-OICR": train_bwd, "R-50-C5": r50_bwd,
+                       "VGG16-OICR distributed": dist_bwd,
                        **{k: v["train"][1] for k, v in variants.items()},
                        **{k: v["train"][1] for k, v in coco.items()},
                        **{k: v[2] for k, v in sup_paths.items()}}}

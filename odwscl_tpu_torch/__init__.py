@@ -4,10 +4,14 @@ The JAX package ``odwscl_tpu`` is the reference; this package mirrors its
 layout and names so that every module has its counterpart at the same
 relative path. It imports torch, numpy and the standard library only.
 
-Covered so far: the VOC evaluation path (precomputed proposals -> VGG16-OICR
--> 7x7 ROIPool -> fc6/fc7 -> MIST heads -> AVG/UNION decode -> TTA merge ->
-per-class NMS -> VOC mAP / CorLoc). The ROIPool forward runs a hand-written
-CUDA kernel (``csrc/roi_pool_fwd.cu``) on the card; every other op is torch.
+Covered: the training and evaluation paths of every model family of the
+JAX ``build_model`` (VOC and COCO, the WSOD variants, int8 serving),
+multi-process training (``parallel/``), the utilities and the CLIs; the
+Orbax checkpoint import and ``tools/int8_accuracy_study.py`` are still to
+come (ROADMAP.md). The ROIPool forward and backward and the int8 conv and
+quantize run hand-written CUDA kernels (``csrc/*.cu``) on the card; the
+other ops are torch, and the host's proposal cleaning is native C++
+(``csrc/host_ops.cpp``).
 
 Entry points default to ``device="cuda"`` and raise when no card is present;
 tests pass ``device="cpu"``.

@@ -1,7 +1,8 @@
 """Loader assembly: VOC, COCO and web datasets.
 
 Counterpart of ``odwscl_tpu/data/build.py``: dataset + sampler + transform
-+ collator. The train loader yields CPU ``Batch``es (one process), over
++ collator. The train loader yields CPU ``Batch``es (a process's share of
+each global batch when several train), over
 one dataset or several concatenated, with aspect grouping or
 ``SOLVER.CLASS_BATCH`` pairs; the eval loader yields ``(batch, samples,
 indices)``, sharded by process when several run. A thread pool prepares
@@ -16,6 +17,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from ..config.catalog import DatasetCatalog
 from ..utils.dist import process_count_and_index
@@ -87,16 +89,20 @@ class TrainLoader:
     sample at (iteration, index) is transformed with
     ``RandomState((seed + iteration * 100003 + index) % 2**31)``, the
     iteration counted from 0 at the start of training, so a resumed run
-    sees the arrays of an uninterrupted one."""
+    sees the arrays of an uninterrupted one, and each process of a
+    data-parallel run the images of one process."""
 
     def __init__(self, dataset, transform: TrainTransform,
                  collator: BatchCollator, batch_size: int, max_iter: int,
                  start_iter: int = 0, seed: int = 1234,
                  aspect_grouping: bool = True, num_workers: int = 4,
-                 class_batch: bool = False):
+                 class_batch: bool = False, process_count: int = 1,
+                 process_index: int = 0, agree=None):
         """``class_batch`` (``SOLVER.CLASS_BATCH``) batches image pairs
         that share a class (``class_batch_pairs``) instead of grouping by
-        aspect."""
+        aspect. Process ``process_index`` of ``process_count`` loads its
+        share of each global batch of ``batch_size`` images, padded to the
+        widths that ``agree`` returns (``BatchCollator.__call__``)."""
         self.dataset = dataset
         self.transform = transform
         self.collator = collator
@@ -108,7 +114,9 @@ class TrainLoader:
             len(dataset), batch_size, max_iter, start_iter=start_iter,
             groups=(aspect_ratio_groups(dataset)
                     if aspect_grouping and not class_batch else None),
-            epoch_batches_fn=ebf)
+            epoch_batches_fn=ebf, process_count=process_count,
+            process_index=process_index)
+        self.agree = agree
         self.start_iter = start_iter
         self.seed = seed
         self.num_workers = max(num_workers, 1)
@@ -128,18 +136,33 @@ class TrainLoader:
                 it = self.start_iter + k
                 fs = [pool.submit(self._load_one, i, it) for i in batch_idx]
                 if pending is not None:
-                    yield self.collator([f.result() for f in pending])
+                    yield self.collator([f.result() for f in pending],
+                                        self.agree)
                 pending = fs
             if pending is not None:
-                yield self.collator([f.result() for f in pending])
+                yield self.collator([f.result() for f in pending],
+                                    self.agree)
 
 
 def make_train_loader(cfg, start_iter: int = 0,
-                      data_root: str = "datasets") -> TrainLoader:
+                      data_root: str = "datasets",
+                      process_count: Optional[int] = None,
+                      process_index: Optional[int] = None,
+                      agree=None) -> TrainLoader:
     """The train loader of ``cfg.DATASETS.TRAIN``, each dataset with its
     ``PROPOSAL_FILES.TRAIN`` entry; several datasets are concatenated. A
     count of proposal files other than the datasets' raises (the JAX
-    package's ``zip`` drops the datasets past the last file)."""
+    package's ``zip`` drops the datasets past the last file).
+
+    ``process_count`` and ``process_index`` default to
+    ``torch.distributed``'s world size and rank when it is initialized
+    (else one process); ``agree`` then defaults to
+    ``parallel.mesh.DataParallel().agree_widths``, so that every rank pads
+    its share to the global batch's widths."""
+    pc, pi = process_count_and_index(process_count, process_index)
+    if agree is None and dist.is_available() and dist.is_initialized():
+        from ..parallel.mesh import DataParallel
+        agree = DataParallel().agree_widths
     names = cfg.DATASETS.TRAIN
     pfiles = cfg.PROPOSAL_FILES.TRAIN or (None,) * len(names)
     if len(pfiles) != len(names):
@@ -157,7 +180,8 @@ def make_train_loader(cfg, start_iter: int = 0,
                        seed=cfg.SEED,
                        aspect_grouping=cfg.DATALOADER.ASPECT_RATIO_GROUPING,
                        num_workers=cfg.DATALOADER.NUM_WORKERS,
-                       class_batch=cfg.SOLVER.CLASS_BATCH)
+                       class_batch=cfg.SOLVER.CLASS_BATCH, process_count=pc,
+                       process_index=pi, agree=agree)
 
 
 class EvalLoader:

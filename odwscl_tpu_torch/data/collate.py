@@ -18,7 +18,7 @@ built on the CPU; the caller moves it to its device.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -67,12 +67,38 @@ class BatchCollator:
         self.gt_pad = gt_pad
         self.mask_raster_stride = mask_raster_stride
 
-    def __call__(self, samples: List[Sample]) -> Batch:
+    def widths(self, samples: List[Sample]) -> Dict[str, int]:
+        """The padded widths that ``samples`` need: the canvas, the largest
+        proposal count, whether any sample has clicks, scribbles or GT
+        masks, and the largest keypoint count (0 without keypoints)."""
+        def has(name):
+            return int(any(getattr(s, name) is not None
+                           and len(getattr(s, name)) for s in samples))
+
+        return {
+            "h": _round_up(_round_up(max(s.image.shape[0] for s in samples),
+                                     self.size_div), self.image_pad_multiple),
+            "w": _round_up(_round_up(max(s.image.shape[1] for s in samples),
+                                     self.size_div), self.image_pad_multiple),
+            "rois": max(0 if s.rois is None else len(s.rois)
+                        for s in samples),
+            "clicks": has("clicks"), "scribbles": has("scribbles"),
+            "masks": int(any(s.gt_masks is not None for s in samples)),
+            "keypoints": max(s.gt_keypoints.keypoints.shape[1]
+                             if s.gt_keypoints is not None else 0
+                             for s in samples)}
+
+    def __call__(self, samples: List[Sample],
+                 agree: Optional[Callable[[Dict[str, int]],
+                                          Dict[str, int]]] = None) -> Batch:
+        """``agree`` maps these samples' ``widths`` to the ones to pad to
+        (the data-parallel loader's: the largest over the ranks, so that
+        each rank's share is padded as the global batch is)."""
         b = len(samples)
-        ph = _round_up(_round_up(max(s.image.shape[0] for s in samples),
-                                 self.size_div), self.image_pad_multiple)
-        pw = _round_up(_round_up(max(s.image.shape[1] for s in samples),
-                                 self.size_div), self.image_pad_multiple)
+        wd = self.widths(samples)
+        if agree is not None:
+            wd = agree(wd)
+        ph, pw = wd["h"], wd["w"]
         images = np.zeros((b, ph, pw, 3), np.float32)
         sizes = np.zeros((b, 2), np.float32)
         for i, s in enumerate(samples):
@@ -80,8 +106,7 @@ class BatchCollator:
             images[i, :h, :w] = s.image
             sizes[i] = (h, w)
 
-        counts = [0 if s.rois is None else len(s.rois) for s in samples]
-        p = pick_bucket(max(max(counts), 1), self.proposal_buckets)
+        p = pick_bucket(max(wd["rois"], 1), self.proposal_buckets)
         boxes = np.zeros((b, p, 4), np.float32)
         mask = np.zeros((b, p), bool)
         for i, s in enumerate(samples):
@@ -94,24 +119,25 @@ class BatchCollator:
                            for s in samples])
         extra = {}
         for name, width in (("click", 2), ("scribble", 4)):
-            if any(getattr(s, name + "s") is not None
-                   and len(getattr(s, name + "s")) for s in samples):
+            if wd[name + "s"]:
                 extra.update(_pad_partial(samples, name, width))
         if self.include_gt:
-            extra.update(self._pad_gt(samples, ph, pw))
+            extra.update(self._pad_gt(samples, ph, pw, wd["masks"],
+                                      wd["keypoints"]))
         return Batch(images=torch.from_numpy(images),
                      image_sizes=torch.from_numpy(sizes),
                      boxes=torch.from_numpy(boxes),
                      box_mask=torch.from_numpy(mask),
                      labels=torch.from_numpy(labels), **extra)
 
-    def _pad_gt(self, samples: List[Sample], ph: int, pw: int) -> dict:
+    def _pad_gt(self, samples: List[Sample], ph: int, pw: int,
+                masks: bool, k: int) -> dict:
         """``gt_boxes`` [B, G, 4], ``gt_labels`` [B, G] int64, ``gt_mask``
-        [B, G]; when a sample has masks, ``gt_bitmasks`` [B, G, ph // s,
-        pw // s]: each sample's masks resized to its image's size // s,
-        thresholded, in the raster's top-left corner (where the image
-        lies on the canvas); when a sample has keypoints, ``gt_keypoints``
-        [B, G, K, 3]."""
+        [B, G]; with ``masks`` (some sample has them), ``gt_bitmasks``
+        [B, G, ph // s, pw // s]: each sample's masks resized to its
+        image's size // s, thresholded, in the raster's top-left corner
+        (where the image lies on the canvas); with ``k`` > 0 keypoints,
+        ``gt_keypoints`` [B, G, k, 3]."""
         b, g = len(samples), self.gt_pad
         boxes = np.zeros((b, g, 4), np.float32)
         labels = np.zeros((b, g), np.int64)
@@ -125,7 +151,7 @@ class BatchCollator:
         out = {"gt_boxes": torch.from_numpy(boxes),
                "gt_labels": torch.from_numpy(labels),
                "gt_mask": torch.from_numpy(valid)}
-        if any(s.gt_masks is not None for s in samples):
+        if masks:
             st = self.mask_raster_stride
             bit = np.zeros((b, g, ph // st, pw // st), np.float32)
             for i, s in enumerate(samples):
@@ -137,9 +163,7 @@ class BatchCollator:
                 n = min(len(raster), g)
                 bit[i, :n, :raster.shape[1], :raster.shape[2]] = raster[:n]
             out["gt_bitmasks"] = torch.from_numpy(bit)
-        if any(s.gt_keypoints is not None for s in samples):
-            k = max(s.gt_keypoints.keypoints.shape[1] for s in samples
-                    if s.gt_keypoints is not None)
+        if k:
             kp = np.zeros((b, g, k, 3), np.float32)
             for i, s in enumerate(samples):
                 if s.gt_keypoints is None or not len(s.gt_keypoints):

@@ -3,7 +3,12 @@
 Counterpart of ``odwscl_tpu/data/proposals.py``: the pickle holds
 ``{'boxes': [N_i x 4 arrays], 'indexes'|'ids': [image ids]}``. Per image the
 proposals are deduplicated by coordinate hashing, clipped to the image and
-boxes smaller than ``min_size`` are dropped.
+boxes smaller than ``min_size`` are dropped, in one pass of the native
+host library (``utils/host_ops.py``), as the JAX package does;
+``clean_proposals_plain`` is the same in numpy, except that numpy's
+rounding of the hash goes half to even where the native pass rounds half
+away from zero. ``convert_ss_boxes`` turns MATLAB's 1-indexed (y1, x1,
+y2, x2) boxes into 0-indexed xyxy (``tools/proposal_convert.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,15 @@ def unique_boxes(boxes: np.ndarray, scale: float = 1.0) -> np.ndarray:
 
 def clean_proposals(boxes: np.ndarray, img_w: float, img_h: float,
                     min_size: float) -> np.ndarray:
-    """Dedup + clip to the image + drop empty and small boxes."""
+    """Dedup + clip to the image + drop empty and small boxes, natively."""
+    from ..utils.host_ops import clean_proposals as native
+
+    return native(np.asarray(boxes, np.float64), img_w, img_h, min_size)
+
+
+def clean_proposals_plain(boxes: np.ndarray, img_w: float, img_h: float,
+                          min_size: float) -> np.ndarray:
+    """``clean_proposals`` in numpy (the hash rounded half to even)."""
     boxes = np.asarray(boxes, np.float64)
     if len(boxes) == 0:
         return np.zeros((0, 4), np.float32)
@@ -56,6 +69,13 @@ class ProposalStore:
         idx = self.index_of[int(image_id)]
         w, h = image_size_wh
         return clean_proposals(self.data["boxes"][idx], w, h, self.min_size)
+
+
+def convert_ss_boxes(mat_boxes: np.ndarray) -> np.ndarray:
+    """MATLAB Selective Search / MCG boxes, 1-indexed (y1, x1, y2, x2), as
+    0-indexed xyxy (float64)."""
+    b = np.asarray(mat_boxes, np.float64)
+    return b[:, (1, 0, 3, 2)] - 1
 
 
 def write_proposal_pickle(path: str, boxes_list, ids_list, scores_list=None):

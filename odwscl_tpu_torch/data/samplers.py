@@ -2,7 +2,10 @@
 pairs (``SOLVER.CLASS_BATCH``), recycled up to a number of iterations and
 resumable, and sequential eval batches.
 
-Counterpart of ``odwscl_tpu/data/samplers.py`` for one process.
+Counterpart of ``odwscl_tpu/data/samplers.py``. With several processes
+each yields its contiguous share of every global batch (rank order is the
+global batch's order); a batch size that the process count does not
+divide raises (the JAX sampler silently drops the remainder).
 """
 
 from __future__ import annotations
@@ -10,6 +13,8 @@ from __future__ import annotations
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
+
+from ..utils.dist import rank_slice
 
 
 def aspect_ratio_groups(dataset) -> np.ndarray:
@@ -27,13 +32,17 @@ class IterationBatchSampler:
     batches; with ``groups`` every batch stays in one aspect group and the
     epoch's batches are shuffled. ``epoch_batches_fn(epoch)``, when given,
     makes each epoch's batches instead (``class_batch_pairs``). Iterations
-    before ``start_iter`` are skipped (resume)."""
+    before ``start_iter`` are skipped (resume). Process ``process_index``
+    of ``process_count`` gets its share of each batch
+    (``utils/dist.py:rank_slice``)."""
 
     def __init__(self, dataset_len: int, batch_size: int,
                  num_iterations: int, start_iter: int = 0,
                  groups: Optional[np.ndarray] = None,
                  epoch_batches_fn: Optional[
-                     Callable[[int], List[np.ndarray]]] = None):
+                     Callable[[int], List[np.ndarray]]] = None,
+                 process_count: int = 1, process_index: int = 0):
+        self.share = rank_slice(batch_size, process_count, process_index)
         self.n = dataset_len
         self.batch_size = batch_size
         self.num_iterations = num_iterations
@@ -69,7 +78,7 @@ class IterationBatchSampler:
                 it += 1
                 if it <= self.start_iter:
                     continue
-                yield batch
+                yield batch[self.share]
             epoch += 1
 
     def __len__(self):

@@ -523,7 +523,8 @@ def _int8_scales(inferencer, model, cfg, eval_loader) -> None:
 
 def inference(model, cfg, eval_loader, dataset, output_folder=None,
               task: str = "det", use_cached: bool = True, device="cuda",
-              timing_out: Optional[dict] = None):
+              timing_out: Optional[dict] = None, vis: bool = False,
+              vis_limit: int = 20):
     """Full dataset inference + evaluation: CorLoc for ``task`` corloc,
     else VOC mAP on a VOC dataset and COCO AP (bbox) on any other.
 
@@ -537,7 +538,9 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
     exists, else calibrates (before the loop, not counted in ``wall_s``)
     and writes it on rank 0. With several processes (``torch.distributed``
     initialized, the loader sharded by rank) rank 0 merges the shards and
-    evaluates; the other ranks return None.
+    evaluates; the other ranks return None. ``vis`` draws the first
+    ``vis_limit`` images' detections into ``output_folder/vis``
+    (``utils/visualize.py``).
     """
     pred_path = (os.path.join(output_folder, "predictions.pkl")
                  if output_folder else None)
@@ -613,6 +616,9 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
             with open(pred_path, "wb") as f:
                 pickle.dump(predictions, f)
 
+    if vis and output_folder:
+        _vis(dataset, predictions, os.path.join(output_folder, "vis"),
+             vis_limit)
     t0 = time.perf_counter()
     if task == "corloc":
         result = do_corloc_evaluation(dataset, predictions, output_folder)
@@ -626,3 +632,22 @@ def inference(model, cfg, eval_loader, dataset, output_folder=None,
     if timing_out is not None:
         timing_out.update(timing)
     return result
+
+
+def _vis(dataset, predictions, out_dir: str, limit: int) -> None:
+    """The first ``limit`` images with their detections, as jpgs."""
+    from PIL import Image
+
+    from ..utils.visualize import vis_results
+
+    imgs, dets = [], []
+    for i in range(min(limit, len(predictions))):
+        path = os.path.join(getattr(dataset, "root", ""),
+                            dataset.get_img_info(i)["file_name"])
+        if os.path.exists(path):
+            with Image.open(path) as img:
+                imgs.append(np.asarray(img.convert("RGB")))
+            dets.append(predictions[i])
+    if imgs:
+        vis_results(dets, imgs, out_dir,
+                    class_names=getattr(dataset, "CLASSES", None))

@@ -267,10 +267,17 @@ class WSODDetector(nn.Module):
         return scores, dec.reshape(b, rp, -1)
 
 
+    def train_features(self, images: torch.Tensor) -> torch.Tensor:
+        """The batch-separable prefix of ``train_forward``: the backbone,
+        image by image independent (parallel/mesh.py runs it on each
+        rank's images)."""
+        return self.backbone(images)
+
     def train_forward(self, batch: Batch,
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
-                      trace: Optional[Callable[[str], None]] = None
+                      trace: Optional[Callable[[str], None]] = None,
+                      features: Optional[torch.Tensor] = None
                       ) -> Tuple[Dict[str, torch.Tensor],
                                  Dict[str, torch.Tensor]]:
         """(losses, metrics) of one training batch, as scalar tensors.
@@ -284,6 +291,9 @@ class WSODDetector(nn.Module):
         subsample's uniforms ``subsample`` [B, 2, P0] instead (P0 the
         batch's proposals; P those that the subsample keeps).
         ``trace(stage)`` is called as each stage has been enqueued.
+        ``features``, when given, are ``train_features(batch.images)``
+        computed elsewhere (the data-parallel step's gathered maps);
+        ``batch.images`` is then not read.
 
         Under ``contra`` the all-RoI clean pass is the mining view only and
         runs without gradient; the loss reaches the clean neck through the
@@ -311,7 +321,8 @@ class WSODDetector(nn.Module):
                 boxes, mask, plab, self.roi_batch_size,
                 self.roi_pos_fraction, generator, draws.get("subsample"))
             trace("subsample")
-        feats = self.backbone(batch.images)
+        feats = (self.train_features(batch.images) if features is None
+                 else features)
         trace("backbone")
         if self.faster_rcnn:
             cam_maps, losses["loss_cam"] = self.cam(feats, labels)

@@ -269,22 +269,26 @@ class RetinaNetDetector(nn.Module):
         self.backbone.reset_parameters(generator)
         self.head.reset_parameters(generator)
 
-    def dense(self, images: torch.Tensor):
+    def train_features(self, images: torch.Tensor):
+        """The batch-separable prefix of ``train_forward``: the body and
+        the FPN levels."""
+        return self.backbone(images)
+
+    def dense(self, feats):
         """(anchors [P, 4] of every level, logits [B, P, C'], deltas
-        [B, P, 4])."""
-        feats = self.backbone(images)
+        [B, P, 4]) from the FPN levels ``feats``."""
         logits, bbox = flatten_head_outputs(*self.head(feats),
                                             self.num_classes - 1)
         key = (tuple((f.shape[1], f.shape[2]) for f in feats),
-               str(images.device))
+               str(feats[0].device))
         if key not in self._anchors:
             self._anchors[key] = torch.cat(pyramid_anchors(
-                key[0], *self.anchor_args, device=images.device))
+                key[0], *self.anchor_args, device=feats[0].device))
         return self._anchors[key], logits, bbox
 
     @torch.no_grad()
     def eval_forward(self, batch) -> Dict[str, torch.Tensor]:
-        anchors, logits, bbox = self.dense(batch.images)
+        anchors, logits, bbox = self.dense(self.backbone(batch.images))
         boxes, scores, labels, valid = retinanet_decode(
             anchors, logits, bbox, batch.image_sizes.flip(-1),
             self.score_thresh, self.pre_nms_top_n)
@@ -292,13 +296,16 @@ class RetinaNetDetector(nn.Module):
                 "valid": valid}
 
     def train_forward(self, batch, generator: Optional[torch.Generator] = None,
-                      draws=None, trace=None):
+                      draws=None, trace=None, features=None):
         """(losses, metrics); draws nothing (``generator`` and ``draws``
-        are accepted for the trainer's protocol)."""
+        are accepted for the trainer's protocol). ``features``, when
+        given, stand for ``train_features(batch.images)``."""
         if batch.gt_boxes is None:
             raise ValueError("RetinaNet training needs the batch's GT boxes "
                              "(the collator's include_gt)")
-        anchors, logits, bbox = self.dense(batch.images)
+        anchors, logits, bbox = self.dense(
+            self.train_features(batch.images) if features is None
+            else features)
         labels, reg = retinanet_targets(anchors, batch.gt_boxes,
                                         batch.gt_labels, batch.gt_mask,
                                         self.fg_iou, self.bg_iou)

@@ -199,19 +199,26 @@ class SupervisedRCNN(nn.Module):
             self._pooled_detections(batch, det_boxes, features))
         return hm.reshape(b, k, *hm.shape[1:])
 
+    def train_features(self, images: torch.Tensor):
+        """The batch-separable prefix of ``train_forward``: the backbone
+        (with the FPN: a list of levels)."""
+        return self.backbone(images)
+
     def train_forward(self, batch, generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
-                      trace=None):
+                      trace=None, features=None):
         """(losses, metrics). ``draws`` may hand in the sampler's uniforms
         ``fast_rcnn`` [B, 2, P] (else drawn from ``generator``, which also
         draws the VGG16 neck's dropout); the mask and keypoint losses count
-        the rois that draw samples as positives."""
+        the rois that draw samples as positives. ``features``, when given,
+        stand for ``train_features(batch.images)``."""
         if batch.gt_boxes is None:
             raise ValueError("supervised training needs the batch's GT "
                              "(the collator's include_gt, WSOD_ON False)")
         draws = draws or {}
-        pooled = self.pooled(self.backbone(batch.images), batch.boxes,
-                             batch.box_mask)
+        if features is None:
+            features = self.train_features(batch.images)
+        pooled = self.pooled(features, batch.boxes, batch.box_mask)
         return self.roi_heads.forward_train(
             pooled, batch.boxes, batch.box_mask, batch.gt_boxes,
             batch.gt_labels, batch.gt_mask, batch.gt_bitmasks, generator,

@@ -2,10 +2,15 @@
 
 Counterpart of ``odwscl_tpu/utils/checkpoint.py`` with ``torch.save``:
 ``OUTPUT_DIR/model_<iter:07d>.pt`` plus a ``last_checkpoint`` file naming
-the newest, and ``model_final.pt`` at the end of training. A checkpoint is
+the newest, and ``model_final.pt`` at the end of training, which
+``last_checkpoint`` then names (the JAX package points it at the final
+iteration's checkpoint, which holds the same state). A checkpoint is
 a dict ``{"model", "optimizer", "step", "rng"}``; ``--weights`` of
-``tools/test_net.py`` takes one as it takes a bare state_dict. Importing
-the JAX package's orbax checkpoints is not ported.
+``tools/test_net.py`` takes one as it takes a bare state_dict, and
+without ``--weights`` it evaluates ``last_checkpoint``'s. With
+``save=False`` (every rank but 0 of a data-parallel run) nothing is
+written; every rank loads. Importing the JAX package's orbax checkpoints
+is not ported.
 """
 
 from __future__ import annotations
@@ -20,24 +25,29 @@ logger = logging.getLogger("odwscl_tpu_torch.checkpoint")
 
 
 class Checkpointer:
-    def __init__(self, output_dir: str):
+    def __init__(self, output_dir: str, save: bool = True):
         self.dir = os.path.abspath(output_dir)
+        self.save_enabled = save
         os.makedirs(self.dir, exist_ok=True)
 
     def _path(self, it: int) -> str:
         return os.path.join(self.dir, f"model_{it:07d}.pt")
 
     def save(self, it: int, model, optimizer, generator=None,
-             final: bool = False) -> str:
+             final: bool = False) -> Optional[str]:
+        """Write the checkpoint of iteration ``it`` (``final``: as
+        ``model_final.pt``) and point ``last_checkpoint`` at it; returns
+        its path (None when saving is off)."""
+        if not self.save_enabled:
+            return None
         ckpt = {"model": model.state_dict(),
                 "optimizer": optimizer.state_dict(), "step": it,
                 "rng": None if generator is None else generator.get_state()}
         path = os.path.join(self.dir, "model_final.pt") if final \
             else self._path(it)
         torch.save(ckpt, path)
-        if not final:
-            with open(os.path.join(self.dir, "last_checkpoint"), "w") as f:
-                f.write(path)
+        with open(os.path.join(self.dir, "last_checkpoint"), "w") as f:
+            f.write(path)
         logger.info("Saved checkpoint to %s", path)
         return path
 

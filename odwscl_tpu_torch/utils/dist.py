@@ -18,3 +18,15 @@ def process_count_and_index(count: Optional[int] = None,
     if index is None:
         index = dist.get_rank() if live else 0
     return count, index
+
+
+def rank_slice(n: int, world_size: int, rank: int) -> slice:
+    """Rank ``rank``'s contiguous share of ``n`` items; raises unless
+    ``world_size`` divides ``n`` (the JAX sampler drops the remainder)."""
+    if n % world_size:
+        raise ValueError(
+            f"a global batch of {n} images does not split over "
+            f"{world_size} processes: set SOLVER.IMS_PER_BATCH to a "
+            f"multiple of the world size")
+    per = n // world_size
+    return slice(rank * per, (rank + 1) * per)

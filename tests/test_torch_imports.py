@@ -10,8 +10,10 @@ is imported in a subprocess where ``jax``, ``flax``, ``optax``,
 ``jax*`` or ``odwscl_tpu.*`` module may be loaded. The supervised
 families' modules (FPN, RetinaNet, the supervised R-CNN, its heads, the
 mask structures, roi_align and the Fast R-CNN loss) are among those
-named, and so are the keypoint structures and head, the FBNet bodies and
-the deformable-conv ops. No tolerance applies.
+named, and so are the keypoint structures and head, the FBNet bodies,
+the deformable-conv ops, the data-, tensor- and spatially-parallel
+modules, the loggers and the other utilities, the native host library's
+binding and the proposal converter. No tolerance applies.
 """
 
 import os
@@ -48,9 +50,13 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "models.supervised", "models.roi_heads", "models.mask_head",
                  "structures.masks", "ops.roi_align", "losses.fast_rcnn",
                  "structures.keypoints", "models.keypoint_head",
-                 "models.fbnet", "ops.deform_conv"):
+                 "models.fbnet", "ops.deform_conv", "parallel.mesh",
+                 "parallel.tp", "parallel.sp", "utils.logging_utils",
+                 "utils.miscellaneous", "utils.pgt_metrics",
+                 "utils.visualize", "utils.host_ops",
+                 "tools.proposal_convert"):
     assert "odwscl_tpu_torch." + required in names, required
-assert len(names) >= 80, names
+assert len(names) >= 90, names
 """
 
 
