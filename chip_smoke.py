@@ -218,6 +218,17 @@ Phases (any failure ends the run with a non-zero exit code):
    ``sp_backbone_apply`` on a 1280x1664 batch of 8 (bf16) against the
    plain backbone, both bit-exact, and timed beside them (the model's
    own neck too, whose bias rides its GEMM: its gap is printed).
+24. (Run after 23, on phase 7's data.) The JAX package's Orbax checkpoints:
+   import tests/data/orbax_wsod_small (the main config's WSOD detector at
+   narrow widths after 3 JAX train steps, written by the JAX package's
+   ``Checkpointer.save``) with the native zstd decoder, the OCDBT reader
+   and the zarr reader; evaluate it on the card in f32, held to the JAX
+   ``eval_forward`` in its ``expected.npz`` within phase 6's bounds, #1
+   launched once; then ``train_net`` resumes a copy of it as a JAX
+   ``OUTPUT_DIR`` for 3 steps: the first iteration the saved step + 1,
+   #1[argmax] and #2 once a step. The import's wall time, the decoder's
+   MB/s over the fixture's frames and the card's name and power limit are
+   printed.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -3658,6 +3669,157 @@ def phase_keypoint_fbnet_cli(rp, tmp):
     return launches
 
 
+# phase 24: the JAX package's Orbax checkpoints (tests/make_orbax_fixture.py
+# wrote the fixture: the main config's WSOD detector at narrow widths after
+# 3 JAX train steps; expected.npz holds the JAX eval_forward on its inputs)
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "orbax_wsod_small")
+ORBAX_RESUME_STEPS = 3
+# the native decoder's throughput is read over at least this long
+ZSTD_TIMED_S = 1.0
+
+
+def phase_orbax(dev, rp, tmp):
+    """Import tests/data/orbax_wsod_small with the native zstd decoder, the
+    OCDBT reader and the zarr reader (no orbax, tensorstore or zstd library
+    on this machine) and evaluate it on the card in f32 (TF32 off): its
+    ``eval_forward`` on the fixture's inputs must match the JAX package's
+    (``expected.npz``) within phase 6's card-vs-CPU bounds (SCORE_ATOL,
+    BOX_ATOL_PX), through the forward kernel once. Then ``train_net``
+    resumes a copy of the fixture as a JAX ``OUTPUT_DIR`` (its
+    ``last_checkpoint`` rewritten to the copy's path) on phase 7's data for
+    ORBAX_RESUME_STEPS steps: the first logged iteration must be the saved
+    step + 1, every step must launch #1[argmax] and #2 once, every loss
+    must be finite. Prints the import's wall time, the decoder's output MB/s
+    over the fixture's frames (decoded again and again for ZSTD_TIMED_S;
+    the decoder's g++ build is timed apart) and the card's name and power
+    limit. Returns {path: (fwd, fwd[argmax],
+    bwd) launches}."""
+    import torch
+    import odwscl_tpu_torch.models.vgg16 as tvgg
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.models import Batch, build_model
+    from odwscl_tpu_torch.tools import train_net
+    from odwscl_tpu_torch.utils import zstd
+    from odwscl_tpu_torch.utils.checkpoint import load_model_weights
+    from odwscl_tpu_torch.utils.ocdbt import OcdbtStore
+    from odwscl_tpu_torch.utils.profiling import card_name_and_limit
+
+    with open(os.path.join(ORBAX_FIXTURE, "fixture.json")) as f:
+        fx = json.load(f)
+    ckpt = os.path.join(ORBAX_FIXTURE, fx["checkpoint"])
+    launches = {}
+    wide = tvgg.VGG_CFGS["VGG16-OICR"]
+    tvgg.VGG_CFGS["VGG16-OICR"] = fx["VGG16-OICR"]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        t0 = time.perf_counter()
+        zstd.load()                       # g++, at first use
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state_dict = load_model_weights(ckpt)
+        import_s = time.perf_counter() - t0
+        store = OcdbtStore(ckpt)
+        frames = [store.get(k) for k in store.keys()
+                  if not k.endswith(b"/.zarray")]
+        reps, n_bytes, t0 = 0, 0, time.perf_counter()
+        while time.perf_counter() - t0 < ZSTD_TIMED_S or reps == 0:
+            n_bytes += sum(len(zstd.decompress(fr)) for fr in frames)
+            reps += 1
+        mb_s = n_bytes / 1e6 / (time.perf_counter() - t0)
+
+        cfg = get_default_cfg()
+        cfg.merge_from_file(os.path.join(ROOT, fx["config"]))
+        cfg.merge_from_list(fx["opts"])
+        cfg.freeze()
+        model = build_model(cfg)
+        model.load_state_dict(state_dict)
+        model.to(dev).eval()
+        e = np.load(os.path.join(ORBAX_FIXTURE, "expected.npz"))
+        batch = Batch(*(torch.from_numpy(e[k]).to(dev) for k in (
+            "images", "sizes", "boxes", "mask")),
+            torch.zeros(e["images"].shape[0], 21, device=dev))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _reset_launches(rp)
+        with torch.no_grad():
+            scores, boxes = model.eval_forward(batch)
+        torch.cuda.synchronize()
+        launches["Orbax import eval"] = _launch_counts(rp)[:3]
+        if launches["Orbax import eval"] != (1, 0, 0):
+            raise AssertionError(f"Orbax import eval: launches (fwd, "
+                                 f"fwd[argmax], bwd) "
+                                 f"{launches['Orbax import eval']}, "
+                                 "expected (1, 0, 0)")
+        d_score = float(np.abs(scores.cpu().numpy() - e["scores"]).max())
+        d_box = float(np.abs(boxes.cpu().numpy().reshape(
+            e["pred_boxes"].shape) - e["pred_boxes"]).max())
+        if not (d_score <= SCORE_ATOL and d_box <= BOX_ATOL_PX):
+            raise AssertionError(f"the imported model on the card vs the JAX "
+                                 f"eval_forward: max |d score| {d_score:.3e} "
+                                 f"(bound {SCORE_ATOL}), max |d box| "
+                                 f"{d_box:.3e} px (bound {BOX_ATOL_PX})")
+        model.to("cpu")
+        del model
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+        out = os.path.join(tmp, "orbax_run")
+        copy = os.path.join(out, fx["checkpoint"])
+        shutil.copytree(ckpt, copy)
+        with open(os.path.join(out, "last_checkpoint"), "w") as f:
+            f.write(os.path.abspath(copy))
+        first = fx["step"] + 1
+        last = fx["step"] + ORBAX_RESUME_STEPS
+        timing = {}
+        _reset_launches(rp)
+        t0 = time.perf_counter()
+        train_net.main(["--config-file", CONFIG, "--data-root", tmp,
+                        "--device", "cuda", "--skip-test", "OUTPUT_DIR", out,
+                        "SOLVER.MAX_ITER", str(last),
+                        "SOLVER.CHECKPOINT_PERIOD", "1000", *fx["opts"]],
+                       timing_out=timing)
+        wall = time.perf_counter() - t0
+        launches["Orbax resume"] = _launch_counts(rp)[:3]
+    finally:
+        tvgg.VGG_CFGS["VGG16-OICR"] = wide
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    steps = timing["train"]["steps"]
+    iters = [st["iter"] for st in steps]
+    if iters != list(range(first, last + 1)):
+        raise AssertionError(f"resumed iterations {iters}, expected "
+                             f"{first}-{last}")
+    for st in steps:
+        bad = [k for k, v in st.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"resumed iteration {st['iter']}: "
+                                 f"non-finite {bad}")
+    n = ORBAX_RESUME_STEPS
+    if launches["Orbax resume"] != (0, n, n):
+        raise AssertionError(f"Orbax resume: launches (fwd, fwd[argmax], bwd)"
+                             f" {launches['Orbax resume']} for {n} steps")
+    card = card_name_and_limit()
+    print(f"[orbax] {card}: the native zstd decoder built in {build_s:.2f} "
+          f"s; imported {fx['checkpoint']} "
+          f"({len(state_dict)} tensors, {len(frames)} zarr chunks) in "
+          f"{import_s:.3f} s; native zstd {mb_s:.1f} MB/s over the "
+          f"fixture's frames ({n_bytes / 1e6:.1f} MB decoded in {reps} "
+          f"passes); f32 eval_forward on the card vs the JAX package's: max "
+          f"|d score| {d_score:.3e}, max |d box| {d_box:.3e} px; launches "
+          f"{launches['Orbax import eval']}")
+    print(f"[orbax] train_net resumed the JAX OUTPUT_DIR at iteration "
+          f"{iters[0]} (saved step {fx['step']}): {n} steps, losses "
+          + ", ".join(f"{k} {steps[0][k]:.4f} -> {steps[-1][k]:.4f}"
+                      for k in ("loss", "loss_img", "loss_sim")
+                      if k in steps[0])
+          + f"; launches (fwd, fwd[argmax], bwd) {launches['Orbax resume']};"
+          f" CLI wall {wall:.2f} s")
+    SUMMARY.append(f"Orbax import {import_s:.3f} s, zstd {mb_s:.1f} MB/s "
+                   f"({card}), resumed at {iters[0]}")
+    return launches
+
+
 def build(rp, q):
     """Build the four kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3768,6 +3930,8 @@ def main():
             "distributed training", phase_distributed, rp, tmp, CONFIG,
             "VGG16-OICR")
         timed("tp and sp", phase_tp_sp, dev)
+        orbax = timed("Orbax checkpoint import and resume", phase_orbax, dev,
+                      rp, tmp)
         (r50_fwd, r50_bwd), ckpt = timed(
             "R-50-C5 train", phase_train, rp, tmp, CONFIG_R50, R50_STEPS,
             "R-50-C5", ("MODEL.WEIGHT", cfg_r50.MODEL.WEIGHT))
@@ -3811,6 +3975,7 @@ def main():
     # the int32 instantiations: the paths on maps past 65,535 cells
     wide_paths = {k: v[3:] for k, v in kp_full.items()}
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
+                       "Orbax import eval": orbax["Orbax import eval"][0],
                        "VGG16-OICR distributed checkpoint eval": dist_eval,
                        **{f"VGG16-OICR int8 eval {k}": v[2]
                           for k, v in int8_eval.items()},
@@ -3819,12 +3984,14 @@ def main():
                        "COCO14 eval": coco["COCO14"]["eval"],
                        **{k: v[0] for k, v in sup_paths.items()}},
                "fwd_argmax": {"VGG16-OICR": train_fwd, "R-50-C5": r50_fwd,
+                              "Orbax resume": orbax["Orbax resume"][1],
                               "VGG16-OICR distributed": dist_fwd,
                               **{k: v["train"][0]
                                  for k, v in variants.items()},
                               **{k: v["train"][0] for k, v in coco.items()},
                               **{k: v[1] for k, v in sup_paths.items()}},
                "bwd": {"VGG16-OICR": train_bwd, "R-50-C5": r50_bwd,
+                       "Orbax resume": orbax["Orbax resume"][2],
                        "VGG16-OICR distributed": dist_bwd,
                        **{k: v["train"][1] for k, v in variants.items()},
                        **{k: v["train"][1] for k, v in coco.items()},

@@ -169,7 +169,7 @@ class WSODDetector(nn.Module):
             self.backbone = VGGBackbone(backbone_arch, dtype, freeze_at,
                                         int8_eval_convs, int8_static,
                                         int8_bf16_layers)
-            channels = 512
+            channels = self.backbone.out_channels
             self.neck = VGGRoINeck(channels * pooler_resolution ** 2,
                                    mlp_dim, dtype, neck_dropout,
                                    int8_eval=int8_eval)

@@ -117,6 +117,7 @@ class VGGBackbone(nn.Module):
             self._layers.append((i, 2 if dilated else 1))
             cin, i = ch, i + 1
         self.num_convs = i
+        self.out_channels = cin
         for k in range(FREEZE_CONV_COUNTS[freeze_at - 1] if freeze_at > 0
                        else 0):
             getattr(self, f"conv{k}").requires_grad_(False)

@@ -7,11 +7,13 @@
 ``--ckpt`` (the JAX CLI's name) or ``--weights`` takes a port ``.pt`` (a
 state_dict or a training checkpoint of ``tools/train_net.py``), an
 ``.npz`` of the JAX package's flax params (``/``-joined keys;
-utils/from_jax.py) or a trained reference OD-WSCL ``.pth``
-(``import_reference_checkpoint``, VGG16); a directory (the JAX package's
-Orbax checkpoint) is refused: its import is not ported. Without either,
-the checkpoint that ``OUTPUT_DIR/last_checkpoint`` names is evaluated,
-and only when there is none a seeded random init (``cfg.SEED``), with a
+utils/from_jax.py), a trained reference OD-WSCL ``.pth``
+(``import_reference_checkpoint``, VGG16) or a directory: the JAX package's
+Orbax checkpoint (``OUTPUT_DIR/model_<iter:07d>`` of its train_net), whose
+params are imported without orbax (utils/orbax_import.py). Without
+either, the checkpoint that ``OUTPUT_DIR/last_checkpoint`` names is
+evaluated (the port's ``.pt`` or the JAX package's Orbax directory), and
+only when there is none a seeded random init (``cfg.SEED``), with a
 warning. ``--int8`` sets ``TPU.INT8_EVAL``, ``INT8_EVAL_CONVS`` and
 ``INT8_STATIC`` (static int8 serving, VGG16; engine/inference.py);
 ``--vis`` draws the first 20 images' detections into
@@ -37,10 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--weights", default=None,
                         help="port .pt (state_dict or training checkpoint), "
-                             "flax-params .npz or reference .pth")
+                             "flax-params .npz, reference .pth or the JAX "
+                             "package's Orbax checkpoint directory")
     parser.add_argument("--ckpt", default=None,
-                        help="a specific checkpoint (the files --weights "
-                             "takes); default OUTPUT_DIR's last_checkpoint")
+                        help="a specific checkpoint (what --weights takes); "
+                             "default OUTPUT_DIR's last_checkpoint (a port "
+                             ".pt or a JAX Orbax directory)")
     parser.add_argument("--task", default="det", choices=["det", "corloc"])
     parser.add_argument("--vis", action="store_true",
                         help="draw the first images' detections")
@@ -62,12 +66,6 @@ def load_model(cfg, weights=None):
     from odwscl_tpu_torch.utils.weight_import import \
         import_reference_checkpoint
 
-    if weights is not None and os.path.isdir(weights):
-        raise ValueError(
-            f"--weights {weights} is a directory, as the JAX package's Orbax "
-            "checkpoints are: importing an Orbax checkpoint is not ported. "
-            "Pass a flax-params .npz (odwscl_tpu_torch/utils/from_jax.py), a "
-            "port .pt or a reference .pth")
     model = build_model(cfg)
     if weights is None:
         logging.getLogger("odwscl_tpu_torch").warning(

@@ -8,7 +8,11 @@
 The paper's flags (``--nms``, ``--lmda``, ``--iou``, ``--temp``,
 ``--thres``, ``--loss``, ...) set the config keys of the same lowercase
 names. Training resumes from ``OUTPUT_DIR/last_checkpoint`` when there is
-one; otherwise ``MODEL.WEIGHT`` names the warm start, on top of the
+one: a port ``.pt``, or the JAX package's Orbax checkpoint directory, so a
+run of ``tools/train_net.py`` continues here from its ``OUTPUT_DIR`` (its
+params, momentum traces, update counts and step are imported without
+orbax, utils/checkpoint.py; its rng is not, the port's generator keeps
+``cfg.SEED``'s stream); otherwise ``MODEL.WEIGHT`` names the warm start, on top of the
 random init seeded by ``cfg.SEED``: a ``catalog://`` name resolves to
 ``<data-root>/weights/<basename of its URL>``; it raises if the file is
 missing. A port ``.pt`` loads as it is; a Caffe2 ``.pkl`` goes to
@@ -54,8 +58,11 @@ PAPER_FLAGS = [("nms", float), ("lmda", float), ("iou", float),
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="OD-WSCL training "
-                                     "(PyTorch port)")
+    parser = argparse.ArgumentParser(
+        description="OD-WSCL training (PyTorch port). Resumes from "
+        "OUTPUT_DIR/last_checkpoint when there is one: a port .pt, or the "
+        "JAX package's Orbax checkpoint directory (params, momentum, counts "
+        "and step imported; its rng not).")
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--skip-test", action="store_true")
     parser.add_argument("--data-root", default="datasets")

@@ -40,31 +40,33 @@ _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path = SOURCE) -> Path:
+    h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libhost_ops-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the source unless a library of the same hash exists."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (by default ``csrc/host_ops.cpp``; the zstd
+    decoder's ``csrc/zstd_decode.cpp`` is built the same way) unless a
+    library of the same hash exists."""
+    out = library_path(source)
     if out.exists():
         return out
     cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [cxx, *CXX_FLAGS, "-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
         os.unlink(tmp)
-        raise RuntimeError(f"building {SOURCE.name}: no C++ compiler "
+        raise RuntimeError(f"building {source.name}: no C++ compiler "
                            f"({e}); set CXX") from e
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"building {SOURCE.name} failed (exit "
+        raise RuntimeError(f"building {source.name} failed (exit "
                            f"{proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)

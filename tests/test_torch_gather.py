@@ -108,15 +108,46 @@ def test_eval_loader_shards_by_rank(tmp_path):
         assert part.sampler.indices.tolist() == list(want)
 
 
-def test_test_net_refuses_an_orbax_directory(tmp_path):
+def test_test_net_names_what_an_orbax_directory_lacks(tmp_path):
     from odwscl_tpu_torch.config import get_default_cfg
     from odwscl_tpu_torch.tools.test_net import load_model
 
     ckpt = tmp_path / "checkpoint_20000"      # an Orbax checkpoint's shape
     ckpt.mkdir()
     (ckpt / "_METADATA").write_text("{}")
-    with pytest.raises(ValueError, match="Orbax checkpoint is not ported"):
+    with pytest.raises(ValueError, match="no 'tree_metadata'"):
         load_model(get_default_cfg(), str(ckpt))
+    (ckpt / "_METADATA").unlink()
+    with pytest.raises(ValueError, match="no _METADATA file"):
+        load_model(get_default_cfg(), str(ckpt))
+
+
+def test_test_net_loads_an_orbax_checkpoint(monkeypatch):
+    """tests/data/orbax_wsod_small (written by the JAX package's
+    Checkpointer.save): load_model imports its params exactly."""
+    import json
+
+    import odwscl_tpu_torch.models.vgg16 as tvgg
+    from odwscl_tpu_torch.config import get_default_cfg
+    from odwscl_tpu_torch.tools.test_net import load_model
+    from odwscl_tpu_torch.utils.orbax_import import load_orbax
+
+    root = os.path.join(os.path.dirname(__file__), "data",
+                        "orbax_wsod_small")
+    with open(os.path.join(root, "fixture.json")) as f:
+        fx = json.load(f)
+    monkeypatch.setitem(tvgg.VGG_CFGS, "VGG16-OICR", fx["VGG16-OICR"])
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..",
+                                     fx["config"]))
+    cfg.merge_from_list(fx["opts"])
+    model = load_model(cfg, os.path.join(root, fx["checkpoint"]))
+    params = load_orbax(os.path.join(root, fx["checkpoint"]))["params"]
+    want = params["neck"]["fc6"]["kernel"]                 # (in, out)
+    assert np.array_equal(model.neck.fc6.weight.detach().numpy(), want.T)
+    want = params["backbone"]["conv12"]["kernel"]          # HWIO
+    assert np.array_equal(model.backbone.conv12.weight.detach().numpy(),
+                          want.transpose(3, 2, 0, 1))
 
 
 _WORKER = r"""

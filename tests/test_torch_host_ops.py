@@ -128,7 +128,7 @@ def test_half_coordinates_round_away_from_zero():
 def test_a_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(host_ops, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(host_ops, "library_path",
-                        lambda: tmp_path / "libhost_ops-missing.so")
+                        lambda source=None: tmp_path / "libhost_ops-missing.so")
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
         host_ops.build()

@@ -5,7 +5,8 @@ device-resize, Concrete DropBlock, CAM, int8 serving, COCO, web data and
 partial-label modules named below among them)
 and ``chip_smoke.py``
 is imported in a subprocess where ``jax``, ``flax``, ``optax``,
-``odwscl_tpu``, ``cv2`` and ``triton`` are blocked
+``odwscl_tpu``, ``cv2``, ``triton``, ``orbax``, ``tensorstore``,
+``zstandard`` and ``zarr`` are blocked
 (``sys.modules[name] = None`` makes their import fail); afterwards no
 ``jax*`` or ``odwscl_tpu.*`` module may be loaded. The supervised
 families' modules (FPN, RetinaNet, the supervised R-CNN, its heads, the
@@ -13,7 +14,9 @@ mask structures, roi_align and the Fast R-CNN loss) are among those
 named, and so are the keypoint structures and head, the FBNet bodies,
 the deformable-conv ops, the data-, tensor- and spatially-parallel
 modules, the loggers and the other utilities, the native host library's
-binding and the proposal converter. No tolerance applies.
+binding and the proposal converter, and the Orbax import's zstd decoder,
+OCDBT reader and zarr reader, which must need none of the libraries that
+wrote the checkpoints. No tolerance applies.
 """
 
 import os
@@ -25,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "odwscl_tpu", "cv2",
-             "triton"):
+             "triton", "orbax", "tensorstore", "zstandard", "zarr"):
     sys.modules[name] = None
 import odwscl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(odwscl_tpu_torch.__path__,
@@ -34,7 +37,8 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
-    m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "odwscl_tpu")))
+    m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "odwscl_tpu",
+                        "orbax", "tensorstore", "zstandard", "zarr")))
 print(len(names), "modules", bad)
 assert not bad, bad
 for required in ("ops.dropblock", "losses.mining", "losses.supcon",
@@ -54,7 +58,8 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "parallel.tp", "parallel.sp", "utils.logging_utils",
                  "utils.miscellaneous", "utils.pgt_metrics",
                  "utils.visualize", "utils.host_ops",
-                 "tools.proposal_convert"):
+                 "tools.proposal_convert", "utils.zstd", "utils.ocdbt",
+                 "utils.orbax_import"):
     assert "odwscl_tpu_torch." + required in names, required
 assert len(names) >= 90, names
 """
