@@ -140,19 +140,21 @@ Phases (any failure ends the run with a non-zero exit code):
    training datasets (``coco_2014_train``, ``coco_2014_valminusminival``),
    ``SOLVER.CLASS_BATCH``, ``PARTIAL_LABELS point`` and ``scribble``
    (with ``ROI_LOSS_REFINE``) as in 7.
-14. (Run after 4.) The three ROIPool kernels at the FPN shapes, C = 256,
-   B = 2, P = 1000 rois of 16-800 px a image routed to P2-P5 by
-   ``assign_levels`` (each call pools all P rois under its level's mask,
-   about three quarters masked): on the eval pyramid of an 800x1344 canvas
-   (P2-P5 200x336, 100x168, 50x84, 25x42) #1 bit-exact (atol 0) against
-   ``roi_pool_plain`` at each level's scale, f32 and bf16, and
-   ``roi_pool_argmax`` on its P2 (67,200 cells, past the int16 codes'
-   65,535) runs with int32 codes, output and codes bit-exact; on the
-   training pyramid of a 640x1088 canvas (P2 160x272, int16 codes) both
-   forward instantiations bit-exact and the backward as in 3. Then,
-   bf16, in turns: each eval level's #1 and the four-call pool, each
-   training level's #1[argmax], #2 and #2's ``index_add_`` yardstick,
-   with their byte bounds; the plain versions once.
+14. (Run after 4; since phase 25, at R = 7 and R = 14 in one pass, bf16.)
+   The three ROIPool kernels at the FPN shapes, C = 256, B = 2, P = 1000
+   rois of 16-800 px a image routed to P2-P5 by ``assign_levels`` (each
+   call pools all P rois under its level's mask, about three quarters
+   masked): on the eval pyramid of an 800x1344 canvas (P2-P5 200x336,
+   100x168, 50x84, 25x42) #1 bit-exact (atol 0) against
+   ``roi_pool_plain`` at each level's scale, and ``roi_pool_argmax`` on
+   its P2 (67,200 cells, past the int16 codes' 65,535) runs with int32
+   codes, output and codes bit-exact; on the training pyramid of a
+   640x1088 canvas (P2 160x272, int16 codes) #1[argmax] bit-exact and #2
+   within a bf16 ulp of the plain backward from the same codes. Then, in
+   turns: each eval level's #1 and the four-call pool, each training
+   level's #1[argmax], #2 and #2's ``index_add_`` yardstick, with their
+   byte bounds, and plain ROIAlign at each eval level; the plain versions
+   once.
 15. (Run after 6.) Card against CPU, f32, TF32 off, at the published
    widths: R-50-FPN Mask R-CNN (81 classes, MLP 1024, mask convs 4x256)
    and R-50 RetinaNet (81 classes), seeded, on a 256x384 canvas with
@@ -229,6 +231,24 @@ Phases (any failure ends the run with a non-zero exit code):
    #1[argmax] and #2 once a step. The import's wall time, the decoder's
    MB/s over the fixture's frames and the card's name and power limit are
    printed.
+25. The pooler configurations (the JAX package's ROIAlign and ROIPool at
+   any resolution R). (Run after 14.) #1, #1[argmax] with int16 and with
+   int32 codes, and #2 from both, at R = 1, 2, 3, 6, 8, 14 and 16 on
+   phase 2's size grid in f32, bf16 and bf16 with ties: bit-exact against
+   ``roi_pool_argmax_plain``, #2 within phase 3's bound of the map rescan;
+   R = 0 and 17 raise. At R = 14 on the eval shape the three kernels once
+   each against their plain versions; then, bf16, in turns, each at R = 7
+   and 14 (#1 at the eval shape, #1[argmax], #2 and its yardstick at the
+   training shape) beside plain ROIAlign (eval forward at both R, the
+   training forward and backward at R = 7). (Run after 10, on phase 7's
+   data.) The main config through ``train_net`` and ``test_net``
+   (device-resize TTA) with ``POOLER_METHOD ROIAlign`` (5 steps; no
+   ROIPool kernel may launch), one f32 train step of it card against CPU,
+   and with ROIPool at R = 14 (3 steps; every launch at R = 14). (Run
+   after 21.) configs/coco/coco_mask_rcnn_smoke.yaml at the published
+   R-50-FPN widths, R = 14 and a 28x28 mask, bf16, on 800x1344 canvases:
+   5 steps (#1[argmax] and #2 4 times a step at R = 14) and the bbox and
+   segm eval (#1 8 times a batch at R = 14).
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -466,9 +486,10 @@ def phase_card_vs_cpu(dev, arch="VGG16-OICR"):
         raise AssertionError("card and CPU eval_forward disagree")
 
 
-def bwd_bound(feat, rois, mask, g, name, scale=0.125):
+def bwd_bound(feat, rois, mask, g, name, scale=0.125, pooled=7):
     """(bound ms, by): feat and g read once, d feat written once in the
-    feature dtype; the comparisons of the argmax scan at the f32 rate."""
+    feature dtype; the comparisons of the argmax scan (``pooled`` x
+    ``pooled`` bins) at the f32 rate."""
     from odwscl_tpu_torch.ops.roi_pool_stages import stage_work
     from odwscl_tpu_torch.utils.profiling import (F32_OPS_PER_S,
                                                   MEM_BYTES_PER_S, card_rate)
@@ -476,7 +497,7 @@ def bwd_bound(feat, rois, mask, g, name, scale=0.125):
     nbytes = (2 * feat.numel() + g.numel()) * feat.element_size() \
         + rois.numel() * 4 + mask.numel()
     bytes_ms = nbytes / card_rate(name, MEM_BYTES_PER_S) * 1e3
-    ops = stage_work("roi_pool", feat, rois, mask, scale)[1]
+    ops = stage_work("roi_pool", feat, rois, mask, scale, pooled)[1]
     ops_ms = ops / card_rate(name, F32_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                     else "operations"), nbytes
@@ -548,14 +569,14 @@ def argmax_cells(rp, codes, rois, mask, g, hw, scale=0.125,
     ``index_dtype``, int64 by default), and the cotangents in f32."""
     import torch
 
-    b, p, _, _, c = codes.shape
+    b, p, r, _, c = codes.shape
     h, w = hw
-    hs, _, ws, we = rp.roi_bin_edges(rois, scale, 7, h, w)
+    hs, _, ws, we = rp.roi_bin_edges(rois, scale, r, h, w)
     chans = torch.arange(c, device=codes.device)
     cells, vals = [], []
     for i in range(b):
         rows = slice(i * p, (i + 1) * p)
-        off = rp.decode_cells(codes[i]).reshape(p, 7, 7, c).long()
+        off = rp.decode_cells(codes[i]).reshape(p, r, r, c).long()
         live = (off != rp.UNSIGNED_NO_CELL[codes.dtype]) \
             & mask[i][:, None, None, None]
         bw = (we[rows] - ws[rows]).clamp(min=1)[:, None, :, None]
@@ -922,7 +943,7 @@ VARIANT_STEPS = [
 
 
 def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None,
-                            num_classes=21, **kw):
+                            num_classes=21, seed=3, **kw):
     """One f32 train step on the card and on the CPU: same weights, batch
     and draws; neck dropout 0 (its masks come from each device's own
     generator). One positive class per image, so stage B's chain compares
@@ -933,7 +954,8 @@ def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None,
     step is then repeated with cuDNN's TF32 (PyTorch's default, which the
     port keeps for the CDB's convolutions) and its gap to the CPU and the
     drop decisions that moved are printed. ``num_classes`` 81 is the COCO
-    configs' head. Returns the f32 loss gap."""
+    configs' head; ``seed`` draws the batch and the draws. Returns the f32
+    loss gap."""
     import torch
     from odwscl_tpu_torch.models import Batch
     from odwscl_tpu_torch.models import cdb as tcdb
@@ -944,7 +966,7 @@ def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.RandomState(3)
+    rng = np.random.RandomState(seed)
     b, h, w, p = 2, 128, 160, 128
     sizes = np.array([[128, 160], [120, 150]], np.float32)
     images = (rng.randn(b, h, w, 3) * 50).astype(np.float32)
@@ -963,14 +985,15 @@ def phase_train_card_vs_cpu(dev, arch="VGG16-OICR", label=None,
         for name, _ in model.pred.heads:
             if not name.startswith("bbox_pred"):
                 getattr(model.pred, name).weight.mul_(HEAD_SCALE[arch])
+    r = model.pooler_resolution
     draws = {"dropblock": torch.from_numpy(rng.uniform(
-                 size=(b * p, 7, 7)).astype(np.float32)),
+                 size=(b * p, r, r)).astype(np.float32)),
              "sim_drop": torch.from_numpy(rng.uniform(
-                 size=(1024, 7, 7)).astype(np.float32)),
-             "noise": torch.from_numpy(rng.randn(1024, 7, 7, 512).astype(
+                 size=(1024, r, r)).astype(np.float32)),
+             "noise": torch.from_numpy(rng.randn(1024, r, r, 512).astype(
                  np.float32)),
              "cdb_gumbel": torch.from_numpy(rng.uniform(
-                 size=(b * p, 7, 7, 2)).astype(np.float32))}
+                 size=(b * p, r, r, 2)).astype(np.float32))}
     heads = [n for n, _ in model.pred.heads]
     watch = ["neck.fc7.weight", "pred.cls_score.weight"]
     watch += [f"pred.{n}.weight" for n in ("ref1", "bbox_pred1")
@@ -1112,13 +1135,14 @@ def write_r50_weights(tmp):
 
 
 def phase_train(rp, tmp, config, steps, label, opts=(), period=None,
-                live=()):
+                live=(), per_step=1):
     """``train_net`` with ``config`` for ``steps`` iterations, a checkpoint
     every ``period`` (default ``steps``) and at the end; every step must
-    launch the training forward (with the argmax) and the backward once
-    and the eval forward never, every loss must be finite and each metric
-    of ``live`` (e.g. the mining counters) non-zero in some step. Returns
-    the launch counts (fwd[argmax], bwd) and the final checkpoint."""
+    launch the training forward (with the argmax) and the backward
+    ``per_step`` times (0 under ROIAlign) and the eval forward never,
+    every loss must be finite and each metric of ``live`` (e.g. the
+    mining counters) non-zero in some step. Returns the launch counts
+    (fwd[argmax], bwd) and the final checkpoint."""
     import torch
     from odwscl_tpu_torch.tools import train_net
 
@@ -1145,39 +1169,43 @@ def phase_train(rp, tmp, config, steps, label, opts=(), period=None,
         if bad:
             raise AssertionError(f"{label} iteration {st['iter']}: "
                                  f"non-finite {bad}")
-    if launches != (0, steps, steps):
+    if launches != (0, per_step * steps, per_step * steps):
         raise AssertionError(f"{label}: kernel launches (fwd, fwd[argmax], "
                              f"bwd) {launches} for {steps} steps")
     dead = [k for k in live if not any(st[k] for st in steps_log)]
     if dead:
         raise AssertionError(f"{label}: {dead} zero in every step")
-    window = steps_log[4:]
+    # steps 5 on (the warm-up before), or the last step of a shorter run
+    window = steps_log[4:] or steps_log[-1:]
+    first = steps - len(window) + 1
     med = statistics.median(st["step_s"] for st in window)
     data_wait = sum(st["data_s"] for st in window)
     t = timing["train"]
+    idle = t.get("device_idle_share")
+    traced = (f"{idle:.3f} (busy {t['device_busy_s']:.2f} s of "
+              f"{t['profile_wall_s']:.2f} s, traced)" if idle is not None
+              else "not traced (fewer than 5 steps)")
     print(f"[train] {label}: {steps} steps, batch 8, bf16: median step "
-          f"{med * 1e3:.1f} ms over steps 5-{steps} = {8 / med:.2f} "
+          f"{med * 1e3:.1f} ms over steps {first}-{steps} = {8 / med:.2f} "
           f"images/s; host data wait {data_wait:.2f} s of "
           f"{sum(st['step_s'] for st in window):.2f} s; device idle share "
-          f"{t['device_idle_share']:.3f} (busy {t['device_busy_s']:.2f} s of "
-          f"{t['profile_wall_s']:.2f} s, traced); max memory allocated "
+          f"{traced}; max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; CLI wall "
           f"{wall:.2f} s")
     TRAIN_RUNS[label] = {
-        "steps": steps_log, "median_ms": med * 1e3,
-        "idle": t["device_idle_share"],
+        "steps": steps_log, "median_ms": med * 1e3, "idle": idle,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     SUMMARY.append(f"{label} train: median step {med * 1e3:.1f} ms = "
                    f"{8 / med:.2f} images/s, idle "
-                   f"{t['device_idle_share']:.3f}, peak "
+                   f"{'n/a' if idle is None else f'{idle:.3f}'}, peak "
                    f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"[train] {label} losses step 1 -> {steps}: " + ", ".join(
         f"{k} {steps_log[0][k]:.4f} -> {steps_log[-1][k]:.4f}"
         for k in ("loss", "loss_cam", "loss_img", "loss_sim",
                   "loss_ref_cls0") if k in steps_log[0]))
     print(f"[train] {label} kernel launches: roi_pool_fwd[argmax] "
-          f"{launches[1]}, roi_pool_bwd {launches[2]} = steps {steps}; "
-          f"roi_pool_fwd {launches[0]}")
+          f"{launches[1]}, roi_pool_bwd {launches[2]} = {per_step} x steps "
+          f"{steps}; roi_pool_fwd {launches[0]}")
     if live:
         print(f"[train] {label} " + ", ".join(
             f"{k} {[int(st[k]) for st in steps_log]}" for k in live))
@@ -1607,11 +1635,13 @@ def phase_resize(tmp, config):
     return worst_px, worst_mean
 
 
-def phase_eval(rp, tmp, config, weights, label, runs, opts=()):
+def phase_eval(rp, tmp, config, weights, label, runs, opts=(),
+               per_forward=1):
     """``test_net`` (14-transform TTA, AVG) with ``config`` on
     ``weights``, once per (task, device resize) of ``runs``. Every forward
     must have gone through the forward kernel without the argmax, and
-    nothing else. The merged scores of the two resize modes (task det)
+    nothing else (``per_forward`` launches a forward: 0 under ROIAlign).
+    The merged scores of the two resize modes (task det)
     must agree within tests/test_torch_device_resize.py's bound (rtol
     0.05, atol 5e-3), the merged boxes within MERGE_BOX_ATOL_PX. Returns
     the forward kernel's launches."""
@@ -1687,14 +1717,15 @@ def phase_eval(rp, tmp, config, weights, label, runs, opts=()):
     finally:
         inference.Inferencer._finalize = finalize
     launches = rp.roi_pool.launches
-    if (launches != total or rp.roi_pool_argmax.launches
+    if (launches != per_forward * total or rp.roi_pool_argmax.launches
             or rp.roi_pool_backward.launches):
         raise AssertionError(f"{label}: roi_pool kernel launched {launches} "
                              f"times for {total} forwards (argmax "
                              f"{rp.roi_pool_argmax.launches}, backward "
                              f"{rp.roi_pool_backward.launches})")
-    print(f"[eval] {label} roi_pool kernel launches {launches} = forwards "
-          f"{total} ({n_tta} per batch); no argmax, no backward")
+    print(f"[eval] {label} roi_pool kernel launches {launches} = "
+          f"{per_forward} x forwards {total} ({n_tta} per batch); no argmax, "
+          "no backward")
     if len(merged) == 2:
         bounds = ((0.05, 5e-3), (1e-4, MERGE_BOX_ATOL_PX))
         worst, excess = [0.0, 0.0], [-math.inf, -math.inf]
@@ -2479,18 +2510,24 @@ def fpn_inputs(rng, hw, b=2, c=256, p=None):
 
 def phase_fpn_kernels(dev, rp):
     """#1, #1[argmax] and #2 at the FPN shapes (C = 256, B = 2, P = 1000
-    rois routed to P2-P5, each call with its level's mask and scale):
-    both forward instantiations bit-exact (atol 0) against their plain
-    versions in f32 and bf16 on the training pyramid and on the eval
-    pyramid (whose P2 takes the int32 codes); #2 routing exact and within
-    phase 3's bound on the training pyramid. Then, bf16, in turns (3
-    rounds of 10): each eval level's #1 and the four-call pool, each
-    training level's #1[argmax], #2 and #2's index_add_ yardstick; the
-    plain versions once.
-    Returns {kernel: {level: readings}} and the worst errors."""
+    rois routed to P2-P5, each call with its level's mask and scale),
+    bf16, at R = 7 and at R = ``POOLED_WIDE``: on the eval pyramid of an
+    800x1344 canvas #1 bit-exact (atol 0) against ``roi_pool_plain`` at
+    each level and #1[argmax] on its P2 (67,200 cells: int32 codes)
+    against ``roi_pool_argmax_plain``; on the training pyramid of a
+    640x1088 canvas #1[argmax] bit-exact at each level and #2 routing
+    exact, within a bf16 ulp of the plain backward from the same codes.
+    Each plain version runs once, timed. Then, in turns (3 rounds of 10):
+    each eval level's #1 and the four-call pool, each training level's
+    #1[argmax], #2 and #2's index_add_ yardstick, at both R, with their
+    byte bounds; and plain ROIAlign's eval forward (sampling 0) at each
+    eval level at both R. (The f32 checks and the map-rescan oracle of
+    these kernels stand in phases 2-3 and 18 at R = 7 and in
+    ``phase_pooled_grid`` at every R.) Returns {R: {kernel: {level:
+    readings}}}, the worst errors and ROIAlign's {R: {level: ms}}."""
     import torch
     from odwscl_tpu_torch.models.fpn import multilevel_roi_pool
-    from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound, stage_work
+    from odwscl_tpu_torch.ops.roi_align import roi_align
     from odwscl_tpu_torch.utils.profiling import MEM_BYTES_PER_S, card_rate
 
     name = torch.cuda.get_device_name(dev)
@@ -2502,38 +2539,6 @@ def phase_fpn_kernels(dev, rp):
           "masked): "
           + ", ".join(f"{lv} {int(m.sum())}, {int(mt.sum())}"
                       for (lv, _, _, m, _), (_, _, _, mt, _) in zip(ev, tr)))
-    lv2, f2, r2, m2, s2 = ev[0]
-    r, m = torch.from_numpy(r2).to(dev), torch.from_numpy(m2).to(dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        f = torch.from_numpy(f2).to(dev, dtype)
-        got, want = rp.roi_pool(f, r, m, s2), rp.roi_pool_plain(f, r, m, s2)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"roi_pool kernel != plain (eval {lv2}, "
-                                 f"{dtype})")
-        print(f"[fpn] eval {lv2} {str(dtype)[6:]} feat {list(f.shape)}: "
-              "#1 bit-exact vs plain")
-    # P2 of the eval canvas (67,200 cells) takes the int32 codes: both
-    # forward instantiations exact there, in each dtype
-    for dtype in (torch.float32, torch.bfloat16):
-        f = torch.from_numpy(f2).to(dev, dtype)
-        want, want_codes = rp.roi_pool_argmax_plain(f, r, m, s2)
-        got, codes = rp.roi_pool_argmax(f, r, m, s2, level=lv2)
-        torch.cuda.synchronize()
-        if codes.dtype != torch.int32 or not torch.equal(got, want) \
-                or not torch.equal(codes, want_codes):
-            raise AssertionError(f"roi_pool_argmax at eval {lv2} ({dtype}, "
-                                 f"codes {codes.dtype}) != plain")
-        print(f"[fpn] eval {lv2} {str(dtype)[6:]}: #1[argmax] runs with "
-              "int32 codes, output and codes bit-exact vs plain")
-    del f, got, want, codes, want_codes
-    fwd_err = phase_kernel(dev, rp, [
-        (f"fpn {kind} {lv}", (f, rr, mm), s)
-        for kind, pyr in (("eval", ev[1:]), ("train", tr))
-        for lv, f, rr, mm, s in pyr])
-    bwd_err = phase_bwd_kernel(dev, rp, [
-        (f"fpn train {lv}", (f, rr, mm), (torch.float32, torch.bfloat16), s)
-        for lv, f, rr, mm, s in tr])
 
     def on_card(pyr):
         return [(lv, torch.from_numpy(f).to(dev, torch.bfloat16),
@@ -2545,86 +2550,124 @@ def phase_fpn_kernels(dev, rp):
     boxes = evc[0][2]
     box_mask = torch.from_numpy(ev[0][3] | ev[1][3] | ev[2][3]
                                 | ev[3][3]).to(dev)
-    fns, plain, bounds, extra = {}, {}, {}, {}
-    for lv, f, rr, mm, s in evc:
-        fns[f"fwd {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: rp.roi_pool(
-            f, rr, mm, s)
-        plain[f"fwd {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: \
-            rp.roi_pool_plain(f, rr, mm, s)
-        ms_, by, nbytes, _ = stage_bound("roi_pool", f, rr, mm, s, name)
-        bounds[f"fwd {lv}"] = (ms_, by, nbytes)
+    del ev, tr
+    errs = {"fwd": 0.0, "fwd_argmax": 0.0, "bwd": 0.0}
+    fns, plain_ms, bounds, extra = {}, {}, {}, {}
+    for res in (7, POOLED_WIDE):
+        tag = f"R{res}"
+        for lv, f, rr, mm, s in evc:
+            want, plain_ms[f"fwd {lv} {tag}"] = timed_call(
+                lambda: rp.roi_pool_plain(f, rr, mm, s, res))
+            if not torch.equal(rp.roi_pool(f, rr, mm, s, res), want):
+                raise AssertionError(f"#1 != plain (fpn eval {lv}, {tag})")
+            fns[f"fwd {lv} {tag}"] = (lambda f=f, rr=rr, mm=mm, s=s, res=res:
+                                      rp.roi_pool(f, rr, mm, s, res))
+            fns[f"align {lv} {tag}"] = (lambda f=f, rr=rr, mm=mm, s=s,
+                                        res=res: roi_align(f, rr, mm, s,
+                                                           res, 0))
+            bounds[f"fwd {lv} {tag}"] = _pooled_bounds(
+                rp, name, f, rr, mm, s, res)["fwd"]
+        lv, f, rr, mm, s = evc[0]
+        want, want_codes = rp.roi_pool_argmax_plain(f, rr, mm, s, res)
+        got, codes = rp.roi_pool_argmax(f, rr, mm, s, res, level=lv)
+        if codes.dtype != torch.int32 or not torch.equal(got, want) \
+                or not torch.equal(codes, want_codes):
+            raise AssertionError(f"#1[argmax] at fpn eval {lv} ({tag}, codes "
+                                 f"{codes.dtype}) != plain")
+        del want, want_codes, got, codes
 
-    def four_call():
-        with torch.no_grad():
-            return multilevel_roi_pool(
-                lambda f, b, m, s, lv: rp.RoIPoolFunction.apply(f, b, m, s,
-                                                                lv),
-                feats, FPN_SCALES, boxes, box_mask)
+        def four_call(res=res):
+            with torch.no_grad():
+                return multilevel_roi_pool(
+                    lambda f, b, m, s, lv: rp.RoIPoolFunction.apply(
+                        f, b, m, s, lv, res),
+                    feats, FPN_SCALES, boxes, box_mask)
 
-    fns["fwd 4-call"] = four_call
-    out_bytes = boxes.shape[0] * boxes.shape[1] * 49 * 256 * 2
-    four_bytes = sum(bounds[f"fwd P{k}"][2] for k in range(2, 6)) \
-        - 3 * out_bytes
-    bounds["fwd 4-call"] = (four_bytes / rate * 1e3, "bytes", four_bytes)
-    for lv, f, rr, mm, s in trc:
-        hw = tuple(f.shape[1:3])
-        _, codes = rp.roi_pool_argmax(f, rr, mm, s)
-        g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
-        cells, vals = argmax_cells(rp, codes, rr, mm, g, hw, s)
-        n = f.numel()
+        fns[f"fwd 4-call {tag}"] = four_call
+        out_bytes = boxes.shape[0] * boxes.shape[1] * res * res * 256 * 2
+        four_bytes = sum(bounds[f"fwd P{k} {tag}"][2]
+                         for k in range(2, 6)) - 3 * out_bytes
+        bounds[f"fwd 4-call {tag}"] = (four_bytes / rate * 1e3, "bytes",
+                                       four_bytes)
+        plain_ms[f"fwd 4-call {tag}"] = sum(plain_ms[f"fwd P{k} {tag}"]
+                                            for k in range(2, 6))
+        for lv, f, rr, mm, s in trc:
+            hw = tuple(f.shape[1:3])
+            (want, want_codes), plain_ms[f"fwd_argmax {lv} {tag}"] = \
+                timed_call(lambda: rp.roi_pool_argmax_plain(f, rr, mm, s,
+                                                            res))
+            got, codes = rp.roi_pool_argmax(f, rr, mm, s, res)
+            if not torch.equal(got, want) or not torch.equal(codes,
+                                                             want_codes):
+                raise AssertionError(f"#1[argmax] != plain (fpn train {lv}, "
+                                     f"{tag})")
+            del want, want_codes, got
+            g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+            want, plain_ms[f"bwd {lv} {tag}"] = timed_call(
+                lambda: rp.roi_pool_backward_argmax_plain(
+                    codes, rr, mm, g, s, hw, res).float())
+            ok, err = _bwd_within(rp.roi_pool_backward(
+                codes, rr, mm, g, s, hw, res).float(), want, torch.bfloat16)
+            if not ok:
+                raise AssertionError(f"#2 != plain (fpn train {lv}, {tag}): "
+                                     f"{err}")
+            errs["bwd"] = max(errs["bwd"], err)
+            cells, vals = argmax_cells(rp, codes, rr, mm, g, hw, s)
+            n = f.numel()
 
-        def yardstick(cells=cells, vals=vals, n=n):
-            d = torch.zeros(n, dtype=torch.float32, device=dev)
-            d.index_add_(0, cells, vals)
-            return d.to(torch.bfloat16)
+            def yardstick(cells=cells, vals=vals, n=n):
+                d = torch.zeros(n, dtype=torch.float32, device=dev)
+                d.index_add_(0, cells, vals)
+                return d.to(torch.bfloat16)
 
-        got = rp.roi_pool_backward(codes, rr, mm, g, s, hw)
-        if not torch.equal(got != 0, yardstick().reshape(f.shape) != 0):
-            raise AssertionError(f"roi_pool_bwd and its index_add_ "
-                                 f"yardstick route differently (fpn {lv})")
-        fns[f"fwd_argmax {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: \
-            rp.roi_pool_argmax(f, rr, mm, s)
-        fns[f"bwd {lv}"] = lambda c=codes, rr=rr, mm=mm, g=g, s=s, hw=hw: \
-            rp.roi_pool_backward(c, rr, mm, g, s, hw)
-        fns[f"bwd_library {lv}"] = yardstick
-        plain[f"fwd_argmax {lv}"] = lambda f=f, rr=rr, mm=mm, s=s: \
-            rp.roi_pool_argmax_plain(f, rr, mm, s)
-        plain[f"bwd {lv}"] = lambda c=codes, rr=rr, mm=mm, g=g, s=s, hw=hw: \
-            rp.roi_pool_backward_argmax_plain(c, rr, mm, g, s, hw)
-        arg_bytes = (stage_work("roi_pool", f, rr, mm, s)[0]
-                     + codes.numel() * codes.element_size())
-        bounds[f"fwd_argmax {lv}"] = (arg_bytes / rate * 1e3, "bytes",
-                                      arg_bytes)
-        bounds[f"bwd {lv}"] = bwd_bound(f, rr, mm, g, name, s)
-        extra[lv] = int(cells.numel())
+            fns[f"fwd_argmax {lv} {tag}"] = (
+                lambda f=f, rr=rr, mm=mm, s=s, res=res:
+                rp.roi_pool_argmax(f, rr, mm, s, res))
+            fns[f"bwd {lv} {tag}"] = (
+                lambda c=codes, rr=rr, mm=mm, g=g, s=s, hw=hw, res=res:
+                rp.roi_pool_backward(c, rr, mm, g, s, hw, res))
+            fns[f"bwd_library {lv} {tag}"] = yardstick
+            b = _pooled_bounds(rp, name, f, rr, mm, s, res, codes, g)
+            bounds[f"fwd_argmax {lv} {tag}"] = b["fwd_argmax"]
+            bounds[f"bwd {lv} {tag}"] = b["bwd"]
+            extra[f"{lv} {tag}"] = int(cells.numel())
+        print(f"[fpn] {tag}: #1 bit-exact vs plain at P2-P5 (eval pyramid), "
+              "#1[argmax] with int32 codes at eval P2, #1[argmax] bit-exact "
+              "and #2 within a bf16 ulp of the plain backward at P2-P5 "
+              "(train pyramid)")
     times = {k: [] for k in fns}
     for _ in range(3):
         for k, fn in fns.items():
             times[k].append(cuda_ms(fn, iters=10))
     ms = {k: statistics.mean(v) for k, v in times.items()}
-    plain_ms = {k: cuda_ms(fn, iters=1, warmup=0) for k, fn in plain.items()}
-    plain_ms["fwd 4-call"] = sum(plain_ms[f"fwd P{k}"] for k in range(2, 6))
     for k in bounds:
-        lib = (f"; index_add_ yardstick {ms['bwd_library ' + k[4:]]:.4f} ms "
-               f"({extra[k[4:]]} routed)" if k.startswith("bwd ") else "")
+        kernel, lv, tag = k.split(" ")
+        lib = (f"; index_add_ yardstick "
+               f"{ms[f'bwd_library {lv} {tag}']:.4f} ms "
+               f"({extra[f'{lv} {tag}']} routed)" if kernel == "bwd" else "")
+        align = (f"; ROIAlign {ms[f'align {lv} {tag}']:.4f} ms"
+                 if f"align {lv} {tag}" in ms else "")
         print(f"[fpn] {k} bf16: {ms[k]:.4f} ms "
               f"({', '.join(f'{t:.4f}' for t in times[k])}), bound "
               f"{bounds[k][0]:.4f} ms ({bounds[k][1]}, "
               f"{bounds[k][2] / 1e9:.4f} GB), plain {plain_ms[k]:.3f} ms"
-              f"{lib}")
-    SUMMARY.append("fpn c256 ms " + ", ".join(
-        f"{k} {ms[k]:.4f}" for k in bounds))
-    out = {"fwd": {}, "fwd_argmax": {}, "bwd": {}}
+              f"{lib}{align}")
+    for res in (7, POOLED_WIDE):
+        SUMMARY.append(f"fpn c256 R={res} ms " + ", ".join(
+            f"{k.rsplit(' ', 1)[0]} {ms[k]:.4f}" for k in bounds
+            if k.endswith(f" R{res}")))
+    out = {res: {"fwd": {}, "fwd_argmax": {}, "bwd": {}}
+           for res in (7, POOLED_WIDE)}
     for k in bounds:
-        kernel, lv = k.split(" ")
-        out[kernel][lv] = {
+        kernel, lv, tag = k.split(" ")
+        out[int(tag[1:])][kernel][lv] = {
             "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1],
-            "library_ms": ms.get(f"bwd_library {lv}")
+            "library_ms": ms.get(f"bwd_library {lv} {tag}")
             if kernel == "bwd" else None}
-    errs = {"fwd": fwd_err["eval"], "fwd_argmax": fwd_err["argmax"],
-            "bwd": bwd_err}
-    return out, errs
+    align = {res: {lv: ms[f"align {lv} R{res}"] for lv, *_ in evc}
+             for res in (7, POOLED_WIDE)}
+    return out, errs, align
 
 
 def sup_batch(rng, b=2, h=256, w=384, p=128, g=8, stride=4, scale=1.0,
@@ -3820,6 +3863,496 @@ def phase_orbax(dev, rp, tmp):
     return launches
 
 
+# phase 25: the pooler configurations. The resolutions held bit for bit on
+# the grid, and the one checked and timed at full shapes beside 7
+POOLED_GRID = (1, 2, 3, 6, 8, 14, 16)
+POOLED_WIDE = 14
+POOLER_TRAIN_STEPS = {"ROIAlign": 5, "ROIPool R=14": 3}
+MASK_CANVAS_IMAGE = (400, 672)   # resized x2 to the 800x1344 canvas
+MASK_STEPS = 5
+
+
+class PooledLaunches:
+    """Records the resolution of every ROIPool kernel launch inside the
+    block: the wrappers' ``_launch_fwd`` and ``_launch_bwd`` (which do not
+    count launches; ``roi_pool``, ``roi_pool_argmax`` and
+    ``roi_pool_backward`` do) wrapped, ``seen[(kernel, R)]`` counted."""
+
+    def __init__(self, rp):
+        self.rp, self.seen = rp, {}
+
+    def __enter__(self):
+        fwd = self.fwd = self.rp._launch_fwd
+        bwd = self.bwd = self.rp._launch_bwd
+        seen = self.seen
+
+        def launch_fwd(feat, rois, mask, scale, pooled, argmax):
+            key = ("fwd" if argmax is None else "fwd_argmax", pooled)
+            seen[key] = seen.get(key, 0) + 1
+            return fwd(feat, rois, mask, scale, pooled, argmax)
+
+        def launch_bwd(argmax, rois, mask, grad, scale, hw, pooled, dtype):
+            seen[("bwd", pooled)] = seen.get(("bwd", pooled), 0) + 1
+            return bwd(argmax, rois, mask, grad, scale, hw, pooled, dtype)
+
+        self.rp._launch_fwd, self.rp._launch_bwd = launch_fwd, launch_bwd
+        return seen
+
+    def __exit__(self, *exc):
+        self.rp._launch_fwd, self.rp._launch_bwd = self.fwd, self.bwd
+
+
+def timed_call(fn):
+    """(fn's result, its ms on the card's clock, one call)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _signed_codes(rp, codes):
+    """Codes of either width as int64 offsets, -1 for no cell."""
+    import torch
+
+    off = rp.decode_cells(codes).long()
+    return torch.where(off == rp.UNSIGNED_NO_CELL[codes.dtype], -1, off)
+
+
+def _bwd_within(got, want, dtype, count=None):
+    """Routing exact and the values within phase 3's bound: the f32 sums'
+    reordering (``count`` the bins routed to each cell) or a bf16 ulp."""
+    import torch
+
+    if not torch.equal(got != 0, want != 0):
+        return False, math.inf
+    err = (got - want).abs()
+    if dtype == torch.float32 and count is not None:
+        bound = count * 2.0 ** -23 * want.abs() + 1e-30
+    elif dtype == torch.float32:
+        bound = 2.0 ** -20 * want.abs() + 1e-30
+    else:
+        bound = 2.0 ** -7 * want.abs()
+    return bool((err <= bound).all()), err.max().item()
+
+
+def phase_pooled_grid(dev, rp):
+    """#1, #1[argmax] with int16 and with int32 codes, and #2 from each,
+    at every R of ``POOLED_GRID`` on phase 2's size grid (200x260 map, C =
+    64), f32, bf16 and bf16 with ties: the outputs and codes bit-exact
+    against ``roi_pool_argmax_plain``, the backward's routing exact and
+    its values within phase 3's bound of the map-rescan
+    ``roi_pool_backward_plain``. A resolution past the cap raises.
+    Returns the worst errors."""
+    import torch
+
+    rng = np.random.RandomState(25)
+    feat, rois, mask = grid_inputs(rng, 64)
+    ties = np.round(feat * 1.5).astype(np.float32)
+    r = torch.from_numpy(rois).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    hw = feat.shape[1:3]
+    worst = {"fwd": 0.0, "fwd_argmax": 0.0, "bwd": 0.0}
+    for res in POOLED_GRID:
+        routed = 0
+        for case, arr, dtype in (("f32", feat, torch.float32),
+                                 ("bf16", feat, torch.bfloat16),
+                                 ("bf16 ties", ties, torch.bfloat16)):
+            f = torch.from_numpy(arr).to(dev, dtype)
+            want, want_codes = rp.roi_pool_argmax_plain(f, r, m, 0.125, res)
+            got = rp.roi_pool(f, r, m, 0.125, res)
+            got16, codes16 = rp.roi_pool_argmax(f, r, m, 0.125, res)
+            got32, codes32 = rp._launch_fwd(f, r, m, 0.125, res, torch.int32)
+            torch.cuda.synchronize()
+            for kind, out in (("fwd", got), ("fwd_argmax", got16),
+                              ("fwd_argmax", got32)):
+                if not torch.equal(out, want):
+                    raise AssertionError(f"roi_pool {kind} kernel != plain at "
+                                         f"R={res} ({case})")
+            want_off = _signed_codes(rp, want_codes)
+            for codes in (codes16, codes32):
+                if not torch.equal(_signed_codes(rp, codes), want_off):
+                    raise AssertionError(f"roi_pool argmax codes "
+                                         f"({codes.dtype}) != plain at "
+                                         f"R={res} ({case})")
+            g = (torch.rand(r.shape[:2] + (res, res, 64), device=dev)
+                 + 0.05).to(dtype)
+            oracle = rp.roi_pool_backward_plain(f, r, m, g, 0.125,
+                                                res).float()
+            count = (rp.roi_pool_backward_plain(
+                f, r, m, torch.ones_like(g), 0.125, res).float()
+                if dtype == torch.float32 else None)
+            for codes in (codes16, codes32):
+                dtype_c = codes.dtype
+                d = (rp.roi_pool_backward(codes, r, m, g, 0.125, hw, res)
+                     if dtype_c == torch.int16 else rp._launch_bwd(
+                         codes, r, m, g, 0.125, hw, res, dtype_c)).float()
+                ok, err = _bwd_within(d, oracle, dtype, count)
+                if not ok:
+                    raise AssertionError(f"roi_pool_bwd ({dtype_c} codes) != "
+                                         f"the map rescan at R={res} "
+                                         f"({case}): max |diff| {err}")
+                worst["bwd"] = max(worst["bwd"], err)
+            routed = max(routed, int((oracle != 0).sum()))
+        print(f"[pooled] R={res} grid feat {list(f.shape)} P={r.shape[1]}, "
+              "f32 / bf16 / bf16 ties: #1, #1[argmax] int16 and int32 "
+              "bit-exact vs plain (outputs, codes); #2 from both code widths"
+              f" routes as the map rescan, within the bound ({routed} cells "
+              "routed)")
+    for bad in (0, 17):
+        try:
+            rp.roi_pool(f, r, m, 0.125, bad)
+        except ValueError as exc:
+            if "from 1 to 16" not in str(exc):
+                raise
+        else:
+            raise AssertionError(f"roi_pool at R={bad} did not raise")
+    print("[pooled] R=0 and R=17 raise a ValueError that names the cap of 16")
+    return worst
+
+
+def _pooled_bounds(rp, name, f, r, m, scale, res, codes=None, g=None):
+    """{kernel: (bound ms, by, bytes)} at ``res``: #1 by ``stage_bound``,
+    #1[argmax] its bytes and the codes', #2 by ``bwd_bound``."""
+    from odwscl_tpu_torch.ops.roi_pool_stages import stage_bound, stage_work
+    from odwscl_tpu_torch.utils.profiling import MEM_BYTES_PER_S, card_rate
+
+    rate = card_rate(name, MEM_BYTES_PER_S)
+    ms_, by, nbytes, _ = stage_bound("roi_pool", f, r, m, scale, name, res)
+    out = {"fwd": (ms_, by, nbytes)}
+    if codes is not None:
+        arg = (stage_work("roi_pool", f, r, m, scale, res)[0]
+               + codes.numel() * codes.element_size())
+        out["fwd_argmax"] = (arg / rate * 1e3, "bytes", arg)
+        out["bwd"] = bwd_bound(f, r, m, g, name, scale, res)
+    return out
+
+
+def phase_pooled_timing(dev, rp):
+    """At R = ``POOLED_WIDE`` on the eval shape (feat [8, 104, 168, 512]
+    bf16, P = 2048): #1, #1[argmax] and #2 held against their plain
+    versions (one call each, timed: outputs and codes bit-exact, #2's
+    routing exact and within a bf16 ulp of the plain backward from the same
+    codes). Then, bf16, in turns (3 rounds of 10; ROIAlign's training pass
+    of 3): #1 at the eval shape, #1[argmax], #2 and #2's index_add_
+    yardstick at the training shape (feat [8, 160, 208, 512]), each at R =
+    7 and at R = ``POOLED_WIDE``, and plain ROIAlign (sampling 0, the
+    adaptive grid): its eval forward at the eval shape at both R, its
+    forward and autograd backward at the training shape at R = 7; the plain
+    #1[argmax] and #2 at the training shape once (checked too). Returns
+    {kernel: readings at R = 14} and the worst errors."""
+    import torch
+    from odwscl_tpu_torch.ops.roi_align import roi_align
+
+    name = torch.cuda.get_device_name(dev)
+    res = POOLED_WIDE
+    rng = np.random.RandomState(5)
+    fe, re_, me = (torch.from_numpy(a).to(dev) for a in main_path_inputs(rng))
+    fe = fe.to(torch.bfloat16)
+    ft, rt, mt = (torch.from_numpy(a).to(dev)
+                  for a in train_shape_inputs(rng))
+    ft = ft.to(torch.bfloat16)
+    plain = {}
+    want, plain["eval fwd"] = timed_call(
+        lambda: rp.roi_pool_plain(fe, re_, me, 0.125, res))
+    if not torch.equal(rp.roi_pool(fe, re_, me, 0.125, res), want):
+        raise AssertionError(f"#1 != plain at R={res}, eval shape")
+    del want
+    (want, want_codes), plain["eval fwd_argmax"] = timed_call(
+        lambda: rp.roi_pool_argmax_plain(fe, re_, me, 0.125, res))
+    got, codes = rp.roi_pool_argmax(fe, re_, me, 0.125, res)
+    if not torch.equal(got, want) or not torch.equal(codes, want_codes):
+        raise AssertionError(f"#1[argmax] != plain at R={res}, eval shape")
+    del got, want, want_codes
+    g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+    hw = tuple(fe.shape[1:3])
+    want, plain["eval bwd"] = timed_call(
+        lambda: rp.roi_pool_backward_argmax_plain(codes, re_, me, g, 0.125,
+                                                  hw, res).float())
+    ok, err = _bwd_within(rp.roi_pool_backward(codes, re_, me, g, 0.125, hw,
+                                               res).float(), want,
+                          torch.bfloat16)
+    if not ok:
+        raise AssertionError(f"#2 != plain at R={res}, eval shape: {err}")
+    errs = {"fwd": 0.0, "fwd_argmax": 0.0, "bwd": err}
+    del codes, g, want
+    print(f"[pooled] R={res} eval shape feat {list(fe.shape)} bf16 P=2048: "
+          f"#1, #1[argmax] (int16) bit-exact vs plain, #2 routes as the "
+          f"plain backward from the same codes (max |diff| {err:.3e}); plain"
+          f" ms: " + ", ".join(f"{k} {v:.1f}" for k, v in plain.items()))
+    hwt = tuple(ft.shape[1:3])
+    (want, want_codes), plain["train fwd_argmax"] = timed_call(
+        lambda: rp.roi_pool_argmax_plain(ft, rt, mt, 0.125, res))
+    got, codes = rp.roi_pool_argmax(ft, rt, mt, 0.125, res)
+    if not torch.equal(got, want) or not torch.equal(codes, want_codes):
+        raise AssertionError(f"#1[argmax] != plain at R={res}, train shape")
+    del got, want, want_codes
+    g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+    want, plain["train bwd"] = timed_call(
+        lambda: rp.roi_pool_backward_argmax_plain(codes, rt, mt, g, 0.125,
+                                                  hwt, res).float())
+    ok, err = _bwd_within(rp.roi_pool_backward(codes, rt, mt, g, 0.125, hwt,
+                                               res).float(), want,
+                          torch.bfloat16)
+    if not ok:
+        raise AssertionError(f"#2 != plain at R={res}, train shape: {err}")
+    errs["bwd"] = max(errs["bwd"], err)
+    del want, codes, g
+    torch.cuda.empty_cache()
+    fns, bounds = {}, {}
+    for rr in (7, res):
+        fns[f"fwd R{rr}"] = lambda rr=rr: rp.roi_pool(fe, re_, me, 0.125, rr)
+        _, codes = rp.roi_pool_argmax(ft, rt, mt, 0.125, rr)
+        g = torch.rand(codes.shape, device=dev).to(torch.bfloat16)
+        # d feat (136M cells) fits int32 indices
+        cells, vals = argmax_cells(rp, codes, rt, mt, g, hwt,
+                                   index_dtype=torch.int32)
+        n = ft.numel()
+
+        def yardstick(cells=cells, vals=vals, n=n):
+            d = torch.zeros(n, dtype=torch.float32, device=dev)
+            d.index_add_(0, cells, vals)
+            return d.to(torch.bfloat16)
+
+        if not torch.equal(rp.roi_pool_backward(codes, rt, mt, g, 0.125, hwt,
+                                                rr) != 0,
+                           yardstick().reshape(ft.shape) != 0):
+            raise AssertionError(f"#2 and its index_add_ yardstick route "
+                                 f"differently at R={rr}")
+        fns[f"fwd_argmax R{rr}"] = lambda rr=rr: rp.roi_pool_argmax(
+            ft, rt, mt, 0.125, rr)
+        fns[f"bwd R{rr}"] = lambda c=codes, g=g, rr=rr: rp.roi_pool_backward(
+            c, rt, mt, g, 0.125, hwt, rr)
+        fns[f"bwd_library R{rr}"] = yardstick
+        fns[f"align_eval R{rr}"] = lambda rr=rr: roi_align(
+            fe, re_, me, 0.125, rr, 0)
+        b_eval = _pooled_bounds(rp, name, fe, re_, me, 0.125, rr)
+        b_train = _pooled_bounds(rp, name, ft, rt, mt, 0.125, rr, codes, g)
+        bounds.update({f"fwd R{rr}": b_eval["fwd"],
+                       f"fwd_argmax R{rr}": b_train["fwd_argmax"],
+                       f"bwd R{rr}": b_train["bwd"]})
+    fa = ft.detach().requires_grad_()
+
+    def align_train(rr):
+        out = roi_align(fa, rt, mt, 0.125, rr, 0)
+        out.backward(torch.ones_like(out))
+
+    times = {k: [] for k in fns}
+    # at R = 7 only: its autograd keeps [P, R, W, C] per image, 24 GB at
+    # R = 7 on this batch, 48 GB at 14
+    align_t = {7: []}
+    for _ in range(3):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, iters=10 if "align" not in k else 3,
+                                    warmup=1))
+        for rr in align_t:
+            align_t[rr].append(cuda_ms(lambda rr=rr: align_train(rr),
+                                       iters=3, warmup=1))
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    for k in fns:
+        b = (f"; bound {bounds[k][0]:.4f} ms ({bounds[k][1]}, "
+             f"{bounds[k][2] / 1e9:.4f} GB)" if k in bounds else "")
+        shape = "eval" if k.startswith(("fwd R", "align")) else "train"
+        print(f"[pooled] {k} bf16 ({shape} shape): {ms[k]:.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in times[k])}){b}")
+    for rr, v in align_t.items():
+        print(f"[pooled] align_train R{rr} bf16 (train shape, forward and "
+              f"backward): {statistics.mean(v):.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in v)})")
+    SUMMARY.append(f"R={res} ms " + ", ".join(
+        f"{k} {ms[k]:.4f}" for k in fns) + ", " + ", ".join(
+        f"align_train R{rr} {statistics.mean(v):.4f}"
+        for rr, v in align_t.items()))
+    out = {"fwd": {"ms": ms[f"fwd R{res}"], "plain_ms": plain["eval fwd"]},
+           "fwd_argmax": {"ms": ms[f"fwd_argmax R{res}"],
+                          "plain_ms": plain["train fwd_argmax"]},
+           "bwd": {"ms": ms[f"bwd R{res}"], "plain_ms": plain["train bwd"],
+                   "library_ms": ms[f"bwd_library R{res}"]}}
+    for k in out:
+        ms_, by, _ = bounds[f"{k} R{res}"]
+        out[k].update(bound_ms=ms_, bound_by=by, max_abs_err=errs[k],
+                      r7_ms=ms[f"{k} R7"],
+                      shape=("eval" if k == "fwd" else "train"))
+        out[k].setdefault("library_ms", None)
+    torch.cuda.empty_cache()
+    align = {"eval_ms": {rr: ms[f"align_eval R{rr}"] for rr in (7, res)},
+             "train_ms": {rr: statistics.mean(v)
+                          for rr, v in align_t.items()}}
+    return out, align
+
+
+def phase_pooler_paths(dev, rp, tmp):
+    """Phase 25's WSOD paths at full width, through the CLIs, on phase 7's
+    synthetic VOC: (a) the main config with ``POOLER_METHOD ROIAlign``,
+    trained ``POOLER_TRAIN_STEPS`` steps (``phase_train``'s checks) and
+    evaluated with the 14-transform device-resize TTA (``phase_eval``);
+    no ROIPool kernel may launch; then one f32 train step card against
+    CPU (``phase_train_card_vs_cpu``'s bounds); (b) the same config with
+    ROIPool at R = 14, trained and evaluated alike: every launch of
+    #1[argmax] and #2 (one a step) and of #1 (one a forward) at R = 14.
+    Each path's launches are read right after it ran. Returns
+    {path: (fwd, fwd[argmax], bwd)} and the card-vs-CPU loss gap."""
+    launches = {}
+    for label, opts, per in (
+            ("ROIAlign", ["MODEL.ROI_BOX_HEAD.POOLER_METHOD", "ROIAlign"], 0),
+            ("ROIPool R=14", ["MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION",
+                              str(POOLED_WIDE)], 1)):
+        opts = ["MODEL.WEIGHT", "", *opts]
+        steps = POOLER_TRAIN_STEPS[label]
+        with PooledLaunches(rp) as seen:
+            train, ckpt = phase_train(rp, tmp, CONFIG, steps, "VGG16 " + label,
+                                      opts, per_step=per)
+        launches[f"VGG16 {label} train"] = (0, *train)
+        want = ({} if not per else
+                {("fwd_argmax", POOLED_WIDE): steps,
+                 ("bwd", POOLED_WIDE): steps})
+        if seen != want:
+            raise AssertionError(f"{label} training launched {seen}, not "
+                                 f"{want}")
+        with PooledLaunches(rp) as seen:
+            ev = phase_eval(rp, tmp, CONFIG, ckpt, "VGG16_" + label.replace(
+                " ", "_").replace("=", ""), [("det", True)], opts,
+                per_forward=per)
+        launches[f"VGG16 {label} eval"] = (ev, 0, 0)
+        want = {} if not per else {("fwd", POOLED_WIDE): ev}
+        if seen != want:
+            raise AssertionError(f"{label} eval launched {seen}, not {want}")
+        print(f"[pooler] {label}: the launches by kernel and R, train "
+              f"{dict(want) if per else 'none'}; eval "
+              f"{ev if per else 'none'} (checked)")
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    # seed 4: at the other phases' seed 3 one fc7 unit's pre-activation
+    # lies within the card's f32 drift of 0 under ROIAlign (one row of its
+    # gradient 1.8e-2 of the largest apart, every other within 3.7e-5);
+    # seeds 4-6 read 9.5e-4, 2.8e-3 and 3.1e-4 (PERF.md §6)
+    gap = phase_train_card_vs_cpu(dev, label="VGG16-OICR ROIAlign", seed=4,
+                                  pooler_method="ROIAlign")
+    SUMMARY.append(f"ROIAlign f32 card vs CPU loss gap {gap:.1e}")
+    return launches, gap
+
+
+def phase_pooler_mask_rcnn(rp, tmp):
+    """Phase 25's supervised path: configs/coco/coco_mask_rcnn_smoke.yaml at
+    the published R-50-FPN Mask R-CNN widths (MLP 1024, mask convs 4x256,
+    512 sampled rois an image) with ROIPool at R = 14 and a 28x28 mask, in
+    bf16, on a synthetic ``coco17`` layout of 400x672 images resized to the
+    800x1344 canvas (1000 proposals an image): ``train_net``
+    ``MASK_STEPS`` steps (every loss finite; each step #1[argmax] and #2 4
+    times, one a level, all at R = 14), then ``test_net`` bbox and segm
+    (each batch #1 8 times at R = 14: 4 for the boxes, 4 for the mask
+    pass; every stat in [0, 1] or -1). Returns {path: launches}."""
+    import torch
+    from odwscl_tpu_torch.data.synthetic import write_synthetic_coco
+    from odwscl_tpu_torch.tools import test_net, train_net
+
+    root = os.path.join(tmp, "coco17_800")
+    t0 = time.perf_counter()
+    write_synthetic_coco(root, n_train=8, n_val=4, seed=5,
+                         img_hw=MASK_CANVAS_IMAGE, n_props=FPN_ROIS,
+                         layout="coco17", obj_size=(60, 300),
+                         prop_size=(16, 400))
+    print(f"[pooler] synthetic COCO (coco17): 8 train + 4 val images "
+          f"{MASK_CANVAS_IMAGE[0]}x{MASK_CANVAS_IMAGE[1]}, {FPN_ROIS} "
+          f"proposals each, written in {time.perf_counter() - t0:.2f} s")
+    config = os.path.join(ROOT, "configs", "coco", "coco_mask_rcnn_smoke.yaml")
+    opts = ["MODEL.BACKBONE.CONV_BODY", "R-50-FPN",
+            "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", "1024",
+            "MODEL.ROI_MASK_HEAD.CONV_LAYERS", "(256, 256, 256, 256)",
+            "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", str(POOLED_WIDE),
+            "MODEL.ROI_MASK_HEAD.RESOLUTION", str(2 * POOLED_WIDE),
+            "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "512",
+            "INPUT.MIN_SIZE_TRAIN", "(800,)", "INPUT.MAX_SIZE_TRAIN", "1344",
+            "INPUT.MIN_SIZE_TEST", "800", "INPUT.MAX_SIZE_TEST", "1344",
+            "TPU.IMAGE_PAD_MULTIPLE", "32", "TPU.PROPOSAL_BUCKETS", "(1024,)",
+            "TPU.COMPUTE_DTYPE", "bfloat16",
+            # random FrozenBN-identity R-50 weights over BGR-255 inputs put
+            # the heads at O(1000) (step 1's loss_mask 2474.6: NaN by step
+            # 3); the PyTorch-style std of maskrcnn-benchmark's configs for
+            # torchvision weights keeps the inputs, and the steps, at O(1)
+            "INPUT.PIXEL_STD", "(57.375, 57.12, 58.395)",
+            "SOLVER.MAX_ITER", str(MASK_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(MASK_STEPS)]
+    out = os.path.join(tmp, "mask_rcnn_r14")
+
+    def counts():
+        return (rp.roi_pool.launches, rp.roi_pool_argmax.launches,
+                rp.roi_pool_backward.launches)
+
+    def reset():
+        rp.roi_pool.launches = rp.roi_pool_argmax.launches = 0
+        rp.roi_pool_backward.launches = 0
+
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    timing = {}
+    t0 = time.perf_counter()
+    with PooledLaunches(rp) as seen:
+        train_net.main(["--config-file", config, "--data-root", root,
+                        "--device", "cuda", "--skip-test", "OUTPUT_DIR", out,
+                        *opts], timing_out=timing)
+    wall = time.perf_counter() - t0
+    train = counts()
+    steps_log = timing["train"]["steps"]
+    if len(steps_log) != MASK_STEPS:
+        raise AssertionError(f"Mask R-CNN R=14: {len(steps_log)} steps")
+    for st in steps_log:
+        bad = [k for k, v in st.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"Mask R-CNN R=14 iteration {st['iter']}: "
+                                 f"non-finite {bad}")
+    want = {("fwd_argmax", POOLED_WIDE): 4 * MASK_STEPS,
+            ("bwd", POOLED_WIDE): 4 * MASK_STEPS}
+    if train != (0, 4 * MASK_STEPS, 4 * MASK_STEPS) or seen != want:
+        raise AssertionError(f"Mask R-CNN R=14 train: launches {train}, by "
+                             f"R {seen}")
+    med = statistics.median(st["step_s"] for st in steps_log[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    idle = timing["train"].get("device_idle_share")
+    print(f"[pooler] Mask R-CNN R-50-FPN R=14 mask 28 train (800x1344, "
+          f"B=2, bf16): {MASK_STEPS} steps, " + ", ".join(
+              f"{k} {steps_log[0][k]:.4f} -> {steps_log[-1][k]:.4f}"
+              for k in ("loss_classifier", "loss_box_reg", "loss_mask"))
+          + f"; median step {med * 1e3:.1f} ms over steps 2-{MASK_STEPS}; "
+          f"device idle share {'n/a' if idle is None else f'{idle:.3f}'}; "
+          f"peak {peak:.2f} GB; launches {train} (all at R=14); CLI wall "
+          f"{wall:.2f} s")
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    timing = {}
+    with PooledLaunches(rp) as seen:
+        res = test_net.main(["--config-file", config, "--data-root", root,
+                             "--device", "cuda", "--weights",
+                             os.path.join(out, "model_final.pt"),
+                             "OUTPUT_DIR", out + "_eval", *opts],
+                            timing_out=timing)
+    evals = counts()
+    (t,), (r,) = timing.values(), res.values()
+    n_batches = math.ceil(t["n_images"] / 2)
+    if evals != (8 * n_batches, 0, 0) or seen != {
+            ("fwd", POOLED_WIDE): 8 * n_batches}:
+        raise AssertionError(f"Mask R-CNN R=14 eval: launches {evals}, by R "
+                             f"{seen}, for {n_batches} batches")
+    keys = ("AP", "segm_AP")
+    if not all(r[k] == -1.0 or 0.0 <= r[k] <= 1.0 for k in keys):
+        raise AssertionError(f"Mask R-CNN R=14: {[(k, r[k]) for k in keys]}")
+    print(f"[pooler] Mask R-CNN R=14 eval: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in r.items() if k in keys)
+        + f"; {t['n_images']} images in {t['wall_s']:.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{evals} for {n_batches} batches (all at R=14)")
+    SUMMARY.append(f"Mask R-CNN R=14 train: median step {med * 1e3:.1f} ms, "
+                   f"idle {'n/a' if idle is None else f'{idle:.3f}'}, peak "
+                   f"{peak:.2f} GB")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    return {"Mask R-CNN R=14 train": train, "Mask R-CNN R=14 eval": evals}
+
+
 def build(rp, q):
     """Build the four kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3832,9 +4365,23 @@ def build(rp, q):
     print(f"[build] {', '.join(k.source.name for k in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for k in libs:
-        for line in k.compile_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {k.name}: {line.strip()}")
+        for entry, regs, spill in ptxas_entries(k.compile_log):
+            print(f"[build] {k.name}: {entry}: {regs} registers, {spill}")
+
+
+def ptxas_entries(log):
+    """(kernel's mangled name, registers, spill line) for every kernel of
+    an nvcc ``-Xptxas -v`` log, in its order."""
+    out, entry, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            out.append((entry, regs, spill))
+    return out
 
 
 def main():
@@ -3882,8 +4429,14 @@ def main():
     err_c, plain_c = timed("kernel checks at the C=2048 timed shape",
                            phase_check_c2048, dev, rp, r50_timed)
     del r50_timed
-    fpn_tm, fpn_err = timed("FPN kernel checks and timing, C=256",
-                            phase_fpn_kernels, dev, rp)
+    fpn_all, fpn_err, fpn_align = timed(
+        "FPN kernel checks and timing at R=7 and R=14, C=256",
+        phase_fpn_kernels, dev, rp)
+    fpn_tm = fpn_all[7]
+    pooled_err = timed("pooled kernels on the grid at every R",
+                       phase_pooled_grid, dev, rp)
+    r14_tm, align_tm = timed("R=14 kernel checks and timing, ROIAlign",
+                             phase_pooled_timing, dev, rp)
     wide_tm, wide_err = timed("wide argmax codes: checks and timing",
                               phase_wide_codes, dev, rp)
     stages = timed("stage profiler", phase_stage_kernels, dev, rp, rs)
@@ -3948,6 +4501,8 @@ def main():
         r50_eval = timed("R-50-C5 eval", phase_eval, rp, tmp, CONFIG_R50,
                          ckpt, "R-50-C5", [("det", False), ("det", True)])
         variants = timed("training variants", phase_variants, rp, tmp, cfg)
+        pooler, align_gap = timed("pooler configurations: ROIAlign, R=14",
+                                  phase_pooler_paths, dev, rp, tmp)
         write_coco_data(tmp)
         coco = timed("COCO train, eval and variants", phase_coco, rp, tmp)
         sup = timed("supervised configs train and eval", phase_supervised_cli,
@@ -3958,6 +4513,8 @@ def main():
                         phase_fullsize_keypoint_fbnet, dev, rp)
         kp_cli = timed("Keypoint R-CNN and FBNet configs train and eval",
                        phase_keypoint_fbnet_cli, rp, tmp)
+        mask14 = timed("Mask R-CNN R-50-FPN at R=14, mask 28",
+                       phase_pooler_mask_rcnn, rp, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if any(rs.roi_pool_stage.launches.values()):
@@ -3971,7 +4528,8 @@ def main():
                  "Mask R-CNN full-size eval": (sup_full, 0, 0),
                  "RetinaNet": tuple(map(sum, zip(sup["RetinaNet train"],
                                                  sup["RetinaNet eval"]))),
-                 **{k: v[:3] for k, v in kp_full.items()}, **kp_cli}
+                 **{k: v[:3] for k, v in kp_full.items()}, **kp_cli,
+                 **pooler, **mask14}
     # the int32 instantiations: the paths on maps past 65,535 cells
     wide_paths = {k: v[3:] for k, v in kp_full.items()}
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
@@ -4003,6 +4561,28 @@ def main():
     fwd_src = {"route": "cuda", "source": src + "roi_pool_fwd.cu",
                "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:245 _fwd_kernel"}
 
+    # phase 25's paths at R = 14 (the ROIAlign ones launch none)
+    r14_paths = {k: v for k, v in {**pooler, **mask14}.items()
+                 if "R=14" in k}
+
+    def r14(k):
+        """The R = 14 readings: the eval or training shape's, the FPN
+        levels', the launches of the R = 14 paths; for #1, ROIAlign's
+        times beside it (plain torch, no kernel)."""
+        i = ("fwd", "fwd_argmax", "bwd").index(k)
+        out = {**r14_tm[k],
+               "max_abs_err": max(r14_tm[k]["max_abs_err"], pooled_err[k]),
+               "launches": sum(v[i] for v in r14_paths.values()),
+               "launches_by_path": {p: v[i] for p, v in r14_paths.items()},
+               "fpn_c256": fpn_all[POOLED_WIDE][k]}
+        if k == "fwd":
+            out["roi_align_ms"] = {
+                "eval_shape": align_tm["eval_ms"],
+                "train_shape_fwd_bwd": align_tm["train_ms"],
+                "fpn_eval_levels": fpn_align,
+                "note": "plain torch ops/roi_align.py, sampling 0; by R"}
+        return {"r14": out}
+
     def c2048(k, err, launches):
         """The R-50-C5 readings: the worst error over both C = 2048 checks,
         the plain time over the timed shape's chunks (bf16); and the FPN
@@ -4022,13 +4602,14 @@ def main():
          "launches_by_path": by_path["fwd"],
          "max_abs_err": fwd_err["eval"], **tm["fwd"], "library_ms": None,
          "library_note": no_lib,
-         **c2048("fwd", max(fwd_err_c["eval"], err_c["eval"]), r50_eval)},
+         **c2048("fwd", max(fwd_err_c["eval"], err_c["eval"]), r50_eval),
+         **r14("fwd")},
         {"name": "roi_pool_fwd[argmax]", **fwd_src, "launches": train_fwd,
          "launches_by_path": by_path["fwd_argmax"],
          "max_abs_err": fwd_err["argmax"], **tm["fwd_argmax"],
          "library_ms": None, "library_note": no_lib,
          **c2048("fwd_argmax", max(fwd_err_c["argmax"], err_c["argmax"]),
-                 r50_fwd)},
+                 r50_fwd), **r14("fwd_argmax")},
         {"name": "roi_pool_bwd", "route": "cuda",
          "source": src + "roi_pool_bwd.cu",
          "replaces": "odwscl_tpu/ops/roi_pool_pallas.py:292 _bwd_kernel",
@@ -4037,7 +4618,8 @@ def main():
          "library_note": ("torch.zeros f32, one index_add_ of g at the cells "
                           "decoded from the stored argmax (indices built "
                           "outside the timing), then .to(bf16)"),
-         **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd)}]
+         **c2048("bwd", max(bwd_err_c, err_c["bwd"]), r50_bwd),
+         **r14("bwd")}]
     # the int32-code instantiations of #1[argmax] and #2, timed at the eval
     # P2 (200x336) and, beside the int16 ones on the same inputs, at the
     # training P2 (160x272)

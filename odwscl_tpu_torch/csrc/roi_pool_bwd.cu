@@ -1,5 +1,7 @@
-// 7x7 RoI max pooling, backward from the stored argmax, for NVIDIA Hopper
-// (sm_90a).
+// R x R RoI max pooling, backward from the stored argmax, for NVIDIA Hopper
+// (sm_90a): R = 7 (every shipped config) in an instantiation of its own
+// with the constant divides, any other R from 1 to kMaxPooled (16) in one
+// that reads R at run time (R = 0 in the templates).
 //
 // Replaces: odwscl_tpu/ops/roi_pool_pallas.py:_bwd_kernel (:292, the
 // Pallas TPU kernel behind the custom_vjp of roi_pool_tpu), which
@@ -14,8 +16,10 @@
 // ARGMAX): one code per output element, the offset (y - hs) * (we - ws) +
 // (x - ws) of the cell inside its bin, read as unsigned, all ones for no
 // cell; int16 codes (Narrow) for maps of at most 65535 cells, int32 (Wide)
-// above, as the forward wrote them. The bin edges are recomputed here in integers, as the
-// forward computes them. The plain PyTorch version is
+// above, as the forward wrote them. The bin edges are recomputed here in
+// integers, as the forward computes them; the bins of a roi that meet a
+// tile are two ranges of bin indices in 8-bit fields (span), enough up to
+// R = 255. The plain PyTorch version is
 // roi_pool_backward_argmax_plain in ops/roi_pool.py (decode, one f32
 // index_add_, cast); the map-rescan roi_pool_backward_plain is the oracle of
 // the routing. Routing is exact; the f32 sums agree up to their order.
@@ -56,10 +60,10 @@
 // g and the argmax are read once per map tile that a bin meets: about 1.5x
 // at the training shape with 8 x 8 tiles. Two blocks of 512 threads share
 // an SM (64 registers each). The tile sizes, kBins and the block shape were
-// picked on the card among 8x4 to 32x32 tiles, 32 to 256 channels, 1 to 7
-// bins in flight and 256 or 512 threads, kBins at the batches of the six
-// train scales (odwscl_tpu_torch/tools/tune_roi_pool.py; readings in
-// PERF.md).
+// picked on the card at R = 7 among 8x4 to 32x32 tiles, 32 to 256
+// channels, 1 to 7 bins in flight and 256 or 512 threads, kBins at the
+// batches of the six train scales
+// (odwscl_tpu_torch/tools/tune_roi_pool.py; readings in PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,7 +72,8 @@
 
 namespace {
 
-constexpr int kPooled = 7;
+constexpr int kPooled = 7;  // the fixed instantiation's R
+constexpr int kMaxPooled = 16;  // the largest R of the run-time one
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileH = 8;   // map rows per block
@@ -161,12 +166,23 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-__device__ __forceinline__ int bin_lo(int k, int len, int start, int limit) {
-  return clampi(k * len / kPooled + start, 0, limit);
+// bin k of R bins, or of `pooled` read at run time when R = 0. A template
+// on R, so that each instantiation has its own copy: with one copy shared
+// by both, R = 7's kernels divided by the run-time R too (the bf16 and f32
+// int16-code instantiations then used 59 and 62 registers, not the 64 of
+// the R = 7 source before the run-time R)
+template <int R>
+__device__ __forceinline__ int bin_lo(int k, int len, int start, int limit,
+                                      int pooled) {
+  const int n = R ? R : pooled;
+  return clampi(k * len / n + start, 0, limit);
 }
 
-__device__ __forceinline__ int bin_hi(int k, int len, int start, int limit) {
-  return clampi(((k + 1) * len + kPooled - 1) / kPooled + start, 0, limit);
+template <int R>
+__device__ __forceinline__ int bin_hi(int k, int len, int start, int limit,
+                                      int pooled) {
+  const int n = R ? R : pooled;
+  return clampi(((k + 1) * len + n - 1) / n + start, 0, limit);
 }
 
 // channel j of the tile lives in plane j % kPer, word j / kPer of its cell
@@ -174,15 +190,17 @@ __device__ __forceinline__ int acc_slot(int j) {
   return (j % kPer) * 32 + j / kPer;
 }
 
-// Grid (channel tiles, map tiles, images).
-template <typename T, typename Code>
+// Grid (channel tiles, map tiles, images). R: the resolution, or 0 for
+// `pooled` (1 .. kMaxPooled) read at run time.
+template <typename T, typename Code, int R = kPooled>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
                     const float* __restrict__ rois,
                     const uint8_t* __restrict__ mask,
                     const typename T::Elem* __restrict__ grad,
                     typename T::Elem* __restrict__ dfeat, int P, int H,
-                    int W, int C, float scale, int tiles_w) {
+                    int W, int C, float scale, int tiles_w, int pooled) {
+  const int np = R ? R : pooled;
   constexpr int kCodeVecs = kPer * Code::kBytes / 16;  // uint4 of codes
   constexpr int kGradVecs = kPer * T::kBytes / 16;
   extern __shared__ __align__(16) float acc[];  // [kTileH * kTileW][kTileC]
@@ -214,7 +232,7 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
     for (int p = base + tid; p < base + kList; p += kThreads) {
       const int roi = b * P + p;
       int4 q = make_int4(0, 0, 1, 1);
-      int ph0 = kPooled, ph1 = 0, pw0 = kPooled, pw1 = 0;
+      int ph0 = np, ph1 = 0, pw0 = np, pw1 = 0;
       if (p < P && mask[roi]) {
         const float* r = rois + static_cast<int64_t>(roi) * 4;
         q.x = round_cell(r[0], scale);
@@ -222,14 +240,15 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
         q.z = max(round_cell(r[2], scale) - q.x + 1, 1);
         q.w = max(round_cell(r[3], scale) - q.y + 1, 1);
 #pragma unroll
-        for (int k = 0; k < kPooled; ++k) {
-          if (max(bin_lo(k, q.w, q.y, H), ty0) <
-              min(bin_hi(k, q.w, q.y, H), ty0 + th)) {
+        for (int k = 0; k < (R ? R : kMaxPooled); ++k) {
+          if (!R && k >= np) break;
+          if (max(bin_lo<R>(k, q.w, q.y, H, np), ty0) <
+              min(bin_hi<R>(k, q.w, q.y, H, np), ty0 + th)) {
             ph0 = min(ph0, k);
             ph1 = k + 1;
           }
-          if (max(bin_lo(k, q.z, q.x, W), tx0) <
-              min(bin_hi(k, q.z, q.x, W), tx0 + tw)) {
+          if (max(bin_lo<R>(k, q.z, q.x, W, np), tx0) <
+              min(bin_hi<R>(k, q.z, q.x, W, np), tx0 + tw)) {
             pw0 = min(pw0, k);
             pw1 = k + 1;
           }
@@ -252,17 +271,16 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
     // each warp takes one (listed roi, row bin) at a time and walks the
     // row's bins that meet the tile, kBins at a time with their loads in
     // flight together; lanes over the tile's channels, kPer each
-    const int items = count * kPooled;
+    const int items = count * np;
     for (int it = warp; it < items; it += kWarps) {
-      const int li = it / kPooled;
+      const int li = it / np;
       const int sp = span[li];
-      const int ph = it - li * kPooled;
+      const int ph = it - li * np;
       if (ph < (sp & 0xff) || ph >= ((sp >> 8) & 0xff)) continue;
       const int pw0 = (sp >> 16) & 0xff, pw1 = (sp >> 24) & 0xff;
       const int4 r = box[li];
-      const int hs = bin_lo(ph, r.w, r.y, H);
-      const int64_t row0 =
-          (static_cast<int64_t>(ids[li]) * kPooled + ph) * kPooled;
+      const int hs = bin_lo<R>(ph, r.w, r.y, H, np);
+      const int64_t row0 = (static_cast<int64_t>(ids[li]) * np + ph) * np;
       for (int pwb = pw0; pwb < pw1; pwb += kBins) {
         uint4 codes[kBins][kCodeVecs];
         uint4 g[kBins][kGradVecs];
@@ -283,8 +301,8 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
         for (int u = 0; u < kBins; ++u) {
           const int pw = pwb + u;
           if (pw >= pw1) break;
-          const int ws = bin_lo(pw, r.z, r.x, W);
-          const int bw = bin_hi(pw, r.z, r.x, W) - ws;
+          const int ws = bin_lo<R>(pw, r.z, r.x, W, np);
+          const int bw = bin_hi<R>(pw, r.z, r.x, W, np) - ws;
           const float inv = 1.0f / static_cast<float>(bw);
           const float half_inv = 0.5f * inv;
 #pragma unroll
@@ -322,15 +340,13 @@ roi_pool_bwd_kernel(const uint4* __restrict__ argmax,
   }
 }
 
-template <typename T, typename Code>
-int launch(const void* argmax, const float* rois, const uint8_t* mask,
-           const void* grad, void* dfeat, int B, int P, int H, int W, int C,
-           float scale, void* stream) {
-  if (B * H * W == 0 || C == 0) return 0;
-  if (C % 8) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, typename Code, int R>
+int launch_r(const void* argmax, const float* rois, const uint8_t* mask,
+             const void* grad, void* dfeat, int B, int P, int H, int W,
+             int C, int pooled, float scale, void* stream) {
   if (kAccBytes > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        roi_pool_bwd_kernel<T, Code>,
+        roi_pool_bwd_kernel<T, Code, R>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kAccBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -338,51 +354,72 @@ int launch(const void* argmax, const float* rois, const uint8_t* mask,
   const int tiles_w = (W + kTileW - 1) / kTileW;
   const int tiles_h = (H + kTileH - 1) / kTileH;
   const dim3 grid((C + kTileC - 1) / kTileC, tiles_h * tiles_w, B);
-  roi_pool_bwd_kernel<T, Code><<<grid, kThreads, kAccBytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  roi_pool_bwd_kernel<T, Code, R><<<grid, kThreads, kAccBytes,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(argmax), rois, mask,
       static_cast<const typename T::Elem*>(grad),
-      static_cast<typename T::Elem*>(dfeat), P, H, W, C, scale, tiles_w);
+      static_cast<typename T::Elem*>(dfeat), P, H, W, C, scale, tiles_w,
+      pooled);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation of R = pooled: kPooled's own, or the run-time one
+template <typename T, typename Code>
+int launch(const void* argmax, const float* rois, const uint8_t* mask,
+           const void* grad, void* dfeat, int B, int P, int H, int W, int C,
+           int pooled, float scale, void* stream) {
+  if (pooled < 1 || pooled > kMaxPooled)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B * H * W == 0 || C == 0) return 0;
+  if (C % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return pooled == kPooled
+             ? launch_r<T, Code, kPooled>(argmax, rois, mask, grad, dfeat, B,
+                                          P, H, W, C, pooled, scale, stream)
+             : launch_r<T, Code, 0>(argmax, rois, mask, grad, dfeat, B, P, H,
+                                    W, C, pooled, scale, stream);
 }
 
 }  // namespace
 
-// C interface, bound with ctypes. argmax [B, P, 7, 7, C] int16 (the
-// training forward's codes), rois [B, P, 4] f32, mask [B, P] bool (1 byte),
-// grad [B, P, 7, 7, C] in the feature dtype, dfeat [B, H, W, C] in the
-// feature dtype (every cell written; C a multiple of 8, 16-byte aligned).
-// Returns the cudaError_t of the launch.
+// C interface, bound with ctypes. pooled R from 1 to kMaxPooled (16),
+// argmax [B, P, R, R, C] int16 (the training forward's codes), rois [B, P,
+// 4] f32, mask [B, P] bool (1 byte), grad [B, P, R, R, C] in the feature
+// dtype, dfeat [B, H, W, C] in the feature dtype (every cell written; C a
+// multiple of 8, 16-byte aligned). Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for an R out of range).
 extern "C" int roi_pool_bwd_bf16(const void* argmax, const float* rois,
                                  const uint8_t* mask, const void* grad,
                                  void* dfeat, int B, int P, int H, int W,
-                                 int C, float scale, void* stream) {
-  return launch<Bf16, Narrow>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
-                              scale, stream);
+                                 int C, int pooled, float scale,
+                                 void* stream) {
+  return launch<Bf16, Narrow>(argmax, rois, mask, grad, dfeat, B, P, H,
+                              W, C, pooled, scale, stream);
 }
 
 extern "C" int roi_pool_bwd_f32(const void* argmax, const float* rois,
                                 const uint8_t* mask, const void* grad,
                                 void* dfeat, int B, int P, int H, int W,
-                                int C, float scale, void* stream) {
-  return launch<F32, Narrow>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
-                             scale, stream);
+                                int C, int pooled, float scale,
+                                void* stream) {
+  return launch<F32, Narrow>(argmax, rois, mask, grad, dfeat, B, P, H,
+                             W, C, pooled, scale, stream);
 }
 
 // The same from int32 codes (maps of more than 65535 cells).
 extern "C" int roi_pool_bwd_wide_bf16(const void* argmax, const float* rois,
                                       const uint8_t* mask, const void* grad,
-                                      void* dfeat, int B, int P, int H,
-                                      int W, int C, float scale,
+                                      void* dfeat, int B, int P, int H, int W,
+                                      int C, int pooled, float scale,
                                       void* stream) {
-  return launch<Bf16, Wide>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
-                            scale, stream);
+  return launch<Bf16, Wide>(argmax, rois, mask, grad, dfeat, B, P, H,
+                            W, C, pooled, scale, stream);
 }
 
 extern "C" int roi_pool_bwd_wide_f32(const void* argmax, const float* rois,
                                      const uint8_t* mask, const void* grad,
                                      void* dfeat, int B, int P, int H, int W,
-                                     int C, float scale, void* stream) {
-  return launch<F32, Wide>(argmax, rois, mask, grad, dfeat, B, P, H, W, C,
-                           scale, stream);
+                                     int C, int pooled, float scale,
+                                     void* stream) {
+  return launch<F32, Wide>(argmax, rois, mask, grad, dfeat, B, P, H,
+                           W, C, pooled, scale, stream);
 }

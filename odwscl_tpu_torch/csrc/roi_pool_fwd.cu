@@ -1,12 +1,14 @@
-// 7x7 RoI max pooling, forward, for NVIDIA Hopper (sm_90a), with and
-// without the argmax.
+// R x R RoI max pooling, forward, for NVIDIA Hopper (sm_90a), with and
+// without the argmax: R = 7 (every shipped config) in an instantiation of
+// its own with the constant divides, any other R from 1 to kMaxPooled (16)
+// in one that reads R at run time.
 //
 // Replaces: odwscl_tpu/ops/roi_pool_pallas.py:_fwd_kernel (:245, the
 // Pallas TPU kernel behind roi_pool_tpu), which reproduces the CUDA ROIPool
 // semantics:
 //   - cell coordinates are floor(x * scale + 0.5) in f32;
 //   - malformed rois (x2 < x1 or y2 < y1) are forced to 1x1 cells;
-//   - bin (ph, pw) covers rows [floor(ph*h/7), ceil((ph+1)*h/7)) + y1 and
+//   - bin (ph, pw) covers rows [floor(ph*h/R), ceil((ph+1)*h/R)) + y1 and
 //     the same for columns, in integer arithmetic, clipped to the map;
 //   - empty bins and masked rois give 0.
 // The training instantiation (ARGMAX) also writes, per output element, the
@@ -49,6 +51,14 @@
 //     registers at 64, four blocks to an SM.
 //   - A block pools kRun = 4 consecutive rois, one at a time; the output
 //     (and the argmax) is written once, with 16-byte stores.
+// Any other R (the run-time instantiation, R = 0 in the templates): the
+// same threads and row walk, in blocks of kMinThreads threads: kLanes x 8
+// column-bin slots x kMinThreads / (8 kLanes) row-group slots, one roi at
+// a time; each thread walks column bins pw, pw + 8, ... and row groups in
+// steps of the slots, so R = 16 (up to 16 column bins and 8 row groups of
+// kGroup) takes 4 (bf16) or 8 (f32) passes per roi and R = 1 idles all but
+// one thread in 32 (bf16). The argmax codes do not depend on R: a code is
+// the offset inside a bin, and a bin is at most the map.
 // Reuse of the map across rois is left to L1 and L2. Two designs that order
 // the rois spatially (a counting sort on the card) were timed against this
 // one (odwscl_tpu_torch/tools/roi_pool_fwd_ordered.cu): the same loads over
@@ -91,7 +101,8 @@
 
 namespace {
 
-constexpr int kPooled = 7;
+constexpr int kPooled = 7;  // the fixed instantiation's R
+constexpr int kMaxPooled = 16;  // the largest R of the run-time one
 constexpr int kTileC = 64;  // channels per block
 constexpr int kGroup = 2;   // row bins per thread
 constexpr int kMinThreads = 256;  // threads per block, at least
@@ -194,31 +205,40 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// bin k of a roi of `len` cells from `start`: [lo, hi), clipped to the map
-__device__ __forceinline__ int bin_lo(int k, int len, int start, int limit) {
-  return clampi(k * len / kPooled + start, 0, limit);
+// bin k of R = `pooled` of a roi of `len` cells from `start`: [lo, hi),
+// clipped to the map (a constant R divides by a constant once inlined)
+__device__ __forceinline__ int bin_lo(int k, int len, int start, int limit,
+                                      int pooled = kPooled) {
+  return clampi(k * len / pooled + start, 0, limit);
 }
 
-__device__ __forceinline__ int bin_hi(int k, int len, int start, int limit) {
-  return clampi(((k + 1) * len + kPooled - 1) / kPooled + start, 0, limit);
+__device__ __forceinline__ int bin_hi(int k, int len, int start, int limit,
+                                      int pooled = kPooled) {
+  return clampi(((k + 1) * len + pooled - 1) / pooled + start, 0, limit);
 }
 
 // Threads per roi and channel tile: kLanes (16-byte vectors of the tile) x
-// 8 (the column bin pw; pw = 7 idles, so that no warp mixes two rois) x
-// kGroups (the thread's kGroup row bins). A block pools kSlots rois at a
-// time, kRun in all; grid (runs of kRun rois, channel tiles).
-template <typename T>
+// kCols = 8 (the column bin pw; at R = 7 pw = 7 idles, so that no warp
+// mixes two rois) x kGroups (the thread's kGroup row bins; at R = 0, the
+// run-time R, row-group slots that fill kMinThreads). A block pools kSlots
+// rois at a time, kRun in all; grid (runs of kRun rois, channel tiles).
+template <typename T, int R = kPooled>
 struct Shape {
   static constexpr int kLanes = kTileC / T::kVec;
-  static constexpr int kGroups = (kPooled + kGroup - 1) / kGroup;
-  static constexpr int kPerRoi = kLanes * 8 * kGroups;
+  static constexpr int kCols = 8;
+  static constexpr int kGroups =
+      R ? (R + kGroup - 1) / kGroup
+        : (kMinThreads / (kLanes * kCols) > 0 ? kMinThreads / (kLanes * kCols)
+                                              : 1);
+  static constexpr int kPerRoi = kLanes * kCols * kGroups;
   static constexpr int kSlots = kPerRoi >= kMinThreads ? 1
                                                        : kMinThreads / kPerRoi;
   static constexpr int kThreads = kPerRoi * kSlots;
 };
 
-// One thread's share of a roi: row bins ph0 .. ph0 + nph - 1 ([hs, he)),
-// column bin [ws, we), and their running maxima and argmax codes.
+// One thread's share of a roi pooled R x R (R = `pooled`): row bins ph0 ..
+// ph0 + nph - 1 ([hs, he)), column bin [ws, we), and their running maxima
+// and argmax codes.
 template <typename T, typename Code = Narrow>
 struct Bins {
   static constexpr int kCodeWords = Code::template kWords<T>;
@@ -228,8 +248,8 @@ struct Bins {
 
   __device__ __forceinline__ Bins(const float* rois, bool live, int roi,
                                   int ph0, int pw, int H, int W,
-                                  float scale) {
-    nph = min(kGroup, kPooled - ph0);
+                                  float scale, int pooled = kPooled) {
+    nph = min(kGroup, pooled - ph0);
     ws = we = y_end = 0;
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
@@ -247,13 +267,13 @@ struct Bins {
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       if (j < nph) {
-        hs[j] = bin_lo(ph0 + j, roi_h, y1, H);
-        he[j] = bin_hi(ph0 + j, roi_h, y1, H);
+        hs[j] = bin_lo(ph0 + j, roi_h, y1, H, pooled);
+        he[j] = bin_hi(ph0 + j, roi_h, y1, H, pooled);
         y_end = he[j];
       }
     }
-    ws = bin_lo(pw, roi_w, x1, W);
-    we = bin_hi(pw, roi_w, x1, W);
+    ws = bin_lo(pw, roi_w, x1, W, pooled);
+    we = bin_hi(pw, roi_w, x1, W, pooled);
   }
 
   // A stage's rectangles in place of the bins' (see the file's head), for
@@ -340,11 +360,12 @@ struct Bins {
   // vector of bin (ph0, pw)
   template <bool ARGMAX>
   __device__ __forceinline__ void store(uint4* out, uint32_t* argmax,
-                                        int64_t e0, int CV) const {
+                                        int64_t e0, int CV,
+                                        int pooled = kPooled) const {
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       if (j >= nph) break;
-      const int64_t e = e0 + static_cast<int64_t>(j) * kPooled * CV;
+      const int64_t e = e0 + static_cast<int64_t>(j) * pooled * CV;
       const bool empty = he[j] <= hs[j] || we <= ws;  // masked: all empty
       out[e] = empty ? make_uint4(0, 0, 0, 0) : m[j];
       if constexpr (ARGMAX) {
@@ -366,82 +387,128 @@ struct Bins {
 };
 
 __device__ __forceinline__ int64_t out_vec(int roi, int ph, int pw, int CV,
-                                           int cv) {
-  return (static_cast<int64_t>(roi) * kPooled * kPooled + ph * kPooled + pw)
+                                           int cv, int pooled = kPooled) {
+  return (static_cast<int64_t>(roi) * pooled * pooled + ph * pooled + pw)
              * CV + cv;
 }
 
-// xs, cw: the rois' column windows, read by the rows and cols stages only
-template <typename T, bool ARGMAX, int STAGE = kFull, typename Code = Narrow>
-__global__ void __launch_bounds__(Shape<T>::kThreads)
+// Bins (ph0, pw) of one roi, pooled R x R (R = `pooled`): the row walk and
+// the store of one thread
+template <typename T, bool ARGMAX, int STAGE, typename Code>
+__device__ __forceinline__ void pool_bins(
+    const uint4* __restrict__ feat, const float* __restrict__ rois,
+    const int* __restrict__ xs, const int* __restrict__ cw,
+    uint4* __restrict__ out, uint32_t* __restrict__ argmax, bool live,
+    int roi, int ph0, int pw, int P, int H, int W, int CV, int cv,
+    int64_t row_stride, float scale, int pooled) {
+  Bins<T, Code> s(rois, live, roi, ph0, pw, H, W, scale, pooled);
+  if constexpr (STAGE != kWrite && STAGE != kFull) {
+    if (live) s.template cut<STAGE>(xs[roi], cw[roi], ph0, H, W);
+  }
+  if (s.we > s.ws) {
+    const uint4* src =
+        feat + (static_cast<int64_t>(roi / P) * H * W + s.ws) * CV + cv;
+    for (int y = s.hs[0]; y < s.y_end; ++y)
+      s.template row<ARGMAX, true>(src + y * row_stride, CV, y);
+  }
+  s.template store<ARGMAX>(
+      out, argmax, out_vec(roi, ph0, pw, CV, cv, pooled), CV, pooled);
+}
+
+// xs, cw: the rois' column windows, read by the rows and cols stages only;
+// R: the resolution, or 0 for `pooled` (1 .. kMaxPooled) read at run time
+template <typename T, bool ARGMAX, int STAGE = kFull, typename Code = Narrow,
+          int R = kPooled>
+__global__ void __launch_bounds__(Shape<T, R>::kThreads)
 roi_pool_fwd_kernel(const uint4* __restrict__ feat,
                     const float* __restrict__ rois,
                     const uint8_t* __restrict__ mask,
                     const int* __restrict__ xs, const int* __restrict__ cw,
                     uint4* __restrict__ out, uint32_t* __restrict__ argmax,
-                    int N, int P, int H, int W, int CV, float scale) {
-  using S = Shape<T>;
+                    int N, int P, int H, int W, int CV, float scale,
+                    int pooled) {
+  using S = Shape<T, R>;
+  const int np = R ? R : pooled;
   const int cv = blockIdx.y * S::kLanes + threadIdx.x;
   const int pw = threadIdx.y;
   const int ph0 = threadIdx.z % S::kGroups * kGroup;  // the thread's row bins
   const int slot = threadIdx.z / S::kGroups;
-  if (pw >= kPooled || cv >= CV) return;  // no barrier follows
+  if (pw >= np || cv >= CV) return;  // no barrier follows
   const int64_t row_stride = static_cast<int64_t>(W) * CV;
   const int end = min(N, static_cast<int>(blockIdx.x + 1) * kRun);
 
   for (int roi = blockIdx.x * kRun + slot; roi < end; roi += S::kSlots) {
     const bool live = STAGE != kWrite && mask[roi];
-    Bins<T, Code> s(rois, live, roi, ph0, pw, H, W, scale);
-    if constexpr (STAGE != kWrite && STAGE != kFull) {
-      if (live) s.template cut<STAGE>(xs[roi], cw[roi], ph0, H, W);
+    if constexpr (R != 0) {  // one (ph0, pw) per thread
+      pool_bins<T, ARGMAX, STAGE, Code>(feat, rois, xs, cw, out, argmax,
+                                        live, roi, ph0, pw, P, H, W, CV, cv,
+                                        row_stride, scale, R);
+    } else {
+      for (int c = pw; c < np; c += S::kCols)
+        for (int r = ph0; r < np; r += S::kGroups * kGroup)
+          pool_bins<T, ARGMAX, STAGE, Code>(feat, rois, xs, cw, out, argmax,
+                                            live, roi, r, c, P, H, W, CV,
+                                            cv, row_stride, scale, np);
     }
-    if (s.we > s.ws) {
-      const uint4* src =
-          feat + (static_cast<int64_t>(roi / P) * H * W + s.ws) * CV + cv;
-      for (int y = s.hs[0]; y < s.y_end; ++y)
-        s.template row<ARGMAX, true>(src + y * row_stride, CV, y);
-    }
-    s.template store<ARGMAX>(out, argmax, out_vec(roi, ph0, pw, CV, cv), CV);
   }
 }
 
-template <typename T, bool ARGMAX, int STAGE = kFull, typename Code = Narrow>
+template <typename T, bool ARGMAX, int STAGE = kFull, typename Code = Narrow,
+          int R = kPooled>
 int launch(const void* feat, const float* rois, const uint8_t* mask,
            const int* xs, const int* cw, void* out, void* argmax, int B,
-           int P, int H, int W, int C, float scale, void* stream) {
+           int P, int H, int W, int C, float scale, void* stream,
+           int pooled = kPooled) {
   if (B * P == 0) return 0;
   if (C % 8 || H <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  using S = Shape<T>;
+  using S = Shape<T, R>;
   const int n = B * P;
   const int cv = C / T::kVec;
-  const dim3 block(S::kLanes, 8, S::kGroups * S::kSlots);
+  const dim3 block(S::kLanes, S::kCols, S::kGroups * S::kSlots);
   const dim3 grid((n + kRun - 1) / kRun, (cv + S::kLanes - 1) / S::kLanes);
-  roi_pool_fwd_kernel<T, ARGMAX, STAGE, Code>
+  roi_pool_fwd_kernel<T, ARGMAX, STAGE, Code, R>
       <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint4*>(feat), rois, mask, xs, cw,
           static_cast<uint4*>(out), static_cast<uint32_t*>(argmax), n, P, H,
-          W, cv, scale);
+          W, cv, scale, pooled);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation of R = pooled: kPooled's own, or the run-time one
+template <typename T, bool ARGMAX, typename Code>
+int launch_pooled(const void* feat, const float* rois, const uint8_t* mask,
+                  void* out, void* argmax, int B, int P, int H, int W, int C,
+                  int pooled, float scale, void* stream) {
+  if (pooled == kPooled)
+    return launch<T, ARGMAX, kFull, Code>(feat, rois, mask, nullptr, nullptr,
+                                          out, argmax, B, P, H, W, C, scale,
+                                          stream);
+  if (pooled < 1 || pooled > kMaxPooled)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T, ARGMAX, kFull, Code, 0>(feat, rois, mask, nullptr,
+                                           nullptr, out, argmax, B, P, H, W,
+                                           C, scale, stream, pooled);
 }
 
 template <typename T>
 int launch_fwd(const void* feat, const float* rois, const uint8_t* mask,
                void* out, void* argmax, int B, int P, int H, int W, int C,
-               float scale, void* stream) {
-  return argmax ? launch<T, true>(feat, rois, mask, nullptr, nullptr, out,
-                                  argmax, B, P, H, W, C, scale, stream)
-                : launch<T, false>(feat, rois, mask, nullptr, nullptr, out,
-                                   nullptr, B, P, H, W, C, scale, stream);
+               int pooled, float scale, void* stream) {
+  return argmax ? launch_pooled<T, true, Narrow>(feat, rois, mask, out,
+                                                 argmax, B, P, H, W, C,
+                                                 pooled, scale, stream)
+                : launch_pooled<T, false, Narrow>(feat, rois, mask, out,
+                                                  nullptr, B, P, H, W, C,
+                                                  pooled, scale, stream);
 }
 
 template <typename T>
 int launch_fwd_wide(const void* feat, const float* rois, const uint8_t* mask,
                     void* out, void* argmax, int B, int P, int H, int W,
-                    int C, float scale, void* stream) {
-  return launch<T, true, kFull, Wide>(feat, rois, mask, nullptr, nullptr,
-                                      out, argmax, B, P, H, W, C, scale,
-                                      stream);
+                    int C, int pooled, float scale, void* stream) {
+  return launch_pooled<T, true, Wide>(feat, rois, mask, out, argmax, B, P, H,
+                                      W, C, pooled, scale, stream);
 }
 
 template <typename T>
@@ -474,45 +541,48 @@ int launch_stage(const void* feat, const float* rois, const uint8_t* mask,
 
 // C interface, bound with ctypes. feat [B, H, W, C] contiguous (C a
 // multiple of 8, 16-byte aligned), rois [B, P, 4] f32, mask [B, P] bool (1
-// byte), out [B, P, 7, 7, C] in the feature dtype, argmax [B, P, 7, 7, C]
-// int16 or NULL (the eval forward). Returns the cudaError_t of the launch.
+// byte), pooled R from 1 to kMaxPooled (16), out [B, P, R, R, C] in the
+// feature dtype, argmax [B, P, R, R, C] int16 or NULL (the eval forward).
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for an R out
+// of range).
 extern "C" int roi_pool_fwd_bf16(const void* feat, const float* rois,
                                  const uint8_t* mask, void* out, void* argmax,
-                                 int B, int P, int H, int W, int C,
+                                 int B, int P, int H, int W, int C, int pooled,
                                  float scale, void* stream) {
   return launch_fwd<Bf16>(feat, rois, mask, out, argmax, B, P, H, W, C,
-                          scale, stream);
+                          pooled, scale, stream);
 }
 
 extern "C" int roi_pool_fwd_f32(const void* feat, const float* rois,
                                 const uint8_t* mask, void* out, void* argmax,
-                                int B, int P, int H, int W, int C,
+                                int B, int P, int H, int W, int C, int pooled,
                                 float scale, void* stream) {
-  return launch_fwd<F32>(feat, rois, mask, out, argmax, B, P, H, W, C, scale,
-                         stream);
+  return launch_fwd<F32>(feat, rois, mask, out, argmax, B, P, H, W, C,
+                         pooled, scale, stream);
 }
 
 // The training forward for maps of more than 65535 cells: as
-// roi_pool_fwd_*, with argmax [B, P, 7, 7, C] int32 (never NULL).
+// roi_pool_fwd_*, with argmax [B, P, R, R, C] int32 (never NULL).
 extern "C" int roi_pool_fwd_wide_bf16(const void* feat, const float* rois,
                                       const uint8_t* mask, void* out,
                                       void* argmax, int B, int P, int H,
-                                      int W, int C, float scale,
+                                      int W, int C, int pooled, float scale,
                                       void* stream) {
   return launch_fwd_wide<Bf16>(feat, rois, mask, out, argmax, B, P, H, W, C,
-                               scale, stream);
+                               pooled, scale, stream);
 }
 
 extern "C" int roi_pool_fwd_wide_f32(const void* feat, const float* rois,
                                      const uint8_t* mask, void* out,
                                      void* argmax, int B, int P, int H,
-                                     int W, int C, float scale,
+                                     int W, int C, int pooled, float scale,
                                      void* stream) {
   return launch_fwd_wide<F32>(feat, rois, mask, out, argmax, B, P, H, W, C,
-                              scale, stream);
+                              pooled, scale, stream);
 }
 
-// The stage profiler: as roi_pool_fwd_*, without the argmax, plus xs and cw
+// The stage profiler, at R = 7 only: as roi_pool_fwd_*, without the argmax
+// and pooled, plus xs and cw
 // [B, P] int32 (each roi's column window; read by the rows, rows_col0 and
 // cols stages) and stage 0..4 = write, rows, rows_col0, cols, full.
 extern "C" int roi_pool_stage_bf16(const void* feat, const float* rois,
@@ -533,8 +603,9 @@ extern "C" int roi_pool_stage_f32(const void* feat, const float* rois,
                            scale, stage, stream);
 }
 
-// The launch shape of a dtype of `itemsize` bytes (2: bf16, 4: f32):
-// channels per block, rois per block, threads per block.
+// The launch shape of the R = 7 instantiation for a dtype of `itemsize`
+// bytes (2: bf16, 4: f32): channels per block, rois per block, threads per
+// block.
 extern "C" void roi_pool_block_shape(int itemsize, int* shape) {
   const int threads = itemsize == 2 ? Shape<Bf16>::kThreads
                                     : Shape<F32>::kThreads;

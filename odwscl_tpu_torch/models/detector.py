@@ -15,7 +15,13 @@ clicks or scribbles) subsample the proposals to a balanced FG/BG set
 before pooling and, with ``ROI_LOSS_REFINE``, filter the pseudo labels.
 Backbones: VGG16
 (``VGG16-OICR``, stride 8) and ResNet (``R-{18,50,101}-C{4,5}``, stride
-16, with the ``ResNetRoINeck`` 7*7*C -> 2048 -> ``mlp_dim``).
+16, with the ``ResNetRoINeck`` r*r*C -> 2048 -> ``mlp_dim``).
+
+Pooling (``MODEL.ROI_BOX_HEAD``): ``POOLER_METHOD`` ROIPool at any
+``POOLER_RESOLUTION`` r goes through ``RoIPoolFunction`` (on the card the
+hand-written kernels, r <= 16; on the CPU their plain versions), ROIAlign
+through plain torch ``ops/roi_align.py`` with ``POOLER_SAMPLING_RATIO``;
+the necks take r*r*C inputs.
 
 int8 serving (``TPU.INT8_EVAL`` for fc6/fc7, ``INT8_EVAL_CONVS``,
 ``INT8_STATIC``, ``INT8_BF16_LAYERS`` for the convs; ``eval_forward``
@@ -43,6 +49,7 @@ from ..losses import (assemble_bank, avg_image_accuracy, mil_loss,
 # this file first
 from ..losses import partial_labels as partial_filters
 from ..ops.dropblock import dropblock_2d, noise_augment
+from ..ops.roi_align import roi_align
 from ..ops.roi_pool import RoIPoolFunction
 from ..structures.boxes import clip_to_image, decode_boxes
 from .cam import CAMModule
@@ -101,7 +108,8 @@ class WSODDetector(nn.Module):
                  backbone_arch: str = "VGG16-OICR",
                  predictor: str = "MISTPredictor", num_refs: int = 3,
                  pooler_method: str = "ROIPool", pooler_resolution: int = 7,
-                 pooler_scale: float = 0.125, mlp_dim: int = 4096,
+                 pooler_scale: float = 0.125, pooler_sampling: int = 2,
+                 mlp_dim: int = 4096,
                  cls_agnostic_bbox_reg: bool = False, regress_on: bool = True,
                  regress_heur: str = "AVG",
                  reg_weights: Tuple[float, float, float, float] = (10.0, 10.0,
@@ -137,8 +145,9 @@ class WSODDetector(nn.Module):
         if db_method not in ("none", "dropblock", "concrete"):
             raise ValueError(f"unknown DB.METHOD {db_method!r} (none, "
                              "dropblock, concrete)")
-        if pooler_method != "ROIPool" or pooler_resolution != 7:
-            raise NotImplementedError("only the 7x7 ROIPool pooler is ported")
+        if pooler_method not in ("ROIPool", "ROIAlign"):
+            raise ValueError(f"unknown POOLER_METHOD {pooler_method!r} "
+                             "(ROIPool, ROIAlign)")
         if regress_heur not in ("WSDDN", "CLS-AVG", "UNION", "AVG"):
             raise ValueError(f"unknown REGRESS_HEUR {regress_heur!r}")
         if partial_labels not in ("none", "point", "scribble"):
@@ -146,7 +155,10 @@ class WSODDetector(nn.Module):
                              "(none, point, scribble)")
         self.num_classes = num_classes
         self.predictor = predictor
+        self.pooler_method = pooler_method
+        self.pooler_resolution = pooler_resolution
         self.pooler_scale = pooler_scale
+        self.pooler_sampling = pooler_sampling
         self.cls_agnostic_bbox_reg = cls_agnostic_bbox_reg
         self.regress_on = regress_on
         self.regress_heur = regress_heur
@@ -210,10 +222,16 @@ class WSODDetector(nn.Module):
 
     def pool(self, feats: torch.Tensor, boxes: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
-        """Differentiable 7x7 ROIPool: the CUDA kernels for CUDA tensors,
-        the plain versions for CPU tensors (ops/roi_pool.py). Every map
-        size is accepted."""
-        return RoIPoolFunction.apply(feats, boxes, mask, self.pooler_scale)
+        """Differentiable r x r pooling -> [B, P, r, r, C], masked rois 0:
+        ROIPool through the CUDA kernels for CUDA tensors and the plain
+        versions for CPU tensors (ops/roi_pool.py; every map size), or
+        plain ROIAlign (ops/roi_align.py)."""
+        if self.pooler_method == "ROIPool":
+            return RoIPoolFunction.apply(feats, boxes, mask,
+                                         self.pooler_scale, None,
+                                         self.pooler_resolution)
+        return roi_align(feats, boxes, mask, self.pooler_scale,
+                         self.pooler_resolution, self.pooler_sampling)
 
     @torch.no_grad()
     def eval_forward(self, batch: Batch, calibrate: bool = False):
@@ -285,9 +303,10 @@ class WSODDetector(nn.Module):
         ``generator`` (on the batch's device) draws the dropout masks, the
         DropBlock centers, the Concrete DropBlock's gumbel noise, the
         noise view and the partial-label subsample. ``draws`` may hand in
-        the DropBlock uniforms ``dropblock`` [B*P, 7, 7] and ``sim_drop``
-        [capA, 7, 7], the Concrete DropBlock's uniforms ``cdb_gumbel``
-        [B*P, 7, 7, 2], the ``noise`` normals [capA, 7, 7, C] and the
+        (r the pooler's resolution) the DropBlock uniforms ``dropblock``
+        [B*P, r, r] and ``sim_drop`` [capA, r, r], the Concrete
+        DropBlock's uniforms ``cdb_gumbel`` [B*P, r, r, 2], the ``noise``
+        normals [capA, r, r, C] and the
         subsample's uniforms ``subsample`` [B, 2, P0] instead (P0 the
         batch's proposals; P those that the subsample keeps).
         ``trace(stage)`` is called as each stage has been enqueued.
@@ -333,7 +352,7 @@ class WSODDetector(nn.Module):
                     atten, batch.image_sizes, round(1 / self.pooler_scale),
                     out_p=self.rpn_post_nms)
             trace("cam_proposals")
-        pooled = self.pool(feats, boxes, mask)                    # [B,P,7,7,C]
+        pooled = self.pool(feats, boxes, mask)                    # [B,P,r,r,C]
         trace("roi_pool")
         b, p = pooled.shape[:2]
         flat_pooled = pooled.reshape(b * p, *pooled.shape[2:])
@@ -466,6 +485,7 @@ def detector_from_cfg(cfg) -> WSODDetector:
         pooler_method=cfg.MODEL.ROI_BOX_HEAD.POOLER_METHOD,
         pooler_resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
         pooler_scale=cfg.MODEL.ROI_BOX_HEAD.POOLER_SCALES[0],
+        pooler_sampling=cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO,
         mlp_dim=cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM,
         cls_agnostic_bbox_reg=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG,
         regress_on=cfg.MODEL.ROI_WEAK_HEAD.REGRESS_ON,

@@ -186,8 +186,12 @@ def mask_rcnn_loss(mask_logits: torch.Tensor, labels: torch.Tensor,
     n = mask_logits.shape[0]
     lg = mask_logits[torch.arange(n, device=labels.device), :, :,
                      labels.clamp(min=0)]
-    per_pix = (lg.clamp(min=0) - lg * mask_targets
-               + torch.log1p(torch.exp(-lg.abs())))
+    # the JAX package's subgradients at a logit of exactly 0 (a pixel whose
+    # features are all 0): jnp.maximum splits the tie (0.5, as
+    # torch.maximum; clamp gives 1) and jnp.abs has slope 1 at 0 (the
+    # where; torch's abs has 0), so the pixel's gradient is -t there
+    per_pix = (torch.maximum(lg, torch.zeros_like(lg)) - lg * mask_targets
+               + torch.log1p(torch.exp(-torch.where(lg >= 0, lg, -lg))))
     per_roi = per_pix.sum(dim=(1, 2))
     denom = torch.clamp(pos_weights.sum() * lg.shape[1] * lg.shape[2],
                         min=1.0)

@@ -198,8 +198,9 @@ class ResNetBackbone(nn.Module):
 
 class ResNetRoINeck(VGGRoINeck):
     """The ResNet50Conv5ROIFeatureExtractor classifier: pooled rois
-    flattened in (h, w, c) order, 7*7*C -> ``mid_dim`` -> ``out_dim``, each
-    with ReLU and dropout; fc6/fc7 as in ``VGGRoINeck``."""
+    flattened in (h, w, c) order, r*r*C (r the pooler's resolution) ->
+    ``mid_dim`` -> ``out_dim``, each with ReLU and dropout; fc6/fc7 as in
+    ``VGGRoINeck``."""
 
     def __init__(self, in_dim: int = 7 * 7 * 2048, mid_dim: int = 2048,
                  out_dim: int = 4096,

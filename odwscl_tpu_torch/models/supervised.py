@@ -7,10 +7,12 @@ on a VGG16, R-*-C4/C5, R-*-FPN or FBNet body (``FBNet-<arch>``, "default"
 when no arch follows: one stride-16 feature, pooled at
 ``POOLER_SCALES[0]``, with the FPN's MLP neck).
 
-Pooling: ``POOLER_METHOD`` ROIPool (7x7) goes through
-``RoIPoolFunction``, so on the card every call is the hand-written kernel
-(the training forward with its argmax when a gradient is needed, and its
-backward); ROIAlign is plain torch (``ops/roi_align.py``). An FPN body
+Pooling: ``POOLER_METHOD`` ROIPool at any ``POOLER_RESOLUTION`` r goes
+through ``RoIPoolFunction``, so on the card every call is the hand-written
+kernel (the training forward with its argmax when a gradient is needed,
+and its backward; r <= 16 there); ROIAlign is plain torch
+(``ops/roi_align.py``). The mask head shares the box pool, so
+``ROI_MASK_HEAD.RESOLUTION`` is 2r (r = 14 for a 28x28 mask). An FPN body
 pools P2-P5 with ``multilevel_roi_pool``: four calls, one per level, each
 at that level's scale with the other levels' rois masked.
 
@@ -87,10 +89,6 @@ class SupervisedRCNN(nn.Module):
         super().__init__()
         if pooler_method not in ("ROIPool", "ROIAlign"):
             raise ValueError(f"unknown POOLER_METHOD {pooler_method!r}")
-        if pooler_method == "ROIPool" and pooler_resolution != 7:
-            raise NotImplementedError(
-                "ROIPool is ported at 7x7, the kernel's resolution; use "
-                "ROIAlign for another POOLER_RESOLUTION")
         dtype = _DTYPES[compute_dtype]
         self.num_classes = num_classes
         self.mask_on = mask_on
@@ -146,7 +144,8 @@ class SupervisedRCNN(nn.Module):
         """One level: the ROIPool kernel (plain version on the CPU) or
         plain ROIAlign -> [B, P, r, r, C], masked rois 0."""
         if self.pooler_method == "ROIPool":
-            return RoIPoolFunction.apply(feats, boxes, mask, scale, level)
+            return RoIPoolFunction.apply(feats, boxes, mask, scale, level,
+                                         self.pooler_resolution)
         return roi_align(feats, boxes, mask, scale, self.pooler_resolution,
                          self.pooler_sampling)
 

@@ -261,9 +261,10 @@ def unfused_int8_forward(backbone: VGGBackbone, images: torch.Tensor
 
 
 class VGGRoINeck(nn.Module):
-    """fc6/fc7 over pooled rois flattened in (h, w, c) order: [N, 7, 7, C]
-    -> [N, hidden]. Dropout applies only where keep masks are given.
-    ``mid_dim`` (default ``hidden_dim``) is fc6's width."""
+    """fc6/fc7 over pooled rois flattened in (h, w, c) order: [N, r, r, C]
+    (r the pooler's resolution; ``in_dim`` = r*r*C) -> [N, hidden]. Dropout
+    applies only where keep masks are given. ``mid_dim`` (default
+    ``hidden_dim``) is fc6's width."""
 
     def __init__(self, in_dim: int = 512 * 7 * 7, hidden_dim: int = 4096,
                  compute_dtype: torch.dtype = torch.bfloat16,

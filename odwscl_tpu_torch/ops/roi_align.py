@@ -26,7 +26,11 @@ def _axis_weights(start: torch.Tensor, length: torch.Tensor, pooled: int,
                   sampling: int, size: int) -> torch.Tensor:
     """[N, pooled, size] weights of one axis: start, length [N] in map
     cells."""
-    binsz = length / pooled
+    # a true division on every device: CUDA's ``tensor / python int``
+    # multiplies by the reciprocal, so a roi of 14 cells made 7 bins of
+    # 2.0000002 and ceil() 3 adaptive samples where the JAX package takes 2
+    binsz = length / torch.full((), float(pooled), dtype=length.dtype,
+                                device=length.device)
     if sampling > 0:
         s = sampling
         n = torch.full_like(binsz, float(sampling))

@@ -1,4 +1,4 @@
-"""7x7 RoI max pooling with the reference CUDA kernel's exact semantics.
+"""R x R RoI max pooling with the reference CUDA kernel's exact semantics.
 
 Counterpart of ``odwscl_tpu/ops/roi_pool.py`` (``roi_pool_numpy``) and of
 the Pallas kernels ``odwscl_tpu/ops/roi_pool_pallas.py:_fwd_kernel`` and
@@ -7,7 +7,7 @@ the Pallas kernels ``odwscl_tpu/ops/roi_pool_pallas.py:_fwd_kernel`` and
 - roi edges are scaled, then rounded half up: ``floor(x * scale + 0.5)``
   in f32;
 - malformed rois are forced to 1x1 (``max(end - start + 1, 1)``);
-- bin (ph, pw) covers rows ``[floor(ph*h/7), ceil((ph+1)*h/7))`` offset by
+- bin (ph, pw) covers rows ``[floor(ph*h/R), ceil((ph+1)*h/R))`` offset by
   the roi start and clipped to the map, in integer arithmetic;
 - empty bins and masked rois output 0;
 - the backward gives each bin's cotangent whole to the bin's first maximum
@@ -30,8 +30,11 @@ the tensor's device: a CPU tensor goes to the plain version
 (``roi_pool_plain``, ``roi_pool_argmax_plain``,
 ``roi_pool_backward_argmax_plain``); a CUDA tensor goes to the
 hand-written kernel (``csrc/roi_pool_fwd.cu``, without and with the
-argmax, and ``csrc/roi_pool_bwd.cu``) or raises. Their ``launches``
-attributes count kernel launches. ``RoIPoolFunction`` wraps them in a
+argmax, and ``csrc/roi_pool_bwd.cu``) or raises. The kernels pool R = 7
+(``POOLED``, every shipped config) in an instantiation of their own and
+any other R up to ``MAX_POOLED`` (16) in one that reads R at run time; a
+CUDA tensor at a larger R raises (the plain versions take any R). Their
+``launches`` attributes count kernel launches. ``RoIPoolFunction`` wraps them in a
 ``torch.autograd.Function``. ``roi_pool_backward_plain`` is the backward
 from the map (the argmax rescanned), the oracle of both paths.
 """
@@ -46,6 +49,8 @@ import torch
 from ..utils.cuda_build import CudaLibrary
 
 POOLED = 7
+# the largest resolution the kernels pool (csrc/roi_pool_{fwd,bwd}.cu)
+MAX_POOLED = 16
 # cells of the largest map whose bin offsets fit an unsigned 16-bit code
 # below the 0xFFFF that marks "no cell"; larger maps take int32 codes
 NARROW_MAP_CELLS = 65535
@@ -143,16 +148,20 @@ class _Windows:
         empty = ((row_hi <= row_lo)[:, :, None]
                  | (col_hi <= col_lo)[:, None, :])                 # [N, K, K]
         self.dead = empty | ~mask.reshape(n)[:, None, None]
-        per_roi = self.mh * self.mw * c * fmap.element_size() * 3
-        self.chunk = max(1, _PLAIN_CHUNK_BYTES // per_roi)
+        self.window_bytes = self.mh * self.mw * c * fmap.element_size() * 3
 
-    def chunks(self):
+    def chunks(self, row_bins: int = 0):
         """Yields (s, e, win [n, mh, mw, C], cell index of win [n, mh, mw],
-        row_in [n, K, mh], col_in [n, K, mw]) for rois s:e."""
+        row_in [n, K, mh], col_in [n, K, mw]) for rois s:e; with
+        ``row_bins``, the chunks also bound the [n, row_bins, mw, C] values
+        and int32 keys of a row of bins."""
         h, w, c, dev = self.h, self.w, self.c, self.fmap.device
         flat = self.fmap.reshape(-1, c)
-        for s in range(0, self.n, self.chunk):
-            e = min(s + self.chunk, self.n)
+        per_roi = self.window_bytes + row_bins * self.mw * c * (
+            self.fmap.element_size() + 6)
+        chunk = max(1, _PLAIN_CHUNK_BYTES // per_roi)
+        for s in range(0, self.n, chunk):
+            e = min(s + chunk, self.n)
             rows = self.r0[s:e, None] + torch.arange(self.mh, device=dev)
             cols = self.c0[s:e, None] + torch.arange(self.mw, device=dev)
             idx = ((self.img[s:e, None, None] * h
@@ -188,18 +197,20 @@ def roi_pool_backward_plain(feat: torch.Tensor, rois: torch.Tensor,
                                               h, w))
     g = grad.reshape(b * p, pooled, pooled, c).to(torch.float32)
     ch = torch.arange(c, device=dev)
-    for s, e, idx, ph, pw, _, key, live in _first_maxima(geo, pooled):
-        cell = torch.gather(idx.reshape(e - s, -1), 1, key)       # [n, C]
-        dfeat.index_add_(0, (cell * c + ch).reshape(-1),
-                         torch.where(live, g[s:e, ph, pw], 0.0).reshape(-1))
+    for s, e, idx, ph, _, key, live in _first_maxima(geo, pooled):
+        cell = torch.gather(idx.reshape(e - s, -1), 1,
+                            key.reshape(e - s, -1).long())      # [n, K * C]
+        dfeat.index_add_(0, (cell.reshape(key.shape) * c + ch).reshape(-1),
+                         torch.where(live, g[s:e, ph], 0.0).reshape(-1))
     return dfeat.reshape(b, h, w, c).to(feat.dtype)
 
 
 def _first_maxima(geo: _Windows, pooled: int):
-    """Yields, per chunk s:e of rois and bin (ph, pw): (s, e, the chunk's
-    cell index [n, mh, mw], ph, pw, the bin max [n, C], the window key
-    row * mw + column of the bin's first row-major maximum [n, C], whether
-    the bin routes [n, C]).
+    """Yields, per chunk s:e of rois and row bin ph: (s, e, the chunk's
+    cell index [n, mh, mw], ph, the bin maxima [n, K, C] of the row's K =
+    ``pooled`` column bins, the window keys row * mw + column of their
+    first row-major maxima [n, K, C] (int32), whether each bin routes [n,
+    K, C]).
 
     Per row bin, every window column keeps its max over the bin's rows and
     the first row that reaches it (``argmax`` returns the first). Per
@@ -209,20 +220,21 @@ def _first_maxima(geo: _Windows, pooled: int):
     """
     xs = torch.arange(geo.mw, device=geo.fmap.device)[None, :, None]
     big = geo.mh * geo.mw
-    for s, e, win, idx, row_in, col_in in geo.chunks():
+    for s, e, win, idx, row_in, col_in in geo.chunks(pooled):
         for ph in range(pooled):
             masked = torch.where(row_in[:, ph, :, None, None], win, geo.neg)
             rowmax = masked.amax(dim=1)                            # [n, mw, C]
-            rowarg = masked.argmax(dim=1)                          # first row
-            for pw in range(pooled):
-                colmax = torch.where(col_in[:, pw, :, None], rowmax, geo.neg)
-                binmax = colmax.amax(dim=1, keepdim=True)          # [n, 1, C]
-                key = torch.where(colmax == binmax, rowarg * geo.mw + xs,
-                                  big).amin(dim=1)                 # [n, C]
-                live = ((binmax[:, 0] > geo.neg)
-                        & ~geo.dead[s:e, ph, pw, None])
-                yield (s, e, idx, ph, pw, binmax[:, 0],
-                       key.clamp(max=big - 1), live)
+            keys = (masked.argmax(dim=1) * geo.mw                  # first row
+                    + xs).to(torch.int32)
+            colmax = torch.where(col_in[:, :, :, None], rowmax[:, None],
+                                 geo.neg)                       # [n, K, mw, C]
+            binmax = colmax.amax(dim=2, keepdim=True)           # [n, K, 1, C]
+            key = torch.where(colmax == binmax, keys[:, None],
+                              big).amin(dim=2)                     # [n, K, C]
+            live = ((binmax[:, :, 0] > geo.neg)
+                    & ~geo.dead[s:e, ph, :, None])
+            yield (s, e, idx, ph, binmax[:, :, 0], key.clamp(max=big - 1),
+                   live)
 
 
 def code_dtype(h: int, w: int, level: Optional[str] = None) -> torch.dtype:
@@ -270,7 +282,7 @@ def roi_pool_argmax_plain(feat: torch.Tensor, rois: torch.Tensor,
     dtype = code_dtype(h, w)
     out = torch.zeros((b * p, pooled, pooled, c), dtype=feat.dtype,
                       device=feat.device)
-    code = torch.full((b * p, pooled, pooled, c), NO_CELL, dtype=torch.int64,
+    code = torch.full((b * p, pooled, pooled, c), NO_CELL, dtype=dtype,
                       device=feat.device)
     if b * p:
         hs, _, ws, we = edges = roi_bin_edges(rois, spatial_scale, pooled,
@@ -278,16 +290,18 @@ def roi_pool_argmax_plain(feat: torch.Tensor, rois: torch.Tensor,
         geo = _Windows(feat, mask, *edges)
         bw = we - ws
         zero = torch.zeros((), dtype=feat.dtype, device=feat.device)
-        for s, e, _, ph, pw, binmax, key, live in _first_maxima(geo, pooled):
-            out[s:e, ph, pw] = torch.where(geo.dead[s:e, ph, pw, None], zero,
-                                           binmax)
-            y = geo.r0[s:e, None] + key // geo.mw
-            x = geo.c0[s:e, None] + key % geo.mw
-            off = ((y - hs[s:e, ph, None]) * bw[s:e, pw, None]
-                   + x - ws[s:e, pw, None])
-            code[s:e, ph, pw] = torch.where(live, off, NO_CELL)
+        for s, e, _, ph, binmax, key, live in _first_maxima(geo, pooled):
+            out[s:e, ph] = torch.where(geo.dead[s:e, ph, :, None], zero,
+                                       binmax)
+            key = key.long()
+            y = geo.r0[s:e, None, None] + key // geo.mw
+            x = geo.c0[s:e, None, None] + key % geo.mw
+            off = ((y - hs[s:e, ph, None, None]) * bw[s:e, :, None]
+                   + x - ws[s:e, :, None])
+            code[s:e, ph] = encode_cells(torch.where(live, off, NO_CELL),
+                                         dtype)
     shape = (b, p, pooled, pooled, c)
-    return out.reshape(shape), encode_cells(code, dtype).reshape(shape)
+    return out.reshape(shape), code.reshape(shape)
 
 
 def roi_pool_backward_argmax_plain(argmax: torch.Tensor, rois: torch.Tensor,
@@ -328,7 +342,7 @@ def roi_pool_backward_argmax_plain(argmax: torch.Tensor, rois: torch.Tensor,
 def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.roi_pool_fwd_bf16, lib.roi_pool_fwd_f32,
                lib.roi_pool_fwd_wide_bf16, lib.roi_pool_fwd_wide_f32):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     # the stage profiler's entry points (ops/roi_pool_stages.py)
@@ -343,7 +357,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     for fn in (lib.roi_pool_bwd_bf16, lib.roi_pool_bwd_f32,
                lib.roi_pool_bwd_wide_bf16, lib.roi_pool_bwd_wide_f32):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -352,13 +366,19 @@ KERNEL = CudaLibrary("roi_pool_fwd", _bind)
 BWD_KERNEL = CudaLibrary("roi_pool_bwd", _bind_bwd)
 
 
+def _check_pooled(pooled):
+    if not (isinstance(pooled, int) and 1 <= pooled <= MAX_POOLED):
+        raise ValueError(f"roi_pool kernel pools R x R for R from 1 to "
+                         f"{MAX_POOLED}, not {pooled}x{pooled}: a larger "
+                         "POOLER_RESOLUTION is pooled by the plain version "
+                         "on CPU tensors only")
+
+
 def _check_cuda_inputs(feat, rois, mask, pooled):
+    _check_pooled(pooled)
     if feat.device.type != "cuda":
         raise ValueError(f"roi_pool: feat on {feat.device} is neither a CPU "
                          "tensor (plain path) nor a CUDA tensor (kernel)")
-    if pooled != POOLED:
-        raise ValueError(f"roi_pool kernel pools {POOLED}x{POOLED}, "
-                         f"not {pooled}x{pooled}")
     if feat.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"roi_pool kernel takes f32 or bf16, not {feat.dtype}")
     if feat.dim() != 4 or not feat.is_contiguous():
@@ -409,7 +429,7 @@ def _launch_fwd(feat, rois, mask, spatial_scale, pooled, argmax):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         err = fn(feat.data_ptr(), rois.data_ptr(), mask.data_ptr(),
                  out.data_ptr(), None if codes is None else codes.data_ptr(),
-                 b, p, h, w, c, float(spatial_scale), stream)
+                 b, p, h, w, c, pooled, float(spatial_scale), stream)
     if err != 0:
         raise RuntimeError(f"roi_pool_fwd launch failed: cudaError_t {err}")
     return out, codes
@@ -422,8 +442,8 @@ def roi_pool(feat: torch.Tensor, rois: torch.Tensor, mask: torch.Tensor,
 
     CPU tensors take ``roi_pool_plain``. CUDA tensors launch the kernel
     without the argmax on the current stream (any map and roi size; f32 or
-    bf16, C a multiple of 8) or raise; each launch adds one to
-    ``roi_pool.launches``.
+    bf16, C a multiple of 8, 1 <= pooled <= ``MAX_POOLED``) or raise; each
+    launch adds one to ``roi_pool.launches``.
     """
     if feat.device.type == "cpu":
         return roi_pool_plain(feat, rois, mask, spatial_scale, pooled)
@@ -494,13 +514,11 @@ def _launch_bwd(argmax, rois, mask, grad, spatial_scale, map_hw, pooled,
     """The backward kernel's instantiation for ``codes_dtype`` (argmax's
     dtype must be it), after the checks."""
     h, w = map_hw
+    _check_pooled(pooled)
     if grad.device.type != "cuda":
         raise ValueError(f"roi_pool_backward: grad on {grad.device} is "
                          "neither a CPU tensor (plain path) nor a CUDA "
                          "tensor (kernel)")
-    if pooled != POOLED:
-        raise ValueError(f"roi_pool kernel pools {POOLED}x{POOLED}, "
-                         f"not {pooled}x{pooled}")
     if grad.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"roi_pool kernel takes f32 or bf16, not {grad.dtype}")
     b, p = rois.shape[:2]
@@ -523,7 +541,7 @@ def _launch_bwd(argmax, rois, mask, grad, spatial_scale, map_hw, pooled,
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         err = fn(argmax.data_ptr(), rois.data_ptr(), mask.data_ptr(),
-                 grad.data_ptr(), dfeat.data_ptr(), b, p, h, w, c,
+                 grad.data_ptr(), dfeat.data_ptr(), b, p, h, w, c, pooled,
                  float(spatial_scale), stream)
     if err != 0:
         raise RuntimeError(f"roi_pool_bwd launch failed: cudaError_t {err}")
@@ -531,34 +549,37 @@ def _launch_bwd(argmax, rois, mask, grad, spatial_scale, map_hw, pooled,
 
 
 class RoIPoolFunction(torch.autograd.Function):
-    """``roi_pool`` forward; when a gradient is needed
-    (``torch.is_grad_enabled()`` and ``feat.requires_grad``, decided in
-    ``apply``) the training forward ``roi_pool_argmax``, whose argmax
-    (int16, or int32 past 65535 map cells) is saved and routes the
-    cotangent in ``roi_pool_backward``. Under ``no_grad`` nothing is saved.
-    rois and mask get no gradient. ``level`` names the FPN level in the
-    map-size error."""
+    """``roi_pool`` forward at ``pooled`` x ``pooled``; when a gradient is
+    needed (``torch.is_grad_enabled()`` and ``feat.requires_grad``, decided
+    in ``apply``) the training forward ``roi_pool_argmax``, whose argmax
+    (int16, or int32 past 65535 map cells) is saved, with ``pooled``, and
+    routes the cotangent in ``roi_pool_backward``. Under ``no_grad``
+    nothing is saved. rois and mask get no gradient. ``level`` names the
+    FPN level in the map-size error."""
 
     @classmethod
-    def apply(cls, feat, rois, mask, spatial_scale, level=None):
+    def apply(cls, feat, rois, mask, spatial_scale, level=None,
+              pooled=POOLED):
         return super().apply(feat, rois, mask, spatial_scale,
                              torch.is_grad_enabled() and feat.requires_grad,
-                             level)
+                             level, pooled)
 
     @staticmethod
-    def forward(ctx, feat, rois, mask, spatial_scale, keep_argmax, level):
+    def forward(ctx, feat, rois, mask, spatial_scale, keep_argmax, level,
+                pooled):
         if not keep_argmax:
-            return roi_pool(feat, rois, mask, spatial_scale)
+            return roi_pool(feat, rois, mask, spatial_scale, pooled)
         out, argmax = roi_pool_argmax(feat, rois, mask, spatial_scale,
-                                      level=level)
+                                      pooled, level=level)
         ctx.save_for_backward(argmax, rois, mask)
         ctx.spatial_scale = spatial_scale
         ctx.map_hw = tuple(feat.shape[1:3])
+        ctx.pooled = pooled
         return out
 
     @staticmethod
     def backward(ctx, grad):
         argmax, rois, mask = ctx.saved_tensors
         dfeat = roi_pool_backward(argmax, rois, mask, grad.contiguous(),
-                                  ctx.spatial_scale, ctx.map_hw)
-        return dfeat, None, None, None, None, None
+                                  ctx.spatial_scale, ctx.map_hw, ctx.pooled)
+        return dfeat, None, None, None, None, None, None

@@ -181,21 +181,25 @@ def _cells_covered(b, h, w, img, r0, r1, c0, c1):
     return int((diff.cumsum(1).cumsum(2)[:, :h, :w] > 0).sum())
 
 
-def stage_work(name, feat, rois, mask, spatial_scale):
+def stage_work(name, feat, rois, mask, spatial_scale, pooled=POOLED):
     """(bytes, comparisons) that ``name`` (a stage, or ``roi_pool`` for
-    kernel #1) needs on these inputs: the output written once; the mask,
-    the rois and each map cell the output depends on read once (a cell of
-    the zero pad is no load); one comparison per value a bin's max
-    reduces. Masked rois read nothing."""
+    kernel #1 at ``pooled`` x ``pooled``; the stages pool 7x7 only) needs
+    on these inputs: the output written once; the mask, the rois and each
+    map cell the output depends on read once (a cell of the zero pad is no
+    load); one comparison per value a bin's max reduces. Masked rois read
+    nothing."""
+    if name != "roi_pool" and pooled != POOLED:
+        raise ValueError(f"stage {name!r} pools {POOLED}x{POOLED}, not "
+                         f"{pooled}x{pooled}")
     b, h, w, c = feat.shape
     p = rois.shape[1]
     isz = feat.element_size()
-    nbytes = b * p * POOLED * POOLED * c * isz + mask.numel()
+    nbytes = b * p * pooled * pooled * c * isz + mask.numel()
     if name == "write":
         return nbytes, 0
     n = b * p
     live = mask.reshape(n)
-    hs, he, ws, we = roi_bin_edges(rois, spatial_scale, POOLED, h, w)
+    hs, he, ws, we = roi_bin_edges(rois, spatial_scale, pooled, h, w)
     xs, cw = (t.reshape(n).long()
               for t in tpu_windows(rois, mask, spatial_scale, h, w))
     rows = (he - hs).clamp(min=0).sum(1)
@@ -220,10 +224,11 @@ def stage_work(name, feat, rois, mask, spatial_scale):
     return nbytes, int(per_roi[live].sum()) * c
 
 
-def stage_bound(name, feat, rois, mask, spatial_scale, card):
+def stage_bound(name, feat, rois, mask, spatial_scale, card,
+                pooled=POOLED):
     """(bound ms, "bytes" or "operations", bytes, comparisons) on ``card``
     (its name) at the published memory rate and f32 rate."""
-    nbytes, ops = stage_work(name, feat, rois, mask, spatial_scale)
+    nbytes, ops = stage_work(name, feat, rois, mask, spatial_scale, pooled)
     bytes_ms = nbytes / card_rate(card, MEM_BYTES_PER_S) * 1e3
     ops_ms = ops / card_rate(card, F32_OPS_PER_S) * 1e3
     return (max(bytes_ms, ops_ms),

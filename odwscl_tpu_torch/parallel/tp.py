@@ -46,7 +46,7 @@ def tp_neck_apply(params, x: torch.Tensor, group=None,
                   compute_dtype: torch.dtype = torch.bfloat16
                   ) -> torch.Tensor:
     """Eval-mode fc6/fc7 (no dropout) of this rank's shard ``params``
-    (``shard_neck_params``) on ``x`` [N, 7, 7, C] or [N, K], the same rows
+    (``shard_neck_params``) on ``x`` [N, r, r, C] or [N, K], the same rows
     on every rank; returns [N, H2] in ``compute_dtype``, the same on every
     rank of ``group``."""
     dt = compute_dtype

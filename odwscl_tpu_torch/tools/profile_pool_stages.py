@@ -1,7 +1,7 @@
 """Where the ROIPool forward's time goes on the card: kernel #1 beside the
 five stages of the stage profiler.
 
-    python -m odwscl_tpu_torch.tools.profile_pool_stages
+    python -m odwscl_tpu_torch.tools.profile_pool_stages [--pooled R]
     python -m odwscl_tpu_torch.tools.profile_pool_stages --device cpu \\
         --shape 1 24 40 8 16
 
@@ -33,6 +33,10 @@ another rectangle per output bin, so the deltas read as cuts of #1:
 - ``column_reduction`` = cols - write: one row per row bin, reduced
   across the bin's columns;
 - ``per_roi_work`` = full - write: all of #1's work past its stores.
+
+``--pooled R`` (1 to 16; 7 by default) pools kernel #1 at R x R, beside
+the stages, which cut #1's R = 7 instantiation and stay 7x7; its share of
+#1 is then the stages' share of another kernel.
 
 It prints each time with its bound (``stage_work``: the map cells it
 needs and the output, over the card's published rate) and share of that
@@ -99,31 +103,32 @@ def time_in_turns(fns, iters, rounds=2):
     return times
 
 
-def _run_cpu(feat, rois, mask):
+def _run_cpu(feat, rois, mask, pooled=POOLED):
     ms = {}
     for name in NAMES:
         t0 = time.perf_counter()
         if name == "roi_pool":
-            roi_pool(feat, rois, mask, SCALE)
+            roi_pool(feat, rois, mask, SCALE, pooled)
         else:
             roi_pool_stage(feat, rois, mask, SCALE, name)
         ms[name] = (time.perf_counter() - t0) * 1e3
         print(f"{name:10s} plain (cpu) {ms[name]:10.3f} ms")
     result = {"device": "cpu", "shape": list(feat.shape) + [rois.shape[1]],
-              "plain_cpu_ms": ms}
+              "pooled": pooled, "plain_cpu_ms": ms}
     print(json.dumps(result))
     return result
 
 
-def profile(feat, rois, mask):
-    """Times kernel #1, the five stage kernels and ``torch.zeros`` (the
-    library call of ``write``) on these card tensors, prints the table and
-    returns it as a dict."""
+def profile(feat, rois, mask, pooled=POOLED):
+    """Times kernel #1 at ``pooled``, the five stage kernels and
+    ``torch.zeros`` (the library call of ``write``) on these card tensors,
+    prints the table and returns it as a dict."""
     card = card_name_and_limit()
     name = torch.cuda.get_device_name(feat.device)
     plan = stage_plan(feat, rois, mask, SCALE)
     b, _, _, c = feat.shape
-    fns = {"roi_pool": functools.partial(roi_pool, feat, rois, mask, SCALE)}
+    fns = {"roi_pool": functools.partial(roi_pool, feat, rois, mask, SCALE,
+                                         pooled)}
     for stage in STAGES:
         fns[stage] = functools.partial(roi_pool_stage, feat, rois, mask,
                                        SCALE, stage, plan)
@@ -141,8 +146,9 @@ def profile(feat, rois, mask):
     base = statistics.mean(times["roi_pool"])
     for key in NAMES:
         ms = statistics.mean(times[key])
-        bound_ms, by, nbytes, ops = stage_bound(key, feat, rois, mask,
-                                                SCALE, name)
+        bound_ms, by, nbytes, ops = stage_bound(
+            key, feat, rois, mask, SCALE, name,
+            pooled if key == "roi_pool" else POOLED)
         variants[key] = {"ms": ms, "readings_ms": times[key],
                          "bound_ms": bound_ms, "bound_by": by,
                          "bytes": nbytes, "comparisons": ops,
@@ -165,7 +171,7 @@ def profile(feat, rois, mask):
                                        for k, v in deltas.items()))
     result = {"card": card, "device": name,
               "shape": list(feat.shape) + [rois.shape[1]],
-              "dtype": str(feat.dtype)[6:], "block": block,
+              "dtype": str(feat.dtype)[6:], "pooled": pooled, "block": block,
               "iters": ITERS, "variants": variants,
               "library_ms": library_ms, "deltas_ms": deltas}
     print(json.dumps(result))
@@ -179,6 +185,8 @@ def main(argv=None):
                          "the plain versions once each")
     ap.add_argument("--shape", type=int, nargs=5, default=list(BENCH_SHAPE),
                     metavar=("B", "H", "W", "C", "P"))
+    ap.add_argument("--pooled", type=int, default=POOLED,
+                    help="kernel #1's resolution R (the stages pool 7x7)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -188,8 +196,8 @@ def main(argv=None):
     mask = torch.from_numpy(mask_np).to(dev)
     del feat_np
     if dev.type == "cpu":
-        return _run_cpu(feat, rois, mask)
-    return profile(feat, rois, mask)
+        return _run_cpu(feat, rois, mask, args.pooled)
+    return profile(feat, rois, mask, args.pooled)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ image labels each) on random images of 375x500 resized to the train scale
 3. the backward and the optimizer step, timed the same way; the backbone's
    backward and the two ROIPool kernels (the training forward with its
    argmax, then the backward from it) also timed alone at the step's
-   shapes, so the neck and heads' backward is the remainder;
+   shapes and the config's ``POOLER_RESOLUTION`` (with ``POOLER_METHOD
+   ROIAlign``, plain ROIAlign's forward and its autograd backward in their
+   place), so the neck and heads' backward is the remainder;
 4. with ``DB.METHOD concrete``: the Concrete DropBlock alone on the
    step's pooled rois (forward and the backward to its parameters) with
    cuDNN's TF32 on and off, and its largest device kernels.
@@ -166,6 +168,7 @@ def main(argv=None):
     from odwscl_tpu_torch.config import get_default_cfg
     from odwscl_tpu_torch.engine.trainer import train_step
     from odwscl_tpu_torch.models.detector import detector_from_cfg
+    from odwscl_tpu_torch.ops.roi_align import roi_align
     from odwscl_tpu_torch.ops.roi_pool import (roi_pool_argmax,
                                                roi_pool_backward)
     from odwscl_tpu_torch.solver import make_optimizer
@@ -239,21 +242,40 @@ def main(argv=None):
     bb_bwd_ms = statistics.median(bb_bwd)
     optimizer.zero_grad(set_to_none=True)
     feats = feats.detach()
-    pool_ms, (pooled, argmax) = _events_ms(lambda: roi_pool_argmax(
-        feats, batch.boxes, batch.box_mask, model.pooler_scale))
-    gp = torch.randn_like(pooled)
-    pool_bwd_ms, _ = _events_ms(lambda: roi_pool_backward(
-        argmax, batch.boxes, batch.box_mask, gp, model.pooler_scale,
-        tuple(feats.shape[1:3])))
+    res = model.pooler_resolution
+    if model.pooler_method == "ROIPool":
+        pool_ms, (pooled, argmax) = _events_ms(lambda: roi_pool_argmax(
+            feats, batch.boxes, batch.box_mask, model.pooler_scale, res))
+        gp = torch.randn_like(pooled)
+        pool_bwd_ms, _ = _events_ms(lambda: roi_pool_backward(
+            argmax, batch.boxes, batch.box_mask, gp, model.pooler_scale,
+            tuple(feats.shape[1:3]), res))
+        names = ("roi_pool_fwd_argmax_kernel", "roi_pool_bwd_kernel",
+                 "roi_pool_pair")
+    else:
+        fa = feats.requires_grad_()
+        pool_ms, pooled = _events_ms(lambda: roi_align(
+            fa, batch.boxes, batch.box_mask, model.pooler_scale, res,
+            model.pooler_sampling))
+        gp = torch.randn_like(pooled)
+        pool_bwd = []
+        for _ in range(3):
+            out = roi_align(fa, batch.boxes, batch.box_mask,
+                            model.pooler_scale, res, model.pooler_sampling)
+            pool_bwd.append(_events_ms(lambda: torch.autograd.backward(
+                out, gp), iters=1, warmup=False)[0])
+        pool_bwd_ms = statistics.median(pool_bwd)
+        feats = feats.detach()
+        names = ("roi_align_fwd", "roi_align_bwd", "roi_align_pair")
     print(json.dumps({"part": "stages_ms", "card": card, **shape,
                       "forward": ms, "host_syncs": syncs,
                       "kernel_launches": launches,
-                      "optimizer": opt_ms,
+                      "optimizer": opt_ms, "pooler": [
+                          model.pooler_method, res],
                       "alone": {"backbone_forward": bb_fwd_ms,
                                 "backbone_backward": bb_bwd_ms,
-                                "roi_pool_fwd_argmax_kernel": pool_ms,
-                                "roi_pool_bwd_kernel": pool_bwd_ms,
-                                "roi_pool_pair": pool_ms + pool_bwd_ms},
+                                names[0]: pool_ms, names[1]: pool_bwd_ms,
+                                names[2]: pool_ms + pool_bwd_ms},
                       "neck_heads_backward": ms["backward"] - bb_bwd_ms
                       - pool_bwd_ms}))
     if model.cdb is not None:
@@ -262,7 +284,7 @@ def main(argv=None):
 
 
 def cdb_alone(model, pooled, batch):
-    """The Concrete DropBlock on ``pooled`` [B, P, 7, 7, C]: forward and
+    """The Concrete DropBlock on ``pooled`` [B, P, r, r, C]: forward and
     backward ms with cuDNN's TF32 on and off, and the largest device
     kernels of one forward and backward (TF32 as PyTorch sets it)."""
     from torch.profiler import ProfilerActivity, profile

@@ -1,6 +1,7 @@
 """Time variants of the ROIPool forward and backward kernels on the card.
 
     python -m odwscl_tpu_torch.tools.tune_roi_pool [--only fwd|bwd]
+        [--pooled R]
 
 Each variant is a copy of ``csrc/roi_pool_fwd.cu`` or
 ``csrc/roi_pool_bwd.cu`` with some of its ``constexpr int`` tile constants
@@ -30,7 +31,10 @@ forward's stores alone, ``ops/roi_pool_stages.py``) and ``torch.zeros``
 of the output, the library call that computes it. The forward variants
 must give the shipped kernel's output and argmax bit for bit, and their
 ``write`` stage zeros, the backward variants (not the ablations) its
-routing; a variant that does not is marked. Prints one JSON line per
+routing; a variant that does not is marked. ``--pooled R`` (1 to 16, 7 by
+default) times every kernel at R x R: at R other than 7 the kernels' run-
+time instantiations, without the ``write`` stage and the ``ordered``
+variants, which pool 7x7 only. Prints one JSON line per
 shape with the card's name and power limit. The chosen constants and the
 readings are in PERF.md.
 """
@@ -122,7 +126,7 @@ BWD_VARIANTS = {
     "kBins=2": {"kBins": 2},
     "kList=256": {"kList": 256},
     "ablation: list and epilogue only": {
-        r"const int items = count \* kPooled;": "const int items = 0;"},
+        r"const int items = count \* np;": "const int items = 0;"},
     "ablation: loads, no decode": {
         r"if \(code == Code::kNone\) continue;":
             "if (code != 0x7ffe) continue;"},
@@ -182,10 +186,11 @@ def _ms(fn):
 
 def _fwd_call(lib, feat, rois, mask, out, codes, order=None):
     """A launch of ``lib``'s bf16 forward into the given buffers (codes
-    None: the eval instantiation); with an ``order`` scratch, of an
-    ordered variant."""
+    None: the eval instantiation) at out's R; with an ``order`` scratch, of
+    an ordered variant (R = 7)."""
     b, h, w, c = feat.shape
     p = rois.shape[1]
+    pooled = out.shape[2]
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (feat.data_ptr(), rois.data_ptr(), mask.data_ptr())
     if order is not None:
@@ -194,10 +199,12 @@ def _fwd_call(lib, feat, rois, mask, out, codes, order=None):
     else:
         fn = lib.roi_pool_fwd_bf16
 
+    size = (b, p, h, w, c) + (() if order is not None else (pooled,))
+
     def call():
         err = fn(*ptrs, out.data_ptr(),
-                 None if codes is None else codes.data_ptr(), b, p, h, w, c,
-                 SCALE, stream)
+                 None if codes is None else codes.data_ptr(), *size, SCALE,
+                 stream)
         if err:
             raise RuntimeError(f"roi_pool_fwd launch failed: {err}")
         return out, codes
@@ -226,12 +233,13 @@ def _bwd_call(lib, codes, rois, mask, g, d):
     b, p = rois.shape[:2]
     hw = tuple(d.shape[1:3])
     c = g.shape[-1]
+    pooled = g.shape[2]
     stream = torch.cuda.current_stream().cuda_stream
 
     def call():
         err = lib.roi_pool_bwd_bf16(
             codes.data_ptr(), rois.data_ptr(), mask.data_ptr(), g.data_ptr(),
-            d.data_ptr(), b, p, hw[0], hw[1], c, SCALE, stream)
+            d.data_ptr(), b, p, hw[0], hw[1], c, pooled, SCALE, stream)
         if err:
             raise RuntimeError(f"roi_pool_bwd launch failed: {err}")
         return d
@@ -241,7 +249,10 @@ def _bwd_call(lib, codes, rois, mask, g, d):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("fwd", "bwd"))
+    ap.add_argument("--pooled", type=int, default=rp.POOLED,
+                    help=f"the resolution R (1 to {rp.MAX_POOLED})")
     args = ap.parse_args(argv)
+    at7 = args.pooled == rp.POOLED
     dev = resolve_device("cuda")
     card = card_name_and_limit()
     print(card)
@@ -253,7 +264,7 @@ def main(argv=None):
                     for k, v in FWD_VARIANTS.items()})
         extra = (Path(__file__).parent / "roi_pool_fwd_ordered.cu").read_text()
         ordered = {k: _variant("roi_pool_fwd", k, v, _bind_ordered, extra)
-                   for k, v in ORDERED_VARIANTS.items()}
+                   for k, v in ORDERED_VARIANTS.items() if at7}
     if args.only != "fwd":
         bwd.update({k: _variant("roi_pool_bwd", k, v, rp._bind_bwd)
                     for k, v in BWD_VARIANTS.items()})
@@ -269,8 +280,9 @@ def main(argv=None):
     mix = {}
     for shape in [*SHAPES, *_step_shapes()]:
         feat, rois, mask = _inputs(shape, dev)
-        out = torch.empty(feat.shape[:1] + rois.shape[1:2] + (7, 7)
-                          + feat.shape[3:], dtype=feat.dtype, device=dev)
+        out = torch.empty(feat.shape[:1] + rois.shape[1:2]
+                          + (args.pooled, args.pooled) + feat.shape[3:],
+                          dtype=feat.dtype, device=dev)
         codes = torch.empty(out.shape, dtype=torch.int16, device=dev)
         order = torch.empty(out.shape[0] * out.shape[1], dtype=torch.int32,
                             device=dev)
@@ -294,7 +306,7 @@ def main(argv=None):
                     calls[key] = call
                     same[key] = torch.equal(o, ref_out) and (
                         not am or torch.equal(a, ref_codes))
-                if name in fwd:
+                if name in fwd and at7:
                     call = _write_call(lib.get(), feat, rois, mask, out)
                     calls[f"write {name}"] = call
                     same[f"write {name}"] = not call().any()
@@ -315,14 +327,15 @@ def main(argv=None):
                   f"{'' if same[k] else ' (differs from the shipped kernel)'}")
         ms = {k: sum(v) / len(v) for k, v in times.items()}
         print(json.dumps({"shape": shape, "card": card, "feat": list(
-            feat.shape), "ms": ms, "same_as_shipped": same}))
+            feat.shape), "pooled": args.pooled, "ms": ms,
+            "same_as_shipped": same}))
         if shape.startswith("step"):
             mix[shape] = ms
     mean = {k: sum(m[k] for m in mix.values()) / len(mix) for k in calls}
     for k, t in mean.items():
         print(f"[mix] {k}: {t:.4f} ms")
     print(json.dumps({"shape": "mix", "card": card, "of": list(mix),
-                      "ms": mean}))
+                      "pooled": args.pooled, "ms": mean}))
 
 
 if __name__ == "__main__":

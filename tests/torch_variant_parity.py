@@ -29,7 +29,8 @@ The draws: the JAX detector's ``dropblock_2d``, ``noise_augment``, the
 Concrete DropBlock's ``gumbel_softmax`` and the partial-label
 ``subsample_proposals`` are wrapped to use fixed keys; the port gets the
 same uniforms and normals through ``draws``. ``KW`` holds the defaults;
-a test's keywords override them (e.g. 81 classes).
+a test's keywords override them (e.g. 81 classes); the draws follow the
+pooler's resolution (``pooler_resolution``, 7 by default).
 
 Tolerances: losses 1e-5 relative; gradients of every trainable tensor
 1e-4 of its largest magnitude, at least 1e-8 absolute (the det_score bias
@@ -89,9 +90,10 @@ def port_batch(arrays):
                    for a in arrays))
 
 
-def init_params(jkw, arrays):
+def init_params(jkw, arrays, head_scale=HEAD_SCALE):
     """The JAX detector's init for ``jkw`` (its predictor, CDB and CAM
-    leaves included), with the scaled score heads, as numpy f32."""
+    leaves included), with the score heads scaled by ``head_scale``, as
+    numpy f32."""
     model = jdet.WSODDetector(**{**KW, **jkw})
     v = jax.jit(lambda r, bb: model.init(r, bb, method="init_all"))(
         {"params": jax.random.PRNGKey(0), "augment": jax.random.PRNGKey(1)},
@@ -100,7 +102,7 @@ def init_params(jkw, arrays):
                                     v["params"])
     for name, head in params["pred"].items():
         if not name.startswith("bbox_pred"):
-            head["linear"]["kernel"] *= HEAD_SCALE
+            head["linear"]["kernel"] *= head_scale
     return params
 
 
@@ -132,20 +134,20 @@ def subsample_uniforms(key, b, p):
                      for k in jax.random.split(key, b)])
 
 
-def port_draws(n_rows, cap_a=KW["cap_a"], bp=None):
-    """The uniforms and normals the wrapped JAX draws produce; ``bp`` (B,
-    P) adds the partial-label subsample's."""
+def port_draws(n_rows, cap_a=KW["cap_a"], bp=None, r=7):
+    """The uniforms and normals the wrapped JAX draws produce on an r x r
+    pool; ``bp`` (B, P) adds the partial-label subsample's."""
     def arr(x):
         return torch.from_numpy(np.array(x))
 
     extra = ({"subsample": arr(subsample_uniforms(KEYS["subsample"], *bp))}
              if bp else {})
-    return {**extra, "dropblock": arr(jax.random.uniform(KEYS[3], (n_rows, 7, 7))),
-            "sim_drop": arr(jax.random.uniform(KEYS[1], (cap_a, 7, 7))),
-            "noise": arr(jax.random.normal(KEYS["noise"], (cap_a, 7, 7, 512),
+    return {**extra, "dropblock": arr(jax.random.uniform(KEYS[3], (n_rows, r, r))),
+            "sim_drop": arr(jax.random.uniform(KEYS[1], (cap_a, r, r))),
+            "noise": arr(jax.random.normal(KEYS["noise"], (cap_a, r, r, 512),
                                            jnp.float32)),
             "cdb_gumbel": arr(jax.random.uniform(KEYS["cdb"],
-                                                 (n_rows, 7, 7, 2)))}
+                                                 (n_rows, r, r, 2)))}
 
 
 def jax_train(jkw, params, arrays):
@@ -184,10 +186,22 @@ def port_grads(model):
         for n, p in model.named_parameters()}))
 
 
-def assert_train_matches(kw, arrays=None, params=None):
+def jax_features(kw, params, arrays):
+    """The JAX detector's (frozen) backbone features of the batch's images
+    [B, H', W', C], as a CPU tensor."""
+    model = jdet.WSODDetector(**{**KW, **kw}, freeze_convs=13)
+    feats = jax.jit(lambda v, x: model.apply(
+        v, x, method=lambda m, im: m.backbone(im)))(
+        {"params": params}, jnp.asarray(arrays[0]))
+    return torch.from_numpy(np.array(feats))
+
+
+def assert_train_matches(kw, arrays=None, params=None, same_features=False):
     """Run ``kw`` (the same constructor keywords in both packages) through
     both train forwards and hold the port to JAX; returns the port's
-    (losses, metrics, model)."""
+    (losses, metrics, model). ``same_features``: the port's train forward
+    takes the JAX backbone's features (``train_forward(features=...)``),
+    so that the backbone's forward drift does not reach the pool."""
     arrays = arrays if arrays is not None else inputs()
     params = params if params is not None else init_params(kw, arrays)
     want_total, want_losses, want_metrics, want_grads = jax_train(
@@ -196,10 +210,12 @@ def assert_train_matches(kw, arrays=None, params=None):
     b, p = arrays[2].shape[:2]
     n_rows = b * min(p, kw["roi_batch_size"]) if "roi_batch_size" in kw \
         else b * p
+    features = jax_features(kw, params, arrays) if same_features else None
     losses, metrics = model.train_forward(
-        port_batch(arrays), draws=port_draws(
+        port_batch(arrays), features=features, draws=port_draws(
             n_rows, kw.get("cap_a", KW["cap_a"]),
-            (b, p) if kw.get("partial_labels", "none") != "none" else None))
+            (b, p) if kw.get("partial_labels", "none") != "none" else None,
+            kw.get("pooler_resolution", 7)))
     total = torch.stack(list(losses.values())).sum()
     total.backward()
 
