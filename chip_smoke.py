@@ -56,7 +56,8 @@ Phases (any failure ends the run with a non-zero exit code):
    without contrastive mining; OICR with it; Concrete DropBlock; CAM
    proposals), VGG16 at full width; the Concrete DropBlock's step runs
    again on the card with cuDNN's TF32, and its gap is printed; and the
-   main step again with the COCO configs' 81-class heads.
+   main step again with the COCO configs' 81-class heads. Phase 26's
+   study runs in a process of its own beside phases 6, 15 and 19.
 7. Drive the training path: ``odwscl_tpu_torch.tools.train_net`` with
    configs/voc/voc07_contra_db_b8_lr0.01_mcg.yaml (VGG16-OICR, bf16, batch
    8, scales 480-1200, random init) for 20 iterations on a synthetic VOC
@@ -80,10 +81,10 @@ Phases (any failure ends the run with a non-zero exit code):
    (configs/voc/voc07_r50_c5_contra_db_b8_lr0.02_ss.yaml at full width:
    C5 at stride 16, neck 100352 -> 2048 -> 4096, bf16, batch 8): write a
    Caffe2 detectron ``.pkl`` of random blobs where ``MODEL.WEIGHT``'s
-   catalog name resolves, train 10 iterations from it as in 7 (the frozen
+   catalog name resolves, train 6 iterations from it as in 7 (the frozen
    stem, layer1 and norms must still hold the file's values), then
    evaluate the checkpoint in both resize modes as in 8.
-10. Drive the main config's training variants at full width, 10 steps
+10. Drive the main config's training variants at full width, 6 steps
    each as in 7 (``VARIANTS``): (a) ``DB.METHOD concrete``, whose last
    update of the Concrete DropBlock must be the ascent +DB.WEIGHT * lr *
    buf; (b) ``SOLVER.CONTRA False``, ``OICR_P 0.15`` (the MIST layer);
@@ -131,7 +132,7 @@ Phases (any failure ends the run with a non-zero exit code):
    classes, bf16, batch 8, scales 480-1200, MCG proposal files, random
    init) on a synthetic ``coco14`` layout of COCO's 480x640 images (32
    train, 16 val, 16 valminusminival; 2048 proposals each; point and
-   scribble annotations): train 10 steps as in 7, the mining counters
+   scribble annotations): train 6 steps as in 7, the mining counters
    non-zero; evaluate the checkpoint with the 14-transform TTA and
    ``TPU.EVAL_DEVICE_RESIZE True`` into the 7 COCO stats, all finite, the
    launches as in 8; the COCO evaluator fed the val GT must give AP 1.0,
@@ -203,12 +204,13 @@ Phases (any failure ends the run with a non-zero exit code):
 22. (Run after 8, on phase 7's data.) Data-parallel training as a user
    launches it: ``train_net --distributed`` in a subprocess with
    ``RANK=0 WORLD_SIZE=1`` (``nccl``), phase 7's config, seed and data,
-   10 steps, ``--use-tensorboard`` and ``--profile-dir``. Its first step's
+   6 steps, ``--use-tensorboard`` and ``--profile-dir``
+   (iterations 2-6). Its first step's
    losses and mining counters must equal phase 7's first step, the later
    steps' total loss within 0.1 relative, beside the gap of a second
    plain run (run in the phase) to phase 7's (#2's f32 atomics add in
    another order in each run, and two plain bf16 runs part after step 1);
-   ``scalars.jsonl`` must hold 10 records and the profile directory a
+   ``scalars.jsonl`` must hold 6 records and the profile directory a
    trace; each step launches #1[argmax] and #2 once.
    Its step ms, device idle share and peak GB are printed beside phase
    7's. Then ``test_net`` with no ``--weights`` on that ``OUTPUT_DIR``
@@ -249,6 +251,25 @@ Phases (any failure ends the run with a non-zero exit code):
    R-50-FPN widths, R = 14 and a 28x28 mask, bf16, on 800x1344 canvases:
    5 steps (#1[argmax] and #2 4 times a step at R = 14) and the bbox and
    segm eval (#1 8 times a batch at R = 14).
+26. (Started before 6, checked after 19.) The int8 accuracy study
+   (``odwscl_tpu_torch.tools.int8_accuracy_study``) at a smoke size
+   through its real subprocesses: 1 seed, 30 steps, 8 / 8 synthetic VOC
+   images of 192x256 (the JAX tool's generator), ``train_net`` then
+   ``test_net --ckpt`` on the trained checkpoint in bf16, int8 and int8
+   with conv4-conv6 in bf16. Its JSON must hold the three modes with
+   finite mAPs in [0, 1] and the JAX tool's summary keys; each CLI run
+   reports its launches: every step #1[argmax] and #2 once, every eval
+   batch #1, the int8 conv kernel 11 times a batch in int8 and 8 in
+   int8-fb, and the quantize kernel in both.
+27. (Run after 23.) Spatial parallelism over the ResNet, FPN and FBNet
+   bodies at world size 1 (an in-process ``nccl`` group), bf16:
+   ``sp_backbone_apply`` on R-50-FPN at 800x1344 (B = 2), R-50-C5 on a
+   1280x1664 batch of 8 and FBNet-default at 800x1344 (B = 2), each level
+   bit-exact against the body, and timed beside it; then each body's 4
+   bands stitched in one process (``sp_stitch``, the same band
+   arithmetic, one thread a band) in f32 with TF32 off, every level of
+   every band's output within SP_STITCH_REL of its largest magnitude of
+   the unsharded body.
 Prints a ``[summary]`` line of the end-to-end numbers, a
 ``{"kernels": [...]}`` line and, last, a one-line JSON result.
 Needs no network; exits non-zero without a CUDA card or outside the repo.
@@ -314,7 +335,7 @@ SUMMARY = []
 # phase_train's runs by label: the step logs and their median, idle share
 # and peak memory (phase 7a compares its distributed run with phase 7's)
 TRAIN_RUNS = {}
-R50_STEPS = 10
+R50_STEPS = 6
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -1216,8 +1237,8 @@ def phase_train(rp, tmp, config, steps, label, opts=(), period=None,
 
 
 # phase 22: the data-parallel path at world size 1
-DIST_STEPS = 10
-# steps 2-10 against phase 7's: #2's f32 atomics add in another order in
+DIST_STEPS = 6
+# steps 2-6 against phase 7's: #2's f32 atomics add in another order in
 # each run, so two bf16 runs part by rounding after step 1, and a mining
 # counter or pseudo-label that flips moves the losses by percents: four
 # plain twins of phase 7's run parted from it by up to 1.9e-2 in the
@@ -1304,8 +1325,8 @@ def phase_distributed(rp, tmp, config, ref_label):
             raise AssertionError(f"{name} step 1 != phase 7's: {bad}")
 
     def gaps(run):
-        """Per step 2-10: the total loss's relative gap to phase 7's, and
-        the counters that differ."""
+        """Per step after the first: the total loss's relative gap to
+        phase 7's, and the counters that differ."""
         return [(abs(r["loss"] - st["loss"]) / abs(st["loss"]),
                  [k for k in keys if k.startswith("n_") and r[k] != st[k]])
                 for r, st in zip(run[1:], steps[1:])]
@@ -1460,7 +1481,7 @@ VARIANTS = [
                "MODEL.ROI_WEAK_HEAD.REGRESS_ON", "False",
                "SOLVER.CONTRA", "False"], True),
 ]
-VARIANT_STEPS_N = 10
+VARIANT_STEPS_N = 6
 
 
 def check_cdb_ascent(out, steps, cfg):
@@ -1753,7 +1774,7 @@ def phase_eval(rp, tmp, config, weights, label, runs, opts=(),
 # JAX package's set: AP over IoU .5:.95, AP50, AP75, AR at 100
 # detections, AP by area)
 COCO_STATS = ("AP", "AP50", "AP75", "AR", "AP_s", "AP_m", "AP_l")
-COCO_STEPS = 10
+COCO_STEPS = 6
 COCO_VARIANT_STEPS = 5
 COCO_TRAIN_PROPS = ("proposal/MCG/coco/MCG-coco14_train.pkl",
                     "proposal/MCG/coco/MCG-coco14_valminusminival.pkl")
@@ -4353,6 +4374,202 @@ def phase_pooler_mask_rcnn(rp, tmp):
     return {"Mask R-CNN R=14 train": train, "Mask R-CNN R=14 eval": evals}
 
 
+# phase 26: the int8 accuracy study at a smoke size, through its real
+# subprocesses, in a process of its own that runs beside phases 6, 15 and
+# 19 (their card sides time nothing); each CLI run reports its kernel
+# launches into the seed's log
+STUDY_ARGS = ["--seeds", "1234", "--iters", "30", "--n-train", "8",
+              "--n-test", "8"]
+STUDY_LAUNCHER = r"""
+import json, runpy, sys
+from odwscl_tpu_torch.ops import quant as q
+from odwscl_tpu_torch.ops import roi_pool as rp
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+runpy.run_module(module, run_name="__main__")
+print("LAUNCHES " + json.dumps({
+    "fwd": rp.roi_pool.launches, "fwd_argmax": rp.roi_pool_argmax.launches,
+    "bwd": rp.roi_pool_backward.launches,
+    "conv_int8": q.conv_int8_nhwc.launches,
+    "quant_int8": q.quantize_act.launches + q.quantize_rows.launches}))
+"""
+# the study with each CLI command run through STUDY_LAUNCHER
+STUDY_RUNNER = r"""
+import sys
+from odwscl_tpu_torch.tools import int8_accuracy_study as study
+launcher, run = sys.argv[1], study.run
+def counted(cmd, log):
+    i = cmd.index("-m")
+    run(cmd[:i] + ["-c", launcher] + cmd[i + 1:], log)
+study.run = counted
+study.main(sys.argv[2:])
+"""
+STUDY_MODES = ("bf16", "int8", "int8-fb")
+
+
+def start_int8_study(root):
+    """Start phase 26's study in a process of its own (its output in
+    ``root/study.out``); returns (the process, its start time)."""
+    import subprocess
+
+    os.makedirs(root, exist_ok=True)
+    # two intra-op threads: its CLI runs wait on the card, and the CPU
+    # sides of phases 6-19 run beside them
+    env = {**os.environ, "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": os.pathsep.join(
+               [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    with open(os.path.join(root, "study.out"), "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-c", STUDY_RUNNER, STUDY_LAUNCHER]
+            + STUDY_ARGS + ["--root", root, "--device", "cuda"], cwd=ROOT,
+            env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, time.perf_counter()
+
+
+def phase_int8_study(started, root):
+    """Phase 26 (see the module's docstring): waits for the study that
+    ``start_int8_study`` started and checks it. Returns {run: {kernel:
+    launches}} for the training and each mode's evaluation."""
+    proc, t0 = started
+    rc = proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, "study.out")) as f:
+        out = f.read()
+    if rc != 0:
+        print(out[-6000:], file=sys.stderr)
+        raise AssertionError(f"the int8 study exited {rc}")
+    with open(os.path.join(root, "INT8_STUDY.json")) as f:
+        res = json.load(f)
+    maps = res["seeds"]["1234"]
+    if sorted(maps) != sorted(STUDY_MODES) or not all(
+            math.isfinite(v) and 0.0 <= v <= 1.0 for v in maps.values()):
+        raise AssertionError(f"int8 study mAPs {maps}")
+    if sorted(res["summary"]) != sorted(
+            list(STUDY_MODES) + ["delta_int8", "delta_int8-fb"]):
+        raise AssertionError(f"int8 study summary {sorted(res['summary'])}")
+    with open(os.path.join(root, "seed1234.log")) as f:
+        counts = [json.loads(line.split("LAUNCHES ", 1)[1])
+                  for line in f if line.startswith("LAUNCHES ")]
+    runs = dict(zip(["train"] + list(STUDY_MODES), counts))
+    iters = int(STUDY_ARGS[STUDY_ARGS.index("--iters") + 1])
+    batches = -(-int(STUDY_ARGS[STUDY_ARGS.index("--n-test") + 1]) // 4)
+    want = {"train": {"fwd": 0, "fwd_argmax": iters, "bwd": iters,
+                      "conv_int8": 0, "quant_int8": 0},
+            "bf16": {"fwd_argmax": 0, "bwd": 0, "conv_int8": 0,
+                     "quant_int8": 0},
+            "int8": {"fwd_argmax": 0, "bwd": 0, "conv_int8": 11 * batches},
+            "int8-fb": {"fwd_argmax": 0, "bwd": 0,
+                        "conv_int8": 8 * batches}}
+    bad = [(r, k, runs.get(r, {}).get(k), v) for r, w in want.items()
+           for k, v in w.items() if runs.get(r, {}).get(k) != v]
+    if len(runs) == 4:
+        bad += [(r, "fwd", runs[r]["fwd"], ">= batches") for r in STUDY_MODES
+                if runs[r]["fwd"] < batches]
+        bad += [(r, "quant_int8", runs[r]["quant_int8"], "> 0")
+                for r in ("int8", "int8-fb") if not runs[r]["quant_int8"]]
+    if len(runs) != 4 or bad:
+        raise AssertionError(f"int8 study launches: {runs}; {bad}")
+    with open(os.path.join(root, "timing.json")) as f:
+        timing = json.load(f)["seeds"]["1234"]
+    print(f"[int8 study] {' '.join(STUDY_ARGS)} (beside phases 6, 15 and "
+          "19): mAP " + ", ".join(f"{m} {maps[m]:.4f}" for m in STUDY_MODES)
+          + f"; delta int8 {res['summary']['delta_int8']['mean']:+.4f}, "
+          f"int8-fb {res['summary']['delta_int8-fb']['mean']:+.4f}; wall "
+          f"{wall:.1f} s; median step {timing['median_step_ms']:.1f} ms; "
+          "eval images/s " + ", ".join(
+              f"{m} {timing[m + '_images_per_s']:.2f}" for m in STUDY_MODES)
+          + f"; launches {runs}")
+    SUMMARY.append(f"int8 study (smoke size) wall {wall:.1f} s")
+    return runs
+
+
+# phase 27: the spatially-parallel ResNet, FPN and FBNet bodies. The bands
+# stitched in one process (f32, TF32 off) against the unsharded body: each
+# level within SP_STITCH_REL of its largest magnitude (the convolutions of
+# a band run on other shapes, so cuDNN may sum in another order)
+SP_STITCH_REL = 1e-4
+SP_STITCH_WORLD = 4
+
+
+def phase_sp_bodies(dev):
+    """Phase 27 (see the module's docstring)."""
+    import torch
+    import torch.distributed as dist
+    from odwscl_tpu_torch.models.fbnet import FBNetTrunk
+    from odwscl_tpu_torch.models.fpn import ResNetFPNBackbone
+    from odwscl_tpu_torch.models.resnet import ResNetBackbone
+    from odwscl_tpu_torch.parallel import sp_backbone_apply, sp_stitch
+
+    def levels(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    bodies = (
+        ("R-50-FPN", lambda dt: ResNetFPNBackbone("R-50", 256, dt),
+         (2, *FPN_EVAL_HW)),
+        ("R-50-C5", lambda dt: ResNetBackbone("R-50", 5, dt), SP_BATCH),
+        ("FBNet-default", lambda dt: FBNetTrunk(compute_dtype=dt),
+         (2, *FPN_EVAL_HW)))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        for name, make, shape in bodies:
+            g = torch.Generator().manual_seed(0)
+            gd = torch.Generator(device=dev).manual_seed(0)
+            bb = make(torch.bfloat16)
+            bb.reset_parameters(g)
+            bb.to(dev)
+            images = torch.randn(*shape, 3, generator=gd, device=dev)
+            with torch.no_grad():
+                got, want = (levels(sp_backbone_apply(bb, images, None)),
+                             levels(bb(images)))
+                if len(got) != len(want) or not all(
+                        torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name}: sp_backbone_apply != the "
+                                         "body at world size 1")
+                if not all(torch.isfinite(w).all() for w in want):
+                    raise AssertionError(f"{name}: non-finite features")
+                sp_ms = cuda_ms(lambda: sp_backbone_apply(bb, images, None),
+                                5)
+                bb_ms = cuda_ms(lambda: bb(images), 5)
+            # the stitched bands, f32
+            b32 = make(torch.float32)
+            b32.load_state_dict(bb.state_dict())
+            b32.to(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            with torch.no_grad():
+                want = levels(b32(images))
+                worst = 0.0
+                for r, out in enumerate(sp_stitch(b32, images,
+                                                  SP_STITCH_WORLD)):
+                    for a, b in zip(levels(out), want, strict=True):
+                        if a.shape != b.shape:
+                            raise AssertionError(f"{name} stitched rank {r}:"
+                                                 f" {a.shape} != {b.shape}")
+                        worst = max(worst, ((a - b).abs().max()
+                                            / b.abs().max()).item())
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+            print(f"[parallel] sp_backbone_apply {name}, world 1, bf16 "
+                  f"{list(shape)} ({len(want)} level(s)): bit-exact vs the "
+                  f"body; {sp_ms:.3f} ms (body {bb_ms:.3f}); {SP_STITCH_WORLD}"
+                  f" bands stitched in one process, f32: {worst:.2e} of each "
+                  f"level's largest (tol {SP_STITCH_REL})")
+            SUMMARY.append(f"sp {name} world 1 {sp_ms:.3f} ms (body "
+                           f"{bb_ms:.3f})")
+            if not worst <= SP_STITCH_REL:
+                raise AssertionError(f"{name}: stitched bands part from the "
+                                     f"body by {worst:.2e}")
+            del bb, b32, images, got, want
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        dist.destroy_process_group()
+
+
 def build(rp, q):
     """Build the four kernel sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4444,22 +4661,33 @@ def main():
     quant_err = timed("quantize kernel checks", phase_quant_kernel, dev, q)
     int8_layers, int8_total, int8_quant, int8_dense = timed(
         "int8 conv and quantize timing", phase_int8_timing, dev, q)
-    for arch in ("VGG16-OICR", "R-18-C5"):
-        timed(f"eval card vs CPU {arch}", phase_card_vs_cpu, dev, arch)
-        timed(f"train card vs CPU {arch}", phase_train_card_vs_cpu, dev,
-              arch)
-    variant_gaps = {label: timed(
-        f"train card vs CPU {label}",
-        lambda lb=label, kw=kw: phase_train_card_vs_cpu(dev, label=lb, **kw))
-        for label, kw in VARIANT_STEPS}
-    variant_gaps["81 classes"] = timed(
-        "train card vs CPU, 81 classes", phase_train_card_vs_cpu, dev,
-        "VGG16-OICR", "VGG16-OICR 81 classes", 81)
-    variant_gaps.update(timed("supervised card vs CPU",
-                              phase_supervised_card_vs_cpu, dev, rp))
-    variant_gaps.update(timed("Keypoint R-CNN, FBNet, deform ops card vs "
-                              "CPU", phase_keypoint_fbnet_card_vs_cpu, dev,
-                              rp))
+    study_root = tempfile.mkdtemp(prefix="odwscl_study_")
+    started = start_int8_study(study_root)
+    try:
+        for arch in ("VGG16-OICR", "R-18-C5"):
+            timed(f"eval card vs CPU {arch}", phase_card_vs_cpu, dev, arch)
+            timed(f"train card vs CPU {arch}", phase_train_card_vs_cpu, dev,
+                  arch)
+        variant_gaps = {label: timed(
+            f"train card vs CPU {label}",
+            lambda lb=label, kw=kw: phase_train_card_vs_cpu(dev, label=lb,
+                                                            **kw))
+            for label, kw in VARIANT_STEPS}
+        variant_gaps["81 classes"] = timed(
+            "train card vs CPU, 81 classes", phase_train_card_vs_cpu, dev,
+            "VGG16-OICR", "VGG16-OICR 81 classes", 81)
+        variant_gaps.update(timed("supervised card vs CPU",
+                                  phase_supervised_card_vs_cpu, dev, rp))
+        variant_gaps.update(timed("Keypoint R-CNN, FBNet, deform ops card "
+                                  "vs CPU", phase_keypoint_fbnet_card_vs_cpu,
+                                  dev, rp))
+        study = timed("int8 accuracy study, smoke size (the rest of its "
+                      "wall)", phase_int8_study, started, study_root)
+    finally:
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
+        shutil.rmtree(study_root, ignore_errors=True)
     SUMMARY.append("variants f32 card vs CPU loss gaps " + ", ".join(
         f"{k} {v:.1e}" for k, v in variant_gaps.items()))
     cfg, cfg_r50 = get_default_cfg(), get_default_cfg()
@@ -4483,6 +4711,8 @@ def main():
             "distributed training", phase_distributed, rp, tmp, CONFIG,
             "VGG16-OICR")
         timed("tp and sp", phase_tp_sp, dev)
+        timed("sp over the ResNet, FPN and FBNet bodies", phase_sp_bodies,
+              dev)
         orbax = timed("Orbax checkpoint import and resume", phase_orbax, dev,
                       rp, tmp)
         (r50_fwd, r50_bwd), ckpt = timed(
@@ -4532,6 +4762,7 @@ def main():
                  **pooler, **mask14}
     # the int32 instantiations: the paths on maps past 65,535 cells
     wide_paths = {k: v[3:] for k, v in kp_full.items()}
+    # the int8 study's CLI runs (phase 26) count in their own processes
     by_path = {"fwd": {"VGG16-OICR eval": eval_fwd, "R-50-C5 eval": r50_eval,
                        "Orbax import eval": orbax["Orbax import eval"][0],
                        "VGG16-OICR distributed checkpoint eval": dist_eval,
@@ -4540,20 +4771,25 @@ def main():
                        **{f"{k} eval": v["eval"] for k, v in variants.items()
                           if "eval" in v},
                        "COCO14 eval": coco["COCO14"]["eval"],
-                       **{k: v[0] for k, v in sup_paths.items()}},
+                       **{k: v[0] for k, v in sup_paths.items()},
+                       **{f"int8 study eval {m}": study[m]["fwd"]
+                          for m in STUDY_MODES}},
                "fwd_argmax": {"VGG16-OICR": train_fwd, "R-50-C5": r50_fwd,
                               "Orbax resume": orbax["Orbax resume"][1],
                               "VGG16-OICR distributed": dist_fwd,
                               **{k: v["train"][0]
                                  for k, v in variants.items()},
                               **{k: v["train"][0] for k, v in coco.items()},
-                              **{k: v[1] for k, v in sup_paths.items()}},
+                              **{k: v[1] for k, v in sup_paths.items()},
+                              "int8 study train": study["train"][
+                                  "fwd_argmax"]},
                "bwd": {"VGG16-OICR": train_bwd, "R-50-C5": r50_bwd,
                        "Orbax resume": orbax["Orbax resume"][2],
                        "VGG16-OICR distributed": dist_bwd,
                        **{k: v["train"][1] for k, v in variants.items()},
                        **{k: v["train"][1] for k, v in coco.items()},
-                       **{k: v[2] for k, v in sup_paths.items()}}}
+                       **{k: v[2] for k, v in sup_paths.items()},
+                       "int8 study train": study["train"]["bwd"]}}
 
     src = "odwscl_tpu_torch/csrc/"
     no_lib = ("no single PyTorch call computes ROIPool; torchvision is not "
@@ -4656,7 +4892,9 @@ def main():
                      "conv_general_dilated int8 -> int32 at :109; no Pallas "
                      "kernel)"),
         "launches": sum(v[0] for v in int8_runs.values()),
-        "launches_by_path": {k: v[0] for k, v in int8_runs.items()},
+        "launches_by_path": {**{k: v[0] for k, v in int8_runs.items()},
+                             **{f"int8 study eval {m}": study[m]["conv_int8"]
+                                for m in STUDY_MODES[1:]}},
         "max_abs_err": int8_err,
         **{k: int8_total[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "cudnn_bf16_ms",
@@ -4683,7 +4921,9 @@ def main():
                      "(:128-131); XLA elementwise and reduce, no Pallas "
                      "kernel"),
         "launches": sum(v[1] for v in int8_runs.values()),
-        "launches_by_path": {k: v[1] for k, v in int8_runs.items()},
+        "launches_by_path": {**{k: v[1] for k, v in int8_runs.items()},
+                             **{f"int8 study eval {m}": study[m]["quant_int8"]
+                                for m in STUDY_MODES[1:]}},
         "max_abs_err": quant_err,
         "ms": dyn["_ms"], "plain_ms": dyn["_plain_ms"],
         "bound_ms": dyn["_bound_ms"], "bound_by": "bytes",

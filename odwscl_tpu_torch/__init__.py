@@ -6,10 +6,11 @@ relative path. It imports torch, numpy and the standard library only.
 
 Covered: the training and evaluation paths of every model family of the
 JAX ``build_model`` (VOC and COCO, the WSOD variants, int8 serving),
-multi-process training (``parallel/``), the utilities and the CLIs; the
-Orbax checkpoint import and ``tools/int8_accuracy_study.py`` are still to
-come (ROADMAP.md). The ROIPool forward and backward and the int8 conv and
-quantize run hand-written CUDA kernels (``csrc/*.cu``) on the card; the
+multi-process training, tensor- and spatially-parallel serving over every
+body (``parallel/``), the JAX package's Orbax checkpoints, the utilities,
+the CLIs and the int8 accuracy study (``tools/int8_accuracy_study.py``).
+The ROIPool forward and backward and the int8 conv and quantize run
+hand-written CUDA kernels (``csrc/*.cu``) on the card; the
 other ops are torch, and the host's proposal cleaning is native C++
 (``csrc/host_ops.cpp``).
 

@@ -6,12 +6,16 @@ The same layout and generator as ``tools/make_synthetic_voc.py``:
 Selective-Search-style proposal pickles (jittered GT boxes, then random
 boxes), all from one seeded ``numpy.random.RandomState``: the test split
 first (ids 1..n_test, one or two objects each), then the trainval split
-(the next n_trainval ids, one to three labelled objects each). Image size,
-proposal count and box sizes are arguments, so the same writer serves
-small test sets and VOC-sized runs.
+(the next n_trainval ids, one to three labelled objects each). With
+``trainval_first`` it writes ``tools/make_synthetic_voc.py:main``'s
+dataset instead, draw for draw and byte for byte: trainval first (ids
+1..n_trainval), then test, one or two objects each, every proposal kept
+(the GT jitters can outnumber ``n_props``). Image size, proposal count
+and box sizes are arguments, so the same writer serves small test sets
+and VOC-sized runs.
 
     python -m odwscl_tpu_torch.data.synthetic --out DIR [--n-test N]
-        [--n-trainval N ...]
+        [--n-trainval N] [--trainval-first ...]
     python -m odwscl_tpu_torch.data.synthetic --coco --out DIR \
         [--layout coco17|coco14|coco17_mcg] [--n-train N] [--n-val N] \
         [--n-valminusminival N] [--partial] [--web] ...
@@ -66,9 +70,10 @@ def make_split(root: str, split: str, ids: Sequence[str],
                img_hw: Tuple[int, int] = (120, 144),
                prop_size: Tuple[int, int] = (22, 70),
                obj_size: Tuple[int, int] = (30, 60),
-               n_obj: Tuple[int, int] = (1, 3)):
+               n_obj: Tuple[int, int] = (1, 3), cut_props: bool = True):
     """Images, annotations and the split list; returns (boxes, ids). Each
-    image gets ``randint(*n_obj)`` objects."""
+    image gets ``randint(*n_obj)`` objects and ``n_props`` proposals (more
+    when its GT jitters outnumber them and not ``cut_props``)."""
     from PIL import Image
 
     for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
@@ -106,7 +111,8 @@ def make_split(root: str, split: str, ids: Sequence[str],
             px = rng.randint(0, max(w - pw, 1))
             py = rng.randint(0, max(h - ph, 1))
             props.append([px, py, px + pw, py + ph])
-        boxes_list.append(np.asarray(props[:n_props], np.float32))
+        boxes_list.append(np.asarray(props[:n_props] if cut_props else props,
+                                     np.float32))
         ids_list.append(int(img_id))
     with open(os.path.join(root, "ImageSets", "Main", f"{split}.txt"),
               "w") as f:
@@ -122,20 +128,30 @@ def write_synthetic_voc(out: str, n_test: int = 4, seed: int = 0,
                         test_proposal_file: str = "proposal/SS-voc07_test.pkl",
                         n_trainval: int = 0,
                         train_proposal_file: str =
-                        "proposal/SS-voc07_trainval.pkl") -> str:
+                        "proposal/SS-voc07_trainval.pkl",
+                        trainval_first: bool = False) -> str:
     """The VOC2007 ``test`` split (and a ``trainval`` split when
     ``n_trainval`` > 0) under ``out``; proposal files are paths relative to
-    ``out``."""
+    ``out``. ``trainval_first``: ``tools/make_synthetic_voc.py``'s layout
+    (module docstring)."""
     rng = np.random.RandomState(seed)
     root = os.path.join(out, "voc", "VOC2007")
-    splits = [("test", range(1, n_test + 1), test_proposal_file, (1, 3))]
-    if n_trainval:
-        splits.append(("trainval", range(n_test + 1, n_test + n_trainval + 1),
-                       train_proposal_file, (1, 4)))
+    if trainval_first:
+        splits = [("trainval", range(1, n_trainval + 1), train_proposal_file,
+                   (1, 3)),
+                  ("test", range(n_trainval + 1, n_trainval + n_test + 1),
+                   test_proposal_file, (1, 3))]
+    else:
+        splits = [("test", range(1, n_test + 1), test_proposal_file, (1, 3))]
+        if n_trainval:
+            splits.append(("trainval",
+                           range(n_test + 1, n_test + n_trainval + 1),
+                           train_proposal_file, (1, 4)))
     for split, id_range, pfile, n_obj in splits:
         ids = [f"{i:06d}" for i in id_range]
         boxes, img_ids = make_split(root, split, ids, rng, n_props, img_hw,
-                                    prop_size, obj_size, n_obj)
+                                    prop_size, obj_size, n_obj,
+                                    cut_props=not trainval_first)
         path = os.path.join(out, pfile)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         write_proposal_pickle(path, boxes, img_ids)
@@ -404,6 +420,8 @@ def main(argv=None):
     ap.add_argument("--n-trainval", type=int, default=0)
     ap.add_argument("--train-proposal-file",
                     default="proposal/SS-voc07_trainval.pkl")
+    ap.add_argument("--trainval-first", action="store_true",
+                    help="tools/make_synthetic_voc.py's layout")
     coco = ap.add_argument_group("COCO (--coco)")
     coco.add_argument("--coco", action="store_true")
     coco.add_argument("--layout", default="coco17", choices=COCO_LAYOUTS)
@@ -429,7 +447,8 @@ def main(argv=None):
     write_synthetic_voc(a.out, a.n_test, a.seed, (a.img_h, a.img_w),
                         a.n_props, test_proposal_file=a.test_proposal_file,
                         n_trainval=a.n_trainval,
-                        train_proposal_file=a.train_proposal_file)
+                        train_proposal_file=a.train_proposal_file,
+                        trainval_first=a.trainval_first)
     print(f"synthetic VOC at {a.out}: {a.n_test} test and {a.n_trainval} "
           f"trainval images ({a.img_h}x{a.img_w}, {a.n_props} proposals)")
 

@@ -16,7 +16,7 @@ the deformable-conv ops, the data-, tensor- and spatially-parallel
 modules, the loggers and the other utilities, the native host library's
 binding and the proposal converter, and the Orbax import's zstd decoder,
 OCDBT reader and zarr reader, which must need none of the libraries that
-wrote the checkpoints. No tolerance applies.
+wrote the checkpoints, and the int8 accuracy study. No tolerance applies.
 """
 
 import os
@@ -59,7 +59,7 @@ for required in ("ops.dropblock", "losses.mining", "losses.supcon",
                  "utils.miscellaneous", "utils.pgt_metrics",
                  "utils.visualize", "utils.host_ops",
                  "tools.proposal_convert", "utils.zstd", "utils.ocdbt",
-                 "utils.orbax_import"):
+                 "utils.orbax_import", "tools.int8_accuracy_study"):
     assert "odwscl_tpu_torch." + required in names, required
 assert len(names) >= 90, names
 """

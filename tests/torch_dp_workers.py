@@ -1,5 +1,6 @@
 """Multi-process helpers of the port's data-parallel, TP and SP tests (not
-collected): ``run_ranks`` spawns ``world`` processes that join a ``gloo``
+collected): ``run_ranks`` (or ``start_ranks`` and ``join_ranks``, to run
+groups at once) spawns ``world`` processes that join a ``gloo``
 group through a ``file://`` init method under the test's tmp_path (no
 fixed port, so concurrent test workers cannot collide), run one of the
 functions below and return each rank's result. The children import torch
@@ -13,7 +14,8 @@ and the port only.
   taking its share.
 - ``step_jax_batch``: one data-parallel step on a given batch, weights
   and draws (the JAX-parity case).
-- ``tp``, ``sp``: the serving modules on each rank.
+- ``tp``, ``sp``: the serving modules on each rank; ``sp_bodies``: the
+  spatially-parallel ResNet, FPN and FBNet bodies, several cases a spawn.
 """
 
 from __future__ import annotations
@@ -48,10 +50,22 @@ def run_ranks(world, tmp, fn_name, *args, timeout_s=300.0):
     """``fn_name(*args)`` on ``world`` gloo processes; [result of rank r].
     Raises when a rank fails or the ranks outlast ``timeout_s`` (then they
     are terminated)."""
+    return join_ranks(start_ranks(world, tmp, fn_name, *args),
+                      timeout_s=timeout_s)
+
+
+def start_ranks(world, tmp, fn_name, *args):
+    """``run_ranks`` without the wait: a handle for ``join_ranks``, so
+    that groups of several world sizes can run at once."""
     tmp = str(tmp)
     init = os.path.join(tmp, f"init_{fn_name}_{world}_{os.getpid()}")
     ctx = mp.spawn(_entry, args=(world, init, fn_name, args, tmp),
                    nprocs=world, join=False)
+    return ctx, world, tmp, fn_name
+
+
+def join_ranks(handle, timeout_s=300.0):
+    ctx, world, tmp, fn_name = handle
     deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
@@ -239,18 +253,10 @@ def tp(params, x, reduce=True):
     return out.numpy()
 
 
-def sp(arch, state, images, gather=True):
-    """``sp_backbone_apply`` of a ``VGGBackbone(arch)`` with ``state`` on
-    ``images`` (numpy); returns (features, the rows of each conv's input
-    in call order, seen by a hook on ``torch.nn.functional.conv2d``)."""
+def _conv_rows(rows):
+    """A mode that appends the rows of every ``F.conv2d`` input to
+    ``rows``."""
     from torch.overrides import TorchFunctionMode
-
-    from odwscl_tpu_torch.models.vgg16 import VGGBackbone
-    from odwscl_tpu_torch.parallel.sp import sp_backbone_apply
-
-    bb = VGGBackbone(arch, torch.float32)
-    bb.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
-    rows = []
 
     class ConvRows(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
@@ -258,7 +264,48 @@ def sp(arch, state, images, gather=True):
                 rows.append(int(args[0].shape[2]))
             return func(*args, **(kwargs or {}))
 
-    with torch.no_grad(), ConvRows():
+    return ConvRows()
+
+
+def sp(arch, state, images, gather=True):
+    """``sp_backbone_apply`` of a ``VGGBackbone(arch)`` with ``state`` on
+    ``images`` (numpy); returns (features, the rows of each conv's input
+    in call order, seen by a hook on ``torch.nn.functional.conv2d``)."""
+    from odwscl_tpu_torch.models.vgg16 import VGGBackbone
+    from odwscl_tpu_torch.parallel.sp import sp_backbone_apply
+
+    bb = VGGBackbone(arch, torch.float32)
+    bb.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    rows = []
+    with torch.no_grad(), _conv_rows(rows):
         out = sp_backbone_apply(bb, torch.from_numpy(images), None,
                                 gather=gather)
     return out.numpy(), rows
+
+
+def sp_bodies(cases):
+    """``sp_backbone_apply`` of each case (kind, constructor kwargs, the
+    path of an ``.npz`` of its state, images, gather): [(the outputs as a
+    list of numpy arrays, the rows of the first conv's input)], f32 on the
+    CPU."""
+    import numpy as np
+
+    from odwscl_tpu_torch.models import fbnet, fpn, resnet
+    from odwscl_tpu_torch.parallel.sp import sp_backbone_apply
+
+    kinds = {"ResNetBackbone": resnet.ResNetBackbone,
+             "ResNetFPNBackbone": fpn.ResNetFPNBackbone,
+             "ResNetFPNP3P7Backbone": fpn.ResNetFPNP3P7Backbone,
+             "FBNetTrunk": fbnet.FBNetTrunk}
+    out = []
+    for kind, kw, state, images, gather in cases:
+        bb = kinds[kind](**kw, compute_dtype=torch.float32)
+        with np.load(state) as f:
+            bb.load_state_dict({k: torch.from_numpy(f[k]) for k in f.files})
+        rows = []
+        with torch.no_grad(), _conv_rows(rows):
+            got = sp_backbone_apply(bb, torch.from_numpy(images), None,
+                                    gather=gather)
+        got = got if isinstance(got, tuple) else (got,)
+        out.append(([g.numpy() for g in got], rows[0]))
+    return out
